@@ -15,3 +15,12 @@ os.environ["XLA_FLAGS"] = (
 import jax
 
 jax.config.update("jax_platforms", "cpu")
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA GPU; skips where torch.cuda.is_available() "
+        "is False (run on the card: python -m pytest -m cuda "
+        "tests/test_torch_*.py)",
+    )

@@ -1,0 +1,135 @@
+"""Wave renderer: port of ``yuki_tpu/renderer/__init__.py``'s
+``make_wave_renderer`` (:60-172) and of the synchronous, non-accumulating
+wave loop of its manager thread (:383-436) as ``render_frame``.
+
+Only the path tracer on scenes that pass ``path_fused.wave_supported``
+is ported; anything else raises ``NotImplementedError`` rather than
+running another path.  The threaded ``Renderer`` facade (launch /
+check_status / kill, progress and ETA) comes later (ROADMAP Queue 1
+item 9).
+"""
+
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from ..camera import Camera, CameraParameters
+from ..film import Film, FilmSettings, film_tiles
+from ..integrators import PathParams
+from ..ops import path_fused
+
+
+def make_wave_renderer(scene, camera: Camera, sampler, integrator,
+                       tile_dim: int, wave_tiles: int,
+                       samples_per_launch: int = 1):
+    """Build the per-wave render step.
+
+    Returns fn(tile_origins [B,2] int tensor, sample_index int, seed int)
+      -> (pixels [B,td,td,3] f32, rays f32 scalar tensor)
+    on the scene's device.  Every lane is one pixel sample (Integrator::
+    render's per-pixel loop, integrators/mod.rs:119-185, flattened).
+
+    ``samples_per_launch`` > 1 renders that many consecutive sample
+    generations per call and returns their pixel SUM, added in sample
+    order as yuki_tpu's scan does (:154-164).  ``wave_tiles`` is the
+    intended wave size; a call may pass fewer tiles."""
+    if not isinstance(integrator, PathParams):
+        raise NotImplementedError(
+            f"integrator {integrator!r}: only PathParams is ported "
+            "(Whitted and debug integrators: ROADMAP Queue 1 item 10)"
+        )
+    path_fused.check_wave_supported(scene.meta, sampler)
+    if wave_tiles < 1 or samples_per_launch < 1:
+        raise ValueError("wave_tiles and samples_per_launch must be >= 1")
+    td = tile_dim
+    tables = path_fused.make_tables(scene, camera, integrator)
+    dev = tables.device
+    iy, ix = torch.meshgrid(
+        torch.arange(td, dtype=torch.int32, device=dev),
+        torch.arange(td, dtype=torch.int32, device=dev),
+        indexing="ij",
+    )
+
+    def render_one(origins, sample_index: int, seed: int):
+        b = origins.shape[0]
+        px = (origins[:, 0, None, None] + ix[None]).reshape(-1)
+        py = (origins[:, 1, None, None] + iy[None]).reshape(-1)
+        li, rcount = path_fused.path_li_wave(tables, px.contiguous(),
+                                             py.contiguous(), sample_index,
+                                             seed)
+        return li.reshape(b, td, td, 3), rcount.to(torch.float32).sum()
+
+    def call(origins, sample_index: int, seed: int):
+        origins = torch.as_tensor(origins, device=dev).to(torch.int32)
+        pixels, rays = render_one(origins, int(sample_index), int(seed))
+        for k in range(1, samples_per_launch):
+            p_k, r_k = render_one(origins, int(sample_index) + k, int(seed))
+            pixels = pixels + p_k
+            rays = rays + r_k
+        return pixels, rays
+
+    return call
+
+
+@dataclass
+class FrameResult:
+    film: Film
+    ray_count: int  # closest-hit rays (shadow rays are traced, not counted)
+    elapsed_s: float  # wall time of the wave loop, device work included
+
+
+def render_frame(scene, camera_params: CameraParameters,
+                 film_settings: FilmSettings, sampler, integrator,
+                 wave_tiles: int = 256, samples_per_launch: int = 1,
+                 seed: int = 0) -> FrameResult:
+    """Render one frame without accumulation: every wave of tiles loops
+    over all its samples, and the film receives the spp-sample average
+    once per tile (yuki_tpu renderer/__init__.py:383-436, non-accumulate
+    branch, synchronous).  Film and kernels run on the scene's device."""
+    if film_settings.accumulate:
+        raise NotImplementedError(
+            "accumulate mode belongs to the threaded Renderer (ROADMAP "
+            "Queue 1 item 9)"
+        )
+    rx, ry = film_settings.effective_res()
+    camera = Camera.create(camera_params, rx, ry)
+    tiles = film_tiles(film_settings)
+    spp = sampler.samples_per_pixel
+    td = film_settings.tile_dim
+    wave_tiles = max(1, min(wave_tiles, len(tiles)))
+    # Batch only whole launches (spp % spl == 0 keeps the average exact).
+    spl = max(1, min(samples_per_launch, spp))
+    while spp % spl:
+        spl -= 1
+    render_fn = make_wave_renderer(scene, camera, sampler, integrator, td,
+                                   wave_tiles, samples_per_launch=spl)
+    dev = scene.device
+    film = Film(rx, ry, td, device=dev)
+    spp_t = torch.tensor(float(spp), dtype=torch.float32, device=dev)
+
+    start = time.monotonic()
+    total_rays = torch.zeros((), dtype=torch.float64, device=dev)
+    for w0 in range(0, len(tiles), wave_tiles):
+        wave = tiles[w0: w0 + wave_tiles]
+        ids = np.asarray([t.index for t in wave], dtype=np.int64)
+        origins = np.asarray([[t.x0, t.y0] for t in wave], dtype=np.int32)
+        if len(wave) < wave_tiles:
+            # Pad to the wave shape; padded ids fall outside the film and
+            # are dropped by add_tiles.
+            pad = wave_tiles - len(wave)
+            ids = np.concatenate([ids, np.full(pad, film.n_tiles, np.int64)])
+            origins = np.concatenate([origins, np.zeros((pad, 2), np.int32)])
+        origins_t = torch.as_tensor(origins, device=dev)
+        acc = None
+        for s in range(0, spp, spl):
+            px, rays = render_fn(origins_t, s, seed)
+            acc = px if acc is None else acc + px
+            total_rays += rays.to(torch.float64)
+        film.add_tiles(torch.as_tensor(ids, device=dev), acc / spp_t)
+    ray_count = int(total_rays.item())  # synchronises with the device
+    return FrameResult(film=film, ray_count=ray_count,
+                       elapsed_s=time.monotonic() - start)
