@@ -1,30 +1,50 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main path once on one NVIDIA GPU and check it.
+"""Drive the PyTorch port's main paths once on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py
 
-Needs one CUDA card, nvcc (the kernels are built from
-yuki_tpu_torch/ops/csrc at first use, into build/yuki_tpu_torch/) and the
-yuki_tpu_torch package beside this file.  It imports no JAX.  Phases:
+Needs one CUDA card, nvcc and g++ (the kernels are built from
+yuki_tpu_torch/ops/csrc, the BVH builder from yuki_tpu_torch/native, at
+first use, into build/yuki_tpu_torch/) and the yuki_tpu_torch package
+beside this file.  It imports no JAX.  Phases:
 
   1. the card (nvidia-smi name and power limit), CUDA version, kernel
-     build time and the bounce kernel's ptxas register/spill report;
-  2. each kernel against its plain PyTorch version on one 4096-tile wave
-     of the 1080p Cornell film (1,048,576 rays, depth 5): raygen_trace,
-     one bounce at bounce 0 and at bounce 3 from the same state, and the
-     whole wave; with each kernel's time beside the plain version's;
-  3. the golden: Cornell 64x48, depth 4, 8 spp, seed 42 through
+     build time and each kernel's ptxas register/spill report;
+  2. the dense wave's kernels against their plain PyTorch versions on one
+     4096-tile wave of the 1080p Cornell film (1,048,576 rays, depth 5):
+     raygen_trace, one bounce at bounce 0 and at bounce 3 from the same
+     state, and the whole wave; with each kernel's time beside the plain
+     version's;
+  3. the Cornell golden: 64x48, depth 4, 8 spp, seed 42 through
      make_wave_renderer on the card against
      tests/goldens/cornell_64x48_path4_8spp_seed42.npz (rendered by the
      JAX reference) under the chaos-aware bounds;
-  4. the main path: render_frame on Cornell at 1920x1080, depth 5,
+  4. the dense main path: render_frame on Cornell at 1920x1080, depth 5,
      UniformSampler 16 spp, 16-pixel tiles, 4096-tile waves, seed 1,
      counting kernel launches; the image must be finite, non-black and
-     have the red wall left and the green wall right.
+     have the red wall left and the green wall right;
+  5. the colonnade's host build (124,478 triangles): BVH, treelets,
+     chunks and slot budgets, each timed;
+  6. the treelet path's kernels against their plain versions on one
+     2048-tile wave of the 1080p colonnade (524,288 camera rays, seed 1),
+     with inputs packed by the main path's own code: treelet_closest on
+     the camera rays, shade on their hits, treelet_any on the bounce-0
+     shadow rays, resolve, then treelet_closest on the bounce-1 rays and
+     treelet_any on their shadow rays; the walks' plain versions run on
+     stated slices of whole 1024-ray blocks (on bounce 1, blocks holding
+     live and parked lanes), and tally the work each ray's own query
+     needs, from which the walks' bounds are computed;
+  7. the colonnade golden: 64x48, depth 3, 1 spp, seed 1 against
+     tests/goldens/torch_colonnade_64x48_path3_1spp_seed1.npz;
+  8. the treelet main path: render_frame on the colonnade at 1920x1080,
+     depth 5, UniformSampler 1 spp, 16-pixel tiles, 2048-tile waves, seed
+     1 (bench.py:273-276), counting launches, then the same frame under
+     torch.profiler for where the device time goes.
 
-Prints one JSON line describing the kernels, then as its last line
-{"ok": true, "device": {...}}.  Any failed phase prints the reason to
-stderr and exits with status 1 without those lines.
+Prints one JSON line describing the kernels, the card's name and power
+limit, then as its last line {"ok": true, "device": {...}}.  Any failed
+phase prints the reason to stderr and exits with status 1 without those
+lines.
 """
 
 import json
@@ -40,11 +60,36 @@ DEPTH = 5
 SPP = 16
 GOLDEN = os.path.join(REPO, "tests", "goldens",
                       "cornell_64x48_path4_8spp_seed42.npz")
-KERNEL_SOURCE = "yuki_tpu_torch/ops/csrc/path_fused.cu"
-REPLACES = {
-    "raygen_trace": "yuki_tpu/ops/path_fused.py:517",
-    "bounce": "yuki_tpu/ops/path_fused.py:709",
+COL_WAVE_TILES = 2048
+COL_GOLDEN = os.path.join(REPO, "tests", "goldens",
+                          "torch_colonnade_64x48_path3_1spp_seed1.npz")
+SLICE_BLOCKS = 64  # camera-wave 1024-ray blocks the plain walks run on
+B1_BLOCKS = 8  # bounce-1 blocks the plain walks run on
+CSRC = "yuki_tpu_torch/ops/csrc/"
+KERNELS = {  # name: (source, the TPU kernel it replaces)
+    "raygen_trace": ("path_fused.cu", "yuki_tpu/ops/path_fused.py:517"),
+    "bounce": ("path_fused.cu", "yuki_tpu/ops/path_fused.py:709"),
+    "treelet_closest": ("trace_treelets.cu",
+                        "yuki_tpu/ops/trace_treelets.py:55"),
+    "treelet_any": ("trace_treelets.cu", "yuki_tpu/ops/trace_treelets.py:129"),
+    "shade": ("shade_fused.cu", "yuki_tpu/ops/shade_fused.py:798"),
+    "resolve": ("shade_fused.cu", "yuki_tpu/ops/shade_fused.py:868"),
 }
+
+# Bounds: the least time the card could take for a kernel's work, the
+# larger of bytes over the memory rate and operations over the FP32 rate
+# (NVIDIA H100 SXM data sheet).  Operations
+# are adds, subtracts, multiplies, divides, square roots and min/max;
+# compares and selects are not counted.  Per unit of work:
+PEAK_BYTES = 3.35e12  # B/s
+PEAK_FP32 = 67e12  # FLOP/s
+OPS_WATERTIGHT = 43  # 9 translate, 12 shear, 9 edges, 2 det, 6 t_scaled,
+# 1 bound, 1 divide, 1 t, 2 barycentrics
+OPS_SLAB = 24  # 6 subtract, 6 multiply, 12 min/max
+OPS_SPHERE = 60  # transform 33, quadratic 21, root, q, two divides
+OPS_CAMERA = 54  # jitter 2, raster->camera 19, normalise 9 (twice), c2w 15
+CLOSEST_RAY_BYTES = 12 + 12 + 4 + 16  # o, d, t_max in; t, prim, b0, b1 out
+ANY_RAY_BYTES = 12 + 12 + 4 + 4 + 1  # o, d, t_max, skip id in; occluded out
 FLOATS = ("ox", "oy", "oz", "dx", "dy", "dz", "bx", "by", "bz",
           "rx", "ry", "rz")
 
@@ -89,6 +134,33 @@ def deep_parity(np, ref, got, spp=1):
     return n_bad, limit, mean_rel
 
 
+def bound(nbytes, ops):
+    """(bound_ms, bound_by) for a kernel moving nbytes and doing ops."""
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    t_ops = ops / PEAK_FP32 * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def reset_all_launches():
+    from yuki_tpu_torch.ops import path_fused, shade_fused, trace_treelets
+
+    for m in (path_fused, shade_fused, trace_treelets):
+        m.reset_launches()
+
+
+def all_launches():
+    from yuki_tpu_torch.ops import path_fused, shade_fused, trace_treelets
+
+    out = {}
+    for m in (path_fused, shade_fused, trace_treelets):
+        out.update(m.LAUNCHES)
+    return out
+
+
 def phase_device(torch):
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -102,6 +174,8 @@ def phase_device(torch):
           f"{torch.cuda.get_device_name(0)}")
     from yuki_tpu_torch.ops import _build
 
+    from yuki_tpu_torch import native
+
     t0 = time.monotonic()
     _build.library()
     print(f"kernel build+load: {time.monotonic() - t0:.2f} s "
@@ -110,6 +184,9 @@ def phase_device(torch):
         if "ptxas info" in line and ("registers" in line or "Compiling" in line) \
                 or "spill" in line:
             print(f"ptxas: {line.strip()}")
+    t0 = time.monotonic()
+    native.library()
+    print(f"BVH builder build+load (g++): {time.monotonic() - t0:.2f} s")
     return card
 
 
@@ -154,9 +231,16 @@ def phase_kernels(torch, np, dev):
     ms_k = cuda_ms(torch, lambda: tpf.raygen_trace(px, py, si, seed, tb), 10)
     ms_p = cuda_ms(torch, lambda: tpf.raygen_trace_plain(px, py, si, seed,
                                                          tb), 3)
+    tables = nbytes(tb.ms, tb.tri, tb.sp)
+    b_ms, b_by = bound(
+        nbytes(px, py, st_k, ph_k) + tables,
+        n * (OPS_CAMERA + tb.n_tris * OPS_WATERTIGHT
+             + tb.n_spheres * OPS_SPHERE))
     print(f"raygen_trace [{n} rays]: kernel {ms_k:.4f} ms, plain "
-          f"{ms_p:.4f} ms, max_abs_err {err:.3g}")
-    result["raygen_trace"] = dict(max_abs_err=err, ms=ms_k, plain_ms=ms_p)
+          f"{ms_p:.4f} ms, bound {b_ms:.4f} ms ({b_by}), max_abs_err "
+          f"{err:.3g}")
+    result["raygen_trace"] = dict(max_abs_err=err, ms=ms_k, plain_ms=ms_p,
+                                  bound_ms=b_ms, bound_by=b_by)
 
     # bounce at 0 and 3, each kernel vs plain from one input state
     states = {0: st_k}
@@ -184,11 +268,21 @@ def phase_kernels(torch, np, dev):
         t_k = cuda_ms(torch, lambda: tpf.bounce(s_in, ph_k, b, tb), 10)
         t_p = cuda_ms(torch, lambda: tpf.bounce_plain(s_in, ph_k, b, tb), 3)
         alive = int(s_in[st["alive"]].sum())
+        # Lower bound: the state in and out, and the next hit's full
+        # sweep for the lanes that trace one; the shading arithmetic and
+        # the shadow sweeps (which exit early) are not counted.
+        traced = int(out_k[st["alive"]].sum()) if b < DEPTH - 1 else 0
+        b_ms, b_by = bound(
+            nbytes(s_in, ph_k, out_k) + nbytes(tb.ms, tb.tri, tb.trs, tb.mat,
+                                               tb.lt, tb.sp),
+            traced * (tb.n_tris * OPS_WATERTIGHT + tb.n_spheres * OPS_SPHERE))
         print(f"bounce {b} [{n} rays, {alive} alive]: kernel {t_k:.4f} ms, "
-              f"plain {t_p:.4f} ms, next-hit ids agree {same:.6f}")
-        times[b] = (t_k, t_p)
+              f"plain {t_p:.4f} ms, bound {b_ms:.4f} ms ({b_by}), next-hit "
+              f"ids agree {same:.6f}")
+        times[b] = (t_k, t_p, b_ms, b_by)
     result["bounce"] = dict(max_abs_err=err, ms=times[0][0],
-                            plain_ms=times[0][1])
+                            plain_ms=times[0][1], bound_ms=times[0][2],
+                            bound_by=times[0][3])
 
     # whole wave, kernels vs plain
     li_k, rc_k = tpf.path_li_wave(tb, px, py, si, seed)
@@ -241,14 +335,18 @@ def phase_main_path(torch, np, dev, card):
     scene, cam, _ = cornell(device=dev)
     fs = FilmSettings(res=RES, tile_dim=16)
     torch.cuda.synchronize()
-    tpf.reset_launches()
+    reset_all_launches()
     res = render_frame(scene, cam, fs, UniformSampler(SPP),
                        PathParams(max_depth=DEPTH), wave_tiles=WAVE_TILES,
                        samples_per_launch=SPP, seed=1)
     torch.cuda.synchronize()
-    launches = dict(tpf.LAUNCHES)
-    for name, count in launches.items():
-        check(count > 0, f"main path: kernel {name} never launched")
+    counts = all_launches()
+    launches = {k: counts[k] for k in tpf.LAUNCHES}
+    for name, count in counts.items():
+        if name in launches:
+            check(count > 0, f"main path: kernel {name} never launched")
+        else:
+            check(count == 0, f"main path: treelet kernel {name} launched")
     img = res.film.image()
     check(img.shape == (RES[1], RES[0], 3), f"main path: shape {img.shape}")
     check(np.isfinite(img).all(), "main path: non-finite pixels")
@@ -266,6 +364,378 @@ def phase_main_path(torch, np, dev, card):
           f"{SPP / res.elapsed_s:.3f} spp/s, launches {launches}, "
           f"image mean {float(img.mean()):.5f}, left {left.round(4)}, "
           f"right {right.round(4)} [{card}]")
+    return launches
+
+
+def phase_colonnade_build(torch, np, dev):
+    """The colonnade's host build, with SceneBuilder.build's stage times."""
+    from yuki_tpu_torch.scene.testscenes import colonnade
+
+    t0 = time.monotonic()
+    scene, cam, _ = colonnade(device=dev)
+    t_scene = time.monotonic() - t0
+    sec = scene.build_seconds
+    tl, meta = scene.data.treelets, scene.meta
+    check(meta.traversal == "treelet", f"colonnade: traversal {meta.traversal}")
+    print(f"colonnade build: {t_scene:.3f} s in all (host): BVH "
+          f"{sec['bvh']:.3f} s, treelets {sec['treelets']:.3f} s, chunks "
+          f"{sec['chunks']:.3f} s, slot budgets {sec['slot_mult']:.3f} s; "
+          f"n_tris {meta.n_tris}, n_treelets {tl.n_treelets}, n_supers "
+          f"{tl.n_supers}, chunks {scene.data.chunks.n_treelets}, slot_mult "
+          f"{meta.slot_mult_tight}/{meta.slot_mult}")
+    return scene, cam
+
+
+def _colonnade_wave(torch, dev, cam):
+    """Camera rays of one 2048-tile wave of the 1080p colonnade film,
+    sample 0, seed 1, as make_wave_renderer makes them."""
+    from yuki_tpu_torch.camera import Camera
+    from yuki_tpu_torch.film import FilmSettings, film_tiles
+    from yuki_tpu_torch.sampling import SampleCtx, UniformSampler
+
+    tiles = film_tiles(FilmSettings(res=RES, tile_dim=16))[:COL_WAVE_TILES]
+    origins = torch.as_tensor([[t.x0, t.y0] for t in tiles],
+                              dtype=torch.int32, device=dev)
+    iy, ix = torch.meshgrid(torch.arange(16, device=dev, dtype=torch.int32),
+                            torch.arange(16, device=dev, dtype=torch.int32),
+                            indexing="ij")
+    px = (origins[:, 0, None, None] + ix[None]).reshape(-1)
+    py = (origins[:, 1, None, None] + iy[None]).reshape(-1)
+    ctx = SampleCtx(px=px, py=py, sample_index=0, seed=1)
+    u = UniformSampler(1).get_2d(ctx, 0)
+    o, d = Camera.create(cam, *RES).ray(
+        torch.stack([px.float(), py.float()], dim=-1) + u)
+    return ctx, o.contiguous(), d.contiguous()
+
+
+def _compare_closest(torch, tl, got, o, d, t_max, a, m, what):
+    """treelet_closest's output ``got`` against the plain walk on rays
+    [a, a + m); returns the plain walk's tally of the work."""
+    from yuki_tpu_torch.ops import trace_treelets as ttt
+
+    stats = {}
+    ref = ttt.treelet_closest_plain(tl, o[a:a + m], d[a:a + m],
+                                    t_max[a:a + m], stats)
+    torch.cuda.synchronize()
+    for g, r, k in zip(got, ref, ("t", "prim", "b0", "b1")):
+        check(torch.equal(g[a:a + m], r),
+              f"treelet_closest on {what}: {k} differs")
+    return stats
+
+
+def _compare_any(torch, tl, occ, no, nd, nt, skip, n, n_lights, a, m, what):
+    """treelet_any's output ``occ`` on light-major shadow rays against the
+    plain walk on rays [a, a + m) of each light; returns the tally."""
+    from yuki_tpu_torch.ops import trace_treelets as ttt
+
+    stats = {}
+    for li in range(n_lights):
+        lo = li * n + a
+        ref = ttt.treelet_any_plain(tl, no[lo:lo + m], nd[lo:lo + m],
+                                    nt[lo:lo + m], skip[lo:lo + m], stats)
+        check(torch.equal(occ[lo:lo + m], ref),
+              f"treelet_any on {what}: light {li} occlusion differs")
+    return stats
+
+
+def _per_light(n, n_lights, a, m, fn):
+    """Calls fn(lo, hi) on rays [a, a + m) of each light's n rays."""
+    def run():
+        for li in range(n_lights):
+            fn(li * n + a, li * n + a + m)
+    return run
+
+
+def phase_colonnade_kernels(torch, np, dev, scene, cam):
+    """The treelet path's four kernels against their plain versions at
+    the main path's shapes, on inputs made by the main path's own code:
+    one 2048-tile wave's camera rays, their bounce-0 shading, shadow rays
+    and resolve, then the wave's bounce-1 rays and their shadow rays."""
+    from yuki_tpu_torch import traverse
+    from yuki_tpu_torch.integrators import PathParams, _ph_i32
+    from yuki_tpu_torch.ops import shade_fused as tsf
+    from yuki_tpu_torch.ops import trace_treelets as ttt
+    from yuki_tpu_torch.ops.trace import F32_MAX
+
+    ctx, o, d = _colonnade_wave(torch, dev, cam)
+    n = o.shape[0]
+    check(n == COL_WAVE_TILES * 256, f"colonnade wave has {n} rays")
+    tl = scene.data.treelets
+    boxes = nbytes(tl.super_bounds, tl.super_range, tl.treelet_bounds)
+    row_bytes = tl.leaf_size * tl.rows.shape[1] * tl.rows.element_size()
+
+    def walk_bound(stats, rays, ray_bytes):
+        # Each ray's planes in and out once, the boxes once, the rows of
+        # the treelets some ray needs once; the box and triangle tests
+        # each ray's own query needs (the plain walk's tally).
+        return bound(rays * ray_bytes + boxes + stats["treelets"] * row_bytes,
+                     stats["tests"] * OPS_WATERTIGHT
+                     + stats["boxes"] * OPS_SLAB)
+
+    def work(stats):
+        return (f"{stats['tests']} triangle tests, {stats['boxes']} box "
+                f"tests, {stats['treelets']} treelets")
+
+    result = {}
+    sl = SLICE_BLOCKS * ttt.BLOCK
+    n_lights = len(scene.meta.light_types)
+
+    # treelet_closest on the camera rays; plain on the first blocks.
+    t_max = torch.full((n,), F32_MAX, device=dev)
+    got = ttt.treelet_closest(tl, o, d, t_max)
+    stats = _compare_closest(torch, tl, got, o, d, t_max, 0, sl,
+                             "camera rays")
+    ms_full = cuda_ms(torch, lambda: ttt.treelet_closest(tl, o, d, t_max), 3)
+    ms_k = cuda_ms(torch, lambda: ttt.treelet_closest(
+        tl, o[:sl], d[:sl], t_max[:sl]), 3)
+    ms_p = cuda_ms(torch, lambda: ttt.treelet_closest_plain(
+        tl, o[:sl], d[:sl], t_max[:sl]), 1)
+    b_ms, b_by = walk_bound(stats, sl, CLOSEST_RAY_BYTES)
+    print(f"treelet_closest [{n} camera rays: kernel {ms_full:.4f} ms; "
+          f"slice of the first {SLICE_BLOCKS} blocks = {sl} rays: kernel "
+          f"{ms_k:.4f} ms, plain {ms_p:.4f} ms, bound {b_ms:.4f} ms ({b_by}; "
+          f"{work(stats)})]: t, prim, b0, b1 equal on the slice; hits "
+          f"{int((got[1] >= 0).sum())}")
+    result["treelet_closest"] = dict(max_abs_err=0.0, ms=ms_k, plain_ms=ms_p,
+                                     bound_ms=b_ms, bound_by=b_by,
+                                     wave_ms=ms_full)
+
+    # shade on the bounce-0 hits, whole wave both ways.
+    hit = traverse.intersect(scene.data, scene.meta, o, d, t_max)
+    tables = tsf.make_shade_tables(scene, PathParams(DEPTH))
+    ph = _ph_i32(ctx)
+    ones = torch.ones_like(o)
+    no_spec = torch.zeros_like(hit.hit)
+    rh, prim = tsf.pack_shade(hit, o, d, ones, hit.hit, no_spec)
+    dim0 = 2
+    out_k = tsf.shade_planes(tables, rh, prim, ph, None, dim0, 0)
+    out_p = tsf.shade_planes_plain(tables, rh, prim, ph, None, dim0, 0)
+    torch.cuda.synchronize()
+    flags = [tsf._OUT["alive2"], tsf._OUT["spec2"]] + [
+        tsf._N_FIXED_OUT + tsf._N_PER_LIGHT * li + 7
+        for li in range(n_lights)]
+    for p in flags:
+        check(torch.equal(out_k[p], out_p[p]), f"shade: flag plane {p} differs")
+    check(torch.allclose(out_k, out_p, rtol=2e-6, atol=1e-7),
+          "shade: planes outside rtol 2e-6 / atol 1e-7 (max "
+          f"{float((out_k - out_p).abs().max()):.3g})")
+    err = float((out_k - out_p).abs().max())
+    ms_k = cuda_ms(torch, lambda: tsf.shade_planes(tables, rh, prim, ph, None,
+                                                   dim0, 0), 10)
+    ms_p = cuda_ms(torch, lambda: tsf.shade_planes_plain(
+        tables, rh, prim, ph, None, dim0, 0), 3)
+    # Bytes: the 15 ray/hit/carry planes, prim and ph in; the 14 + 11L
+    # planes written out (no padding planes); the shading rows of the
+    # distinct triangles hit; the material, light and sphere tables.  The
+    # shading arithmetic is not tallied (operations: a bound of zero).
+    hit_rows = int(torch.unique(prim[prim >= 0]).numel())
+    b_ms, b_by = bound(
+        n * 4 * (15 + 2 + 14 + 11 * n_lights)
+        + hit_rows * tables.trs.shape[1] * 4
+        + nbytes(tables.mat, tables.lt, tables.sp), 0)
+    print(f"shade [{n} rays, {int(hit.hit.sum())} hit, {hit_rows} distinct "
+          f"triangles]: kernel {ms_k:.4f} ms, plain {ms_p:.4f} ms, bound "
+          f"{b_ms:.4f} ms ({b_by}), max_abs_err {err:.3g}")
+    result["shade"] = dict(max_abs_err=err, ms=ms_k, plain_ms=ms_p,
+                           bound_ms=b_ms, bound_by=b_by)
+
+    # treelet_any on the bounce-0 shadow rays (light-major, 2N), plain on
+    # the first blocks of each light's rays.
+    (o2, d2, beta2, alive2, spec2, no, nd, nt, ns_skip, nw, nc,
+     ne) = tsf.shade_fused(tables, hit, o, d, ones, hit.hit, no_spec, ph,
+                           dim0, 0)
+    occ = ttt.treelet_any(tl, no, nd, nt, ns_skip)
+    stats = _compare_any(torch, tl, occ, no, nd, nt, ns_skip, n, n_lights,
+                         0, sl, "bounce-0 shadow rays")
+    ms_full = cuda_ms(torch, lambda: ttt.treelet_any(tl, no, nd, nt, ns_skip),
+                      3)
+
+    def slices(fn):
+        return _per_light(n, n_lights, 0, sl, lambda lo, hi: fn(
+            tl, no[lo:hi], nd[lo:hi], nt[lo:hi], ns_skip[lo:hi]))
+
+    ms_k = cuda_ms(torch, slices(ttt.treelet_any), 3)
+    ms_p = cuda_ms(torch, slices(ttt.treelet_any_plain), 1)
+    nsl = n_lights * sl
+    b_ms, b_by = walk_bound(stats, nsl, ANY_RAY_BYTES)
+    print(f"treelet_any [{no.shape[0]} shadow rays, {int(nw.sum())} worth, "
+          f"{int(occ.sum())} occluded: kernel {ms_full:.4f} ms; slices of "
+          f"the first {SLICE_BLOCKS} blocks of each light = {nsl} rays: "
+          f"kernel {ms_k:.4f} ms, plain {ms_p:.4f} ms, bound {b_ms:.4f} ms "
+          f"({b_by}; {work(stats)})]: occlusion equal on the slices")
+    result["treelet_any"] = dict(max_abs_err=0.0, ms=ms_k, plain_ms=ms_p,
+                                 bound_ms=b_ms, bound_by=b_by,
+                                 wave_ms=ms_full)
+
+    # resolve at bounce 0, whole wave both ways.
+    occ_all = traverse.any_intersect(scene.data, scene.meta, no, nd, nt,
+                                     ns_skip)
+    rs, nee = tsf.pack_resolve(tables, torch.zeros_like(o), ones, hit.hit,
+                               ~hit.hit, ne, occ_all, nw, nc)
+    got = tsf.resolve_planes(rs, nee, n_lights, 0, False)
+    ref = tsf.resolve_planes_plain(rs, nee, n_lights, 0, False)
+    torch.cuda.synchronize()
+    check(torch.equal(got, ref), "resolve: radiance differs")
+    ms_k = cuda_ms(torch, lambda: tsf.resolve_planes(
+        rs, nee, n_lights, 0, False), 10)
+    ms_p = cuda_ms(torch, lambda: tsf.resolve_planes_plain(
+        rs, nee, n_lights, 0, False), 3)
+    # Bytes: radiance, beta, alive, missed, emission and the 5L verdict
+    # planes in, radiance out; operations: 6 for the miss, 3 per light, 6
+    # for the update (no clamp at bounce 0).
+    b_ms, b_by = bound(n * 4 * (3 + 3 + 1 + 1 + 3 + 5 * n_lights + 3),
+                       n * (12 + 3 * n_lights))
+    print(f"resolve [{n} rays]: kernel {ms_k:.4f} ms, plain {ms_p:.4f} ms, "
+          f"bound {b_ms:.4f} ms ({b_by}), radiance equal; mean "
+          f"{float(got[:3].mean()):.5f}")
+    result["resolve"] = dict(max_abs_err=0.0, ms=ms_k, plain_ms=ms_p,
+                             bound_ms=b_ms, bound_by=b_by)
+
+    # The wave's bounce-1 rays: divergent, dead lanes parked at the scene
+    # centre with t_max 0.  Plain walks on B1_BLOCKS whole blocks that
+    # hold both live and parked lanes.
+    t_max2 = torch.where(alive2, F32_MAX, 0.0).to(torch.float32)
+    got = ttt.treelet_closest(tl, o2, d2, t_max2)
+    parked = (t_max2 == 0.0).reshape(-1, ttt.BLOCK).sum(dim=1)
+    mixed = torch.nonzero((parked > 0) & (parked < ttt.BLOCK)).squeeze(1)
+    check(mixed.numel() > 0, "bounce 1: no block mixes live and parked lanes")
+    a = int(mixed[mixed.numel() // 2]) * ttt.BLOCK
+    m = min(B1_BLOCKS * ttt.BLOCK, n - a)
+    n_parked = int((t_max2[a:a + m] == 0.0).sum())
+    span = f"blocks {a // ttt.BLOCK}-{(a + m) // ttt.BLOCK - 1} = {m} rays"
+    stats = _compare_closest(torch, tl, got, o2, d2, t_max2, a, m,
+                             "bounce-1 rays")
+    ms_full = cuda_ms(torch, lambda: ttt.treelet_closest(tl, o2, d2, t_max2),
+                      1)
+    ms_k = cuda_ms(torch, lambda: ttt.treelet_closest(
+        tl, o2[a:a + m], d2[a:a + m], t_max2[a:a + m]), 3)
+    b_ms, b_by = walk_bound(stats, m, CLOSEST_RAY_BYTES)
+    print(f"treelet_closest on the wave's bounce-1 rays [{n} rays, "
+          f"{int(alive2.sum())} live: kernel {ms_full:.4f} ms; {span}, "
+          f"{n_parked} parked with t_max 0: kernel {ms_k:.4f} ms, bound "
+          f"{b_ms:.4f} ms ({b_by}; {work(stats)})]: t, prim, b0, b1 equal "
+          "on the slice")
+
+    # ... and their shadow rays, from the main path's bounce-1 shading.
+    hit2 = traverse.intersect(scene.data, scene.meta, o2, d2, t_max2)
+    (_, _, _, _, _, no2, nd2, nt2, sk2, nw2, _,
+     _) = tsf.shade_fused(tables, hit2, o2, d2, beta2, alive2 & hit2.hit,
+                          spec2, ph, dim0 + 2 * n_lights + 3, 1)
+    occ2 = ttt.treelet_any(tl, no2, nd2, nt2, sk2)
+    stats = _compare_any(torch, tl, occ2, no2, nd2, nt2, sk2, n, n_lights,
+                         a, m, "bounce-1 shadow rays")
+    n_parked = sum(int((nt2[li * n + a:li * n + a + m] == 0.0).sum())
+                   for li in range(n_lights))
+    ms_full = cuda_ms(torch, lambda: ttt.treelet_any(tl, no2, nd2, nt2, sk2),
+                      1)
+    ms_k = cuda_ms(torch, _per_light(n, n_lights, a, m, lambda lo, hi:
+                                     ttt.treelet_any(tl, no2[lo:hi],
+                                                     nd2[lo:hi], nt2[lo:hi],
+                                                     sk2[lo:hi])), 3)
+    b_ms, b_by = walk_bound(stats, n_lights * m, ANY_RAY_BYTES)
+    print(f"treelet_any on the wave's bounce-1 shadow rays [{no2.shape[0]} "
+          f"rays, {int(nw2.sum())} worth, {int(occ2.sum())} occluded: kernel "
+          f"{ms_full:.4f} ms; {span} of each light, {n_parked} parked with "
+          f"t_max 0: kernel {ms_k:.4f} ms, bound {b_ms:.4f} ms ({b_by}; "
+          f"{work(stats)})]: occlusion equal on the slices")
+    return result
+
+
+def phase_colonnade_golden(torch, np, scene, cam):
+    from yuki_tpu_torch.film import FilmSettings
+    from yuki_tpu_torch.integrators import PathParams
+    from yuki_tpu_torch.renderer import render_frame
+    from yuki_tpu_torch.sampling import UniformSampler
+
+    res = render_frame(scene, cam, FilmSettings(res=(64, 48), tile_dim=16),
+                       UniformSampler(1), PathParams(3), wave_tiles=12,
+                       seed=1)
+    img = res.film.image()
+    gold = np.load(COL_GOLDEN)["img"]
+    check(img.shape == gold.shape, f"colonnade golden: shape {img.shape}")
+    check(np.isfinite(img).all(), "colonnade golden: non-finite pixels")
+    n_bad, limit, mean_rel = deep_parity(np, gold, img)
+    rmse = float(np.sqrt(np.mean((img - gold) ** 2)))
+    print(f"golden colonnade 64x48 d3 1spp seed 1: divergent px {n_bad} "
+          f"(limit {limit}), mean rel diff {mean_rel:.3g}, rmse {rmse:.4g}")
+
+
+def device_breakdown(prof):
+    """Device time (ms) and kernel count by family from a torch.profiler
+    run: {family: [ms, launches]}."""
+    groups = {k: [0.0, 0] for k in ("treelet_closest", "treelet_any",
+                                    "shade", "resolve", "torch glue")}
+    for e in prof.key_averages():
+        t = float(getattr(e, "self_device_time_total", 0.0) or 0.0) / 1e3
+        if t <= 0.0:
+            continue
+        key = next((k for k in ("treelet_closest", "treelet_any", "shade",
+                                "resolve") if f"{k}_kernel" in e.key),
+                   "torch glue")
+        groups[key][0] += t
+        groups[key][1] += e.count
+    return groups
+
+
+def phase_colonnade_main_path(torch, np, scene, cam, card):
+    from yuki_tpu_torch.film import FilmSettings
+    from yuki_tpu_torch.integrators import PathParams
+    from yuki_tpu_torch.ops import shade_fused as tsf
+    from yuki_tpu_torch.ops import trace_treelets as ttt
+    from yuki_tpu_torch.renderer import render_frame
+    from yuki_tpu_torch.sampling import UniformSampler
+
+    fs = FilmSettings(res=RES, tile_dim=16)
+
+    def frame():
+        return render_frame(scene, cam, fs, UniformSampler(1),
+                            PathParams(max_depth=DEPTH),
+                            wave_tiles=COL_WAVE_TILES, seed=1)
+
+    torch.cuda.synchronize()
+    reset_all_launches()
+    res = frame()
+    torch.cuda.synchronize()
+    counts = all_launches()
+    launches = {k: counts[k] for k in (*ttt.LAUNCHES, *tsf.LAUNCHES)}
+    for name, count in counts.items():
+        if name in launches:
+            check(count > 0, f"colonnade main path: {name} never launched")
+        else:
+            check(count == 0, f"colonnade main path: dense kernel {name} "
+                  "launched")
+    img = res.film.image()
+    check(img.shape == (RES[1], RES[0], 3),
+          f"colonnade main path: shape {img.shape}")
+    check(np.isfinite(img).all(), "colonnade main path: non-finite pixels")
+    check(float(img.mean()) > 0.0, "colonnade main path: black image")
+    mrays = res.ray_count / res.elapsed_s / 1e6
+    print(f"main path colonnade {RES[0]}x{RES[1]} d{DEPTH} 1spp "
+          f"{COL_WAVE_TILES}-tile waves: {res.ray_count} closest-hit rays in "
+          f"{res.elapsed_s:.3f} s = {mrays:.2f} Mrays/s, "
+          f"{1.0 / res.elapsed_s:.3f} spp/s, {res.elapsed_s:.3f} s/frame, "
+          f"launches {launches}, image mean {float(img.mean()):.5f} [{card}]")
+
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        frame()
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+    groups = device_breakdown(prof)
+    busy = sum(v[0] for v in groups.values())
+    if busy > 0.0:
+        parts = ", ".join(
+            f"{k} {ms:.3f} ms / {cnt} kernels = {ms / max(cnt, 1):.3f} ms each"
+            for k, (ms, cnt) in groups.items())
+        print(f"colonnade frame under torch.profiler: wall {wall * 1e3:.3f} "
+              f"ms, device busy {busy:.3f} ms ({100 * busy / wall / 1e3:.1f}%):"
+              f" {parts} [{card}]")
+    else:
+        print("colonnade frame under torch.profiler: no device time recorded "
+              "(device breakdown not measured)")
     return launches
 
 
@@ -295,15 +765,20 @@ def main():
         kernels = phase_kernels(torch, np, dev)
         phase_golden(torch, np, dev)
         launches = phase_main_path(torch, np, dev, card)
+        scene, cam = phase_colonnade_build(torch, np, dev)
+        kernels.update(phase_colonnade_kernels(torch, np, dev, scene, cam))
+        phase_colonnade_golden(torch, np, scene, cam)
+        launches.update(phase_colonnade_main_path(torch, np, scene, cam,
+                                                  card))
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
     print(f"chip_smoke: all phases passed in {time.monotonic() - t0:.1f} s")
 
     print(json.dumps({"kernels": [
-        dict(name=name, route="cuda", source=KERNEL_SOURCE,
-             replaces=REPLACES[name], launches=launches[name], **kernels[name])
-        for name in ("raygen_trace", "bounce")
+        dict(name=name, route="cuda", source=CSRC + src, replaces=replaces,
+             launches=launches[name], library_ms=None, **kernels[name])
+        for name, (src, replaces) in KERNELS.items()
     ]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

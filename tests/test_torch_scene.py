@@ -10,6 +10,7 @@ import pytest
 import torch
 
 import torch_parity as tp
+from yuki_tpu_torch.scene import data as tdata
 
 torch.set_num_threads(2)
 
@@ -34,12 +35,7 @@ TABLE_LEAVES = [
     "background", "world_lo", "world_hi",
 ]
 
-META_FIELDS = [
-    "name", "n_tris", "n_spheres", "n_lights", "n_materials", "light_types",
-    "traversal", "material_types", "has_sigma", "has_textures",
-    "has_sigma_tex", "sphere_mats_untextured", "texpool_texels",
-    "texpool_u8_exact", "texpool_palette", "n_textures",
-]
+META_FIELDS = [f.name for f in dataclasses.fields(tdata.SceneMeta)]
 
 
 def _port_leaves(scene) -> dict:
@@ -80,9 +76,8 @@ def test_tables_bit_identical(scene_pair):
 
 
 def test_world_bounds_are_bvh_root(scene_pair):
-    """The port takes the scene box as the min/max over triangle vertices
-    (no BVH yet); that equals the JAX BVH root's box, which JAX then
-    extends by the sphere AABBs exactly as the port does."""
+    """The scene box is the BVH root's box (the min/max over triangle
+    vertices) extended by the sphere AABBs, in both packages."""
     _, jscene, tscene = scene_pair
     tri = np.stack([np.asarray(jscene.data.tris.p0),
                     np.asarray(jscene.data.tris.p1),
@@ -91,6 +86,8 @@ def test_world_bounds_are_bvh_root(scene_pair):
     root_hi = jscene.bvh_host.node_hi[0]
     np.testing.assert_array_equal(tri.min(axis=0), root_lo)
     np.testing.assert_array_equal(tri.max(axis=0), root_hi)
+    np.testing.assert_array_equal(tscene.bvh_host.node_lo[0], root_lo)
+    np.testing.assert_array_equal(tscene.bvh_host.node_hi[0], root_hi)
     np.testing.assert_array_equal(tscene.data.world_lo.numpy(),
                                   np.asarray(jscene.data.world_lo))
     np.testing.assert_array_equal(tscene.data.world_hi.numpy(),
@@ -125,16 +122,28 @@ def test_bridge_rejects_missing_leaves():
 
 
 def test_treelet_sized_scene_raises():
-    """Scenes past DENSE_TRI_THRESHOLD need treelets (Slice B)."""
+    """Scenes past DENSE_TRI_THRESHOLD now build as treelet scenes; what
+    still raises is a query the scene cannot answer: the treelet walk
+    refuses a dense scene (its dense kernels are ROADMAP Queue 2 item 3)."""
     from yuki_tpu_torch import transforms as tf
+    from yuki_tpu_torch import traverse
     from yuki_tpu_torch.scene.data import DENSE_TRI_THRESHOLD, SceneBuilder
 
-    n = DENSE_TRI_THRESHOLD + 1
-    pts = np.random.default_rng(0).random((3 * n, 3)).astype(np.float32)
-    b = SceneBuilder("big")
-    b.add_mesh(tf.Transform.identity(), np.arange(3 * n), pts)
-    with pytest.raises(NotImplementedError, match="treelet"):
-        b.build(device="cpu")
+    def soup(n):
+        pts = np.random.default_rng(0).random((3 * n, 3)).astype(np.float32)
+        b = SceneBuilder("big")
+        b.add_mesh(tf.Transform.identity(), np.arange(3 * n), pts)
+        return b.build(device="cpu")
+
+    big = soup(DENSE_TRI_THRESHOLD + 1)
+    assert big.meta.traversal == "treelet"
+    assert big.data.treelets.n_treelets > 0 and big.data.chunks is not None
+    small = soup(DENSE_TRI_THRESHOLD)
+    assert small.meta.traversal == "dense" and small.data.treelets is None
+    o = torch.zeros((4, 3))
+    d = torch.tensor([[0.0, 0.0, 1.0]]).expand(4, 3).contiguous()
+    with pytest.raises(NotImplementedError, match="Queue 2 item 3"):
+        traverse.intersect(small.data, small.meta, o, d, torch.ones(4))
 
 
 def test_tiling_asset_raises(tmp_path):

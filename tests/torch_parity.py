@@ -6,10 +6,14 @@ chaos-aware render bounds.  Imports JAX; the port's CUDA-only tests
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import time
 
 import numpy as np
 import jax.numpy as jnp
+
+from torch_scenes import REDUCED, textured_treelet
 
 RES = (64, 48)
 TD = 8
@@ -24,7 +28,8 @@ SCENE_GROUPS = ("tris", "spheres", "materials", "lights", "textures")
 
 def jax_leaves(scene) -> dict:
     """The JAX SceneData's leaves as numpy, keyed by dotted field path
-    (the bridge's format); the BVH and treelet pytrees are left out."""
+    (the bridge's format), with the treelet and chunk structures (rows:
+    the first 12 columns of tris_padded) and the host BVH."""
     d = scene.data
     out = {}
     for group in SCENE_GROUPS:
@@ -34,7 +39,38 @@ def jax_leaves(scene) -> dict:
             out[f"{group}.{f.name}"] = None if v is None else np.asarray(v)
     for k in ("background", "world_lo", "world_hi"):
         out[k] = np.asarray(getattr(d, k))
+    for group in ("treelets", "chunks"):
+        tl = getattr(d, group)
+        if tl is None:
+            continue
+        out[f"{group}.super_bounds"] = np.asarray(tl.super_bounds)
+        out[f"{group}.super_range"] = np.asarray(tl.super_range)
+        out[f"{group}.treelet_bounds"] = np.asarray(tl.treelet_bounds)
+        out[f"{group}.rows"] = np.asarray(tl.tris_padded)[:, :12]
+        for k in ("leaf_size", "n_supers", "n_treelets", "ts_max"):
+            out[f"{group}.{k}"] = getattr(tl, k)
+    if scene.bvh_host is not None:
+        for f in dataclasses.fields(scene.bvh_host):
+            out[f"bvh.{f.name}"] = getattr(scene.bvh_host, f.name)
     return out
+
+
+def jax_native_bvh() -> None:
+    """Make sure yuki_tpu builds its BVHs with its native library.
+
+    yuki_tpu compiles that library with g++ at first use into its package
+    directory; when several test workers do so at once, one may load a
+    half-written file, after which that process silently uses yuki_tpu's
+    numpy builder, whose trees differ from the native ones (and so from
+    the port's).  Retry the load until it succeeds."""
+    from yuki_tpu import native
+
+    for _ in range(60):
+        if native.get_lib() is not None:
+            return
+        native._tried = False
+        time.sleep(1.0)
+    raise RuntimeError("yuki_tpu's native BVH library does not load")
 
 
 def bridged(scene):
@@ -110,6 +146,26 @@ def midsize(sd, tf, cam_mod, **build):
     return b.build(**build), cam
 
 
+def soup_triangles(n_tris=300, seed=7) -> np.ndarray:
+    """tests/test_treelets.py's triangle soup: [n,3,3] f32."""
+    rng = np.random.default_rng(seed)
+    base = (rng.random((n_tris, 1, 3)) - 0.5) * 6
+    return (base + rng.standard_normal((n_tris, 3, 3)) * 0.25).astype(
+        np.float32)
+
+
+def soup(sd, tf, **build):
+    """The soup as a scene, one mesh per triangle, as test_treelets.py
+    builds it (sah, four shapes per leaf)."""
+    if sd.__name__.startswith("yuki_tpu."):
+        jax_native_bvh()
+    b = sd.SceneBuilder()
+    m = b.add_matte()
+    for t in soup_triangles():
+        b.add_mesh(tf.Transform.identity(), [0, 1, 2], t, material=m)
+    return b.build(split_method="sah", max_shapes_in_node=4, **build)
+
+
 def jax_scene(name):
     """(JAX scene, JAX camera params) for 'cornell' | 'pointspot' |
     'midsize'."""
@@ -117,10 +173,17 @@ def jax_scene(name):
     from yuki_tpu.scene import data
     from yuki_tpu.scene.cornell import cornell
 
+    jax_native_bvh()
     if name == "cornell":
         scene, cam, _ = cornell()
         return scene, cam
-    return {"pointspot": pointspot, "midsize": midsize}[name](
+    if name in ("colonnade", "reduced"):
+        from yuki_tpu.scene.testscenes import colonnade
+
+        scene, cam, _ = colonnade(**(REDUCED if name == "reduced" else {}))
+        return scene, cam
+    return {"pointspot": pointspot, "midsize": midsize,
+            "textured-treelet": textured_treelet}[name](
         data, transforms, camera
     )
 
@@ -134,7 +197,14 @@ def port_scene(name):
     if name == "cornell":
         scene, cam, _ = cornell(device="cpu")
         return scene, cam
-    return {"pointspot": pointspot, "midsize": midsize}[name](
+    if name in ("colonnade", "reduced"):
+        from yuki_tpu_torch.scene.testscenes import colonnade
+
+        scene, cam, _ = colonnade(
+            device="cpu", **(REDUCED if name == "reduced" else {}))
+        return scene, cam
+    return {"pointspot": pointspot, "midsize": midsize,
+            "textured-treelet": textured_treelet}[name](
         data, transforms, camera, device="cpu"
     )
 
@@ -199,6 +269,52 @@ def jax_wave_tables(scene, camera, indirect_clamp=None) -> dict:
     )
 
 
+# --- Pallas kernels evaluated op by op -----------------------------------
+
+
+class _PlanesOut:
+    """An output ref that collects ``out_ref[i] = plane`` writes."""
+
+    def __init__(self, shape):
+        self.shape = shape
+        self.planes = [None] * shape[0]
+
+    def __setitem__(self, i, v):
+        self.planes[i] = v
+
+    def value(self):
+        return jnp.stack([jnp.broadcast_to(p, self.shape[1:])
+                          for p in self.planes])
+
+
+def _eager_pallas_call(kernel, grid_spec=None, out_shape=(), interpret=False,
+                       **_):
+    """pallas_call for kernels that write whole planes (out_ref[i] = ...):
+    the kernel body runs once over the full arrays, op by op."""
+    def call(*args):
+        outs = [_PlanesOut(o.shape) for o in out_shape]
+        kernel(*args, *outs)
+        return [o.value() for o in outs]
+    return call
+
+
+@contextlib.contextmanager
+def eager_pallas():
+    """Run yuki_tpu's plane kernels (shade_fused) eagerly, op by op,
+    instead of through Pallas interpret mode, which XLA compiles: under
+    jit XLA contracts a*b + c into FMAs, which the port (and its CUDA
+    kernels, built with -fmad=false) do not.  This is how the dense-wave
+    tests call path_fused's kernel bodies."""
+    from jax.experimental import pallas as pl
+
+    orig = pl.pallas_call
+    pl.pallas_call = _eager_pallas_call
+    try:
+        yield
+    finally:
+        pl.pallas_call = orig
+
+
 # --- chaos-aware render bounds (tests/test_path_fused.py:58-81) ----------
 
 
@@ -237,6 +353,71 @@ def assert_parity(ref, rays_ref, got, rays_got, depth, spp=1,
 
 
 # --- whole waves ---------------------------------------------------------
+
+
+def render_treelet_both(name, depth, seed=7):
+    """One 12-tile wave of a treelet scene's 64x48 film through JAX's
+    make_wave_renderer with the fused shade kernels in Pallas interpret
+    mode (on the CPU JAX traverses with intersect_bvh) and through the
+    port's make_wave_renderer on the CPU (path_li over the plain treelet
+    walk, shade and resolve).  Returns (ref, rays_ref, got, rays_got)."""
+    from yuki_tpu import integrators as jintg
+    from yuki_tpu.camera import Camera as JCamera
+    from yuki_tpu.renderer import make_wave_renderer as jax_mwr
+    from yuki_tpu.sampling import UniformSampler as JUniform
+    from yuki_tpu_torch.camera import Camera
+    from yuki_tpu_torch.integrators import PathParams
+    from yuki_tpu_torch.renderer import make_wave_renderer
+    from yuki_tpu_torch.sampling import UniformSampler
+
+    jscene, jcam = jax_scene(name)
+    old = jintg.FUSED_SHADE_MODE
+    jintg.FUSED_SHADE_MODE = "interpret"
+    try:
+        render = jax_mwr(jscene, JCamera.create(jcam, *RES), JUniform(1),
+                         jintg.PathParams(max_depth=depth), TD, TILES)
+        px, rays = render(jnp.asarray(ORIGINS), jnp.int32(0),
+                          jnp.uint32(seed))
+        ref, rays_ref = np.asarray(px), float(rays)
+    finally:
+        jintg.FUSED_SHADE_MODE = old
+    tscene, tcam = port_scene(name)
+    render = make_wave_renderer(tscene, Camera.create(tcam, *RES),
+                                UniformSampler(1), PathParams(max_depth=depth),
+                                TD, TILES)
+    px, rays = render(ORIGINS, 0, seed)
+    return ref, rays_ref, px.numpy(), float(rays)
+
+
+def colonnade_golden_jax():
+    """The colonnade at 64x48, depth 3, 1 spp, seed 1, rendered by
+    yuki_tpu's XLA path_li chain on the CPU (FUSED_SHADE_MODE "off"):
+    the image of tests/goldens/torch_colonnade_64x48_path3_1spp_seed1.npz,
+    [48, 64, 3] f32."""
+    from yuki_tpu import integrators as jintg
+    from yuki_tpu.camera import Camera as JCamera
+    from yuki_tpu.sampling import SampleCtx, UniformSampler as JUniform
+
+    scene, cam_params = jax_scene("colonnade")
+    w, h = 64, 48
+    cam = JCamera.create(cam_params, w, h)
+    px, py = jnp.meshgrid(jnp.arange(w, dtype=jnp.int32),
+                          jnp.arange(h, dtype=jnp.int32), indexing="xy")
+    px, py = px.reshape(-1), py.reshape(-1)
+    ctx = SampleCtx(px=px, py=py, sample_index=jnp.uint32(0),
+                    seed=jnp.uint32(1))
+    sampler = JUniform(1)
+    u = sampler.get_2d(ctx, 0)
+    o, d = cam.ray(jnp.stack([px.astype(jnp.float32),
+                              py.astype(jnp.float32)], -1) + u)
+    old = jintg.FUSED_SHADE_MODE
+    jintg.FUSED_SHADE_MODE = "off"
+    try:
+        res = jintg.path_li(scene.data, scene.meta, jintg.PathParams(3),
+                            sampler, ctx, o, d)
+    finally:
+        jintg.FUSED_SHADE_MODE = old
+    return np.asarray(res.li).reshape(h, w, 3)
 
 
 def render_both(depth, spp=1, clamp=None, spl=1, seed=7):

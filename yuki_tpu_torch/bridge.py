@@ -8,6 +8,13 @@ tables are this renderer's weights: a caller holding a ``yuki_tpu`` scene
 converts its leaves with ``np.asarray`` and passes them here, so both
 packages trace the same bits.  This module imports no JAX; the caller
 converts.
+
+Treelet scenes also carry ``"treelets.*"`` and ``"chunks.*"`` (the
+``TreeletArrays`` fields: the four tables as arrays, ``leaf_size``,
+``n_supers``, ``n_treelets`` and ``ts_max`` as ints; ``rows`` is the
+port's ``[T*K, 12]`` layout, i.e. the first 12 columns of yuki_tpu's
+``tris_padded``), and any scene may carry ``"bvh.*"`` (the ``BvhHost``
+fields, kept on the host as numpy).
 """
 
 from __future__ import annotations
@@ -17,6 +24,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from .bvh import BvhHost
 from .device import resolve_device
 from .scene.data import (
     LightArrays,
@@ -28,6 +36,7 @@ from .scene.data import (
     TextureAtlas,
     TriangleArrays,
 )
+from .treelets import TreeletArrays
 
 _GROUPS = {
     "tris": TriangleArrays,
@@ -38,10 +47,12 @@ _GROUPS = {
 }
 _TOP = ("background", "world_lo", "world_hi")
 _OPTIONAL = {"textures.texels_u8", "textures.pal_idx", "textures.palette"}
+_TREELET_INTS = ("leaf_size", "n_supers", "n_treelets", "ts_max")
 
 
 def leaf_names() -> list[str]:
-    """Every dotted leaf name the port's SceneData holds."""
+    """Every dotted leaf name the port's dense SceneData holds (treelet
+    and BVH leaves are optional and not listed)."""
     names = [
         f"{group}.{f.name}"
         for group, cls in _GROUPS.items()
@@ -66,15 +77,34 @@ def scene_from_numpy(leaves: dict, meta: dict, device=None) -> Scene:
         # A private, writable copy: the caller's arrays may be read-only.
         return torch.as_tensor(np.array(arr), device=dev)
 
+    def treelet_group(group):
+        if f"{group}.rows" not in leaves:
+            return None
+        fields = {}
+        for f in dataclasses.fields(TreeletArrays):
+            key = f"{group}.{f.name}"
+            fields[f.name] = (int(leaves[key]) if f.name in _TREELET_INTS
+                              else tensor(key))
+        return TreeletArrays(**fields)
+
     groups = {
         group: cls(**{f.name: tensor(f"{group}.{f.name}")
                       for f in dataclasses.fields(cls)})
         for group, cls in _GROUPS.items()
     }
-    data = SceneData(**groups, **{k: tensor(k) for k in _TOP})
+    data = SceneData(**groups, **{k: tensor(k) for k in _TOP},
+                     treelets=treelet_group("treelets"),
+                     chunks=treelet_group("chunks"))
+    bvh_host = None
+    if "bvh.node_lo" in leaves:
+        bvh_host = BvhHost(**{
+            f.name: (int(leaves[f"bvh.{f.name}"]) if f.name == "max_leaf"
+                     else np.array(leaves[f"bvh.{f.name}"]))
+            for f in dataclasses.fields(BvhHost)
+        })
     known = {f.name for f in dataclasses.fields(SceneMeta)}
     fields = {k: v for k, v in meta.items() if k in known}
     for k in ("light_types", "material_types"):
         if k in fields:
             fields[k] = tuple(int(x) for x in fields[k])
-    return Scene(data=data, meta=SceneMeta(**fields))
+    return Scene(data=data, meta=SceneMeta(**fields), bvh_host=bvh_host)

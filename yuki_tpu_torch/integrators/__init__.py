@@ -1,18 +1,102 @@
-"""Integrator parameters (port of ``yuki_tpu/integrators/__init__.py:40-42``).
+"""Path integrator: port of ``yuki_tpu/integrators/__init__.py``'s
+``PathParams`` (:40-42), ``LiResult`` (:93-97) and ``path_li`` (:190-392).
 
-Only the path tracer's parameters are ported: the dense path-tracing wave
-(``ops/path_fused.py``) is the path tracer for dense scenes.  Whitted, the
-debug integrators and the XLA ``path_li`` chain come later (ROADMAP
-Queue 1 items 8 and 10).
+The dense path-tracing wave (``ops/path_fused.py``) is the path tracer
+for dense scenes.  ``path_li`` is the path tracer for treelet scenes: its
+fused-shade branch (:234-314), bounce by bounce a closest-hit query, the
+shade kernel, one light-major occlusion query for every light's shadow
+rays, and the resolve kernel.  yuki_tpu's XLA shading chain (:316-377:
+make_surface, gather_materials, _nee, bsdf_sample), which runs where the
+fused gate fails, is not ported yet: ``path_li`` raises there (ROADMAP
+Queue 1 item 5: ``surface.py``, ``bsdf.py``, ``lights.py``).  Whitted and
+the debug integrators come later (Queue 1 item 10).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional
+from typing import NamedTuple, Optional
+
+import torch
 
 
 @dataclass(frozen=True)
 class PathParams:
     max_depth: int = 3
     indirect_clamp: Optional[float] = None
+
+
+class LiResult(NamedTuple):
+    li: torch.Tensor  # [N,3]
+    ray_count: torch.Tensor  # [N] i32 closest-hit traversals (shadow rays
+    # are traced, not counted: path.rs:97)
+
+
+def check_path_li_supported(meta, sampler) -> None:
+    """Raise NotImplementedError, naming what is missing, where the port's
+    path_li cannot run the scene."""
+    from ..ops import shade_fused
+
+    if len(meta.light_types) == 0 or not shade_fused.fused_shade_supported(
+            meta, sampler):
+        raise NotImplementedError(
+            "path_li outside the fused-shade gate (a lightless scene, a "
+            "textured sphere, or a sampler other than UniformSampler) runs "
+            "yuki_tpu's XLA shading chain, not ported yet (ROADMAP Queue 1 "
+            "item 5: surface.py, bsdf.py, lights.py; StratifiedSampler: "
+            "item 2)"
+        )
+
+
+def _ph_i32(ctx) -> torch.Tensor:
+    """pcg(pixel_hash ^ sample_index) per lane, as int32 bits."""
+    from ..sampling import _u32, pcg_hash
+
+    ph = ctx.pixel_hash()
+    u = pcg_hash(ph ^ _u32(ctx.sample_index, ph.device))
+    return torch.where(u >= 2 ** 31, u - 2 ** 32, u).to(torch.int32)
+
+
+def path_li(scene, meta, params: PathParams, sampler, ctx, o, d,
+            tables=None, dim: int = 2) -> LiResult:
+    """Path tracing with NEE every bounce, optional indirect clamp and
+    Russian roulette after bounce 3 (path.rs:48-178), for treelet scenes.
+
+    Sampler dimensions advance by 2L+3 per bounce (2 per light, 2 for the
+    BSDF sample, 1 for roulette, reserved on every bounce).  Dead lanes
+    trace a zero-length ray (t_max 0) parked at the scene centre.
+    ``tables``: ``shade_fused.make_shade_tables(scene, params)``, built
+    here when None."""
+    from .. import traverse
+    from ..ops import shade_fused
+
+    check_path_li_supported(meta, sampler)
+    data = scene.data
+    if tables is None:
+        tables = shade_fused.make_shade_tables(scene, params)
+    n_lights = len(meta.light_types)
+    dims_per_bounce = 2 * n_lights + 2 + 1
+    n = o.shape[0]
+    dev = o.device
+    ph = _ph_i32(ctx)
+
+    beta = torch.ones((n, 3), dtype=torch.float32, device=dev)
+    radiance = torch.zeros((n, 3), dtype=torch.float32, device=dev)
+    alive = torch.ones(n, dtype=torch.bool, device=dev)
+    specular_bounce = torch.zeros(n, dtype=torch.bool, device=dev)
+    ray_count = torch.zeros(n, dtype=torch.int32, device=dev)
+    for bounce in range(params.max_depth):
+        dim0 = dim + bounce * dims_per_bounce
+        ray_count = ray_count + alive.to(torch.int32)
+        t_max = torch.where(alive, traverse.F32_MAX, 0.0).to(torch.float32)
+        hit = traverse.intersect(data, meta, o, d, t_max)
+        missed = alive & ~hit.hit
+        alive = alive & hit.hit
+        (o2, d2, beta2, alive2, spec2, no, nd, nt, ns_skip, nw, nc,
+         ne) = shade_fused.shade_fused(tables, hit, o, d, beta, alive,
+                                       specular_bounce, ph, dim0, bounce)
+        occ = traverse.any_intersect(data, meta, no, nd, nt, ns_skip)
+        radiance = shade_fused.resolve_fused(tables, radiance, beta, alive,
+                                             missed, ne, occ, nw, nc, bounce)
+        o, d, beta, alive, specular_bounce = o2, d2, beta2, alive2, spec2
+    return LiResult(li=radiance, ray_count=ray_count)

@@ -1,12 +1,20 @@
-"""Build and load the wave's CUDA kernels at first use.
+"""Build and load the port's CUDA kernels at first use.
 
-``nvcc`` compiles ``csrc/path_fused.cu`` into a shared library with a
-plain C interface, loaded through ``ctypes`` (no PyTorch headers, so the
-build takes seconds).  The library lands in ``build/yuki_tpu_torch/`` at
-the repository root, named by a hash of the sources and flags, so an
-edited source is rebuilt and an unchanged one is reused.  ``nvcc``'s
-``-Xptxas -v`` report (registers, spills) is kept beside it as
-``ptxas_<hash>.txt``.
+``nvcc`` compiles each ``csrc/*.cu`` source into an object, all of them
+at once in parallel processes, and links the objects into one shared
+library with a plain C interface, loaded through ``ctypes`` (no PyTorch
+headers, so the build takes seconds):
+
+  path_fused.cu      the dense wave: raygen_trace, bounce
+  shade_fused.cu     the treelet path's shade and resolve kernels
+  trace_treelets.cu  the two-level treelet walks (closest, any)
+
+``path_fused.cuh`` holds the device maths they share.  The library lands
+in ``build/yuki_tpu_torch/`` at the repository root, named by a hash of
+the sources and flags, so an edited source is rebuilt and an unchanged
+one is reused; a file lock keeps concurrent processes from building it
+twice.  ``nvcc``'s ``-Xptxas -v`` report (registers, spills) is kept
+beside it as ``ptxas_<hash>.txt``.
 
 Nothing here runs at import time: the CPU tests import every module, and
 this machine class has no ``nvcc``.
@@ -19,13 +27,14 @@ import hashlib
 import os
 import shutil
 import subprocess
-import tempfile
 import threading
 from pathlib import Path
 
+from ..native import BUILD_DIR, locked_build
+
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("path_fused.cu", "path_fused.cuh")
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "yuki_tpu_torch"
+UNITS = ("path_fused.cu", "shade_fused.cu", "trace_treelets.cu")
+SOURCES = UNITS + ("path_fused.cuh",)
 
 # -fmad=false: contracting a*b - c*d into an FMA changes the watertight
 # test's edge functions (ARCHITECTURE.md, "FMA hazard" in ROADMAP.md).
@@ -33,7 +42,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "yuki_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-fmad=false",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _lock = threading.Lock()
@@ -61,18 +70,66 @@ def _digest() -> str:
 
 
 def _declare(lib: ctypes.CDLL) -> None:
-    p, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
+    p, i, u, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
     lib.yk_raygen_trace.argtypes = [i, p, p, i, u, u, p, p, i, p, i, p, p, p]
-    lib.yk_raygen_trace.restype = i
     lib.yk_bounce.argtypes = [
         i, p, p, p, i, i, i, i,  # device, st_in, ph, st_out, n, dim0, bounce, max_depth
         p, p, i, p, p, p, i,  # ms, tri, n_tris, trs, mat, lt, n_lights
         p, i, p, i, p, i, i,  # sp, n_spheres, td, n_td, tex, pool_pad, flags
         p,  # stream
     ]
-    lib.yk_bounce.restype = i
+    lib.yk_shade.argtypes = [
+        i, p, p, p, p, i, i, i,  # device, rh, prim, ph, texp, n, dim0, bounce
+        p, p, p, i, p, i,  # trs, mat, lt, n_lights, sp, n_spheres
+        f, f, f, f, i, p, p,  # centre xyz, diag, flags, out, stream
+    ]
+    lib.yk_resolve.argtypes = [i, p, p, i, i, i, i, p, p]
+    lib.yk_treelet_closest.argtypes = [
+        i, p, p, p, p, i, i,  # device, sb, sr, tb, rows, n_supers, leaf_size
+        p, p, p, i, p, p, p, p, p,  # o, d, tmax, n, t, prim, b0, b1, stream
+    ]
+    lib.yk_treelet_any.argtypes = [
+        i, p, p, p, p, i, i,  # device, sb, sr, tb, rows, n_supers, leaf_size
+        p, p, p, p, i, p, p,  # o, d, tmax, skip, n, occ, stream
+    ]
+    for name in ("yk_raygen_trace", "yk_bounce", "yk_shade", "yk_resolve",
+                 "yk_treelet_closest", "yk_treelet_any"):
+        getattr(lib, name).restype = i
     lib.yk_error_string.argtypes = [i]
     lib.yk_error_string.restype = ctypes.c_char_p
+
+
+def _compile(tmp: str, report: Path) -> None:
+    """One nvcc per source, all started together, then one link."""
+    nvcc = _nvcc()
+    objs = [f"{tmp}.{unit}.o" for unit in UNITS]
+    procs = [
+        subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(CSRC / unit)],
+                         stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                         text=True)
+        for unit, obj in zip(UNITS, objs)
+    ]
+    try:
+        logs = [proc.communicate()[0] for proc in procs]
+        failed = [(unit, proc.returncode, log) for unit, proc, log
+                  in zip(UNITS, procs, logs) if proc.returncode != 0]
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(
+                f"{unit} ({rc}):\n{log}" for unit, rc, log in failed))
+        link = subprocess.run(
+            [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
+             "-o", tmp, *objs],
+            capture_output=True, text=True,
+        )
+        if link.returncode != 0:
+            raise RuntimeError(
+                f"nvcc link failed ({link.returncode}):\n{link.stdout}\n"
+                f"{link.stderr}")
+        report.write_text("".join(logs))
+    finally:
+        for obj in objs:
+            if os.path.exists(obj):
+                os.unlink(obj)
 
 
 def library() -> ctypes.CDLL:
@@ -83,21 +140,9 @@ def library() -> ctypes.CDLL:
         if _lib is not None:
             return _lib
         tag = _digest()
-        so = BUILD_DIR / f"libyuki_path_fused_{tag}.so"
+        so = BUILD_DIR / f"libyuki_kernels_{tag}.so"
         report = BUILD_DIR / f"ptxas_{tag}.txt"
-        if not so.exists():
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-            os.close(fd)
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / "path_fused.cu")]
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            if proc.returncode != 0:
-                os.unlink(tmp)
-                raise RuntimeError(
-                    f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}"
-                )
-            report.write_text(proc.stdout + proc.stderr)
-            os.replace(tmp, so)
+        locked_build(so, lambda tmp: _compile(tmp, report))
         lib = ctypes.CDLL(str(so))
         _declare(lib)
         ptxas_report = report.read_text() if report.exists() else ""
@@ -109,3 +154,45 @@ def error_string(err: int) -> str:
     if _lib is None:
         return f"CUDA error {err}"
     return f"CUDA error {err}: {_lib.yk_error_string(err).decode()}"
+
+
+# ---- helpers shared by the kernel wrappers --------------------------------
+
+
+def ptr(t) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def stream(dev) -> ctypes.c_void_p:
+    """PyTorch's current stream on ``dev``, for the launch."""
+    import torch
+
+    return ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+
+
+def check(t, name: str, dtype, shape, device) -> None:
+    """Raise unless ``t`` has the device, dtype, shape and contiguity a
+    kernel takes."""
+    if t.device != device:
+        raise ValueError(f"{name} on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} is not contiguous")
+
+
+def dispatch(t) -> bool:
+    """True: launch the kernel (CUDA tensor).  False: plain version (CPU
+    tensor).  Anything else raises."""
+    if t.device.type == "cuda":
+        return True
+    if t.device.type == "cpu":
+        return False
+    raise RuntimeError(f"no kernel or plain version for device {t.device}")
+
+
+def launch_check(err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what} launch failed: {error_string(err)}")

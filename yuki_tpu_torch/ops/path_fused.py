@@ -45,7 +45,8 @@ from ..sampling import GOLDEN, MASK32, UniformSampler
 from ..scene.data import LIGHT_RECT
 from ..vecmath import sqrt as _sqrt
 from . import _build
-from .shade_fused import _where3, dim_f32, pcg, shade_body
+from .shade_fused import (_where3, dim_f32, light_table, pcg, scene_center_diag,
+                          shade_body, sphere_table)
 from .trace import F32_MAX, pack_triangles, watertight
 
 MAX_TRIS_WAVE = 1024  # dense-scene gate (yuki_tpu path_fused.py:75)
@@ -125,15 +126,20 @@ def check_wave_supported(meta, sampler) -> None:
     if not isinstance(sampler, UniformSampler):
         why = (f"sampler {type(sampler).__name__}: only UniformSampler is "
                "ported (StratifiedSampler: ROADMAP Queue 1 item 2)")
-    elif meta.traversal != "dense" or meta.n_tris > MAX_TRIS_WAVE:
-        why = (f"{meta.n_tris} triangles: scenes past {MAX_TRIS_WAVE} need "
-               "the BVH/treelet path (ROADMAP Slice B)")
+    elif meta.traversal != "dense":
+        why = (f"{meta.n_tris} triangles: a treelet scene, rendered by "
+               "integrators.path_li")
+    elif meta.n_tris > MAX_TRIS_WAVE:
+        why = (f"{meta.n_tris} triangles: dense scenes past "
+               f"{MAX_TRIS_WAVE} run path_li over the dense trace kernels "
+               "(ops/trace.py _dense_kernel/_any_kernel), not ported yet "
+               "(ROADMAP Queue 2 item 3)")
     elif meta.has_sigma_tex:
-        why = ("sigma textures run on the path_li chain (ROADMAP Queue 1 "
-               "item 8)")
+        why = ("sigma textures run on the XLA path_li chain (ROADMAP Queue 1 "
+               "item 5)")
     else:
-        why = ("scene outside the dense-wave gate; its path_li chain is "
-               "ROADMAP Queue 1 item 8")
+        why = ("scene outside the dense-wave gate; its XLA path_li chain is "
+               "ROADMAP Queue 1 item 5")
     raise NotImplementedError(f"dense path wave not supported: {why}")
 
 
@@ -180,36 +186,6 @@ class WaveTables:
                 | (FLAG_TEX if self.has_tex else 0))
 
 
-def _light_table(lights) -> torch.Tensor:
-    n = lights.ltype.shape[0]
-    z = torch.zeros((n, 6), dtype=torch.float32, device=lights.p.device)
-    return torch.cat(
-        [
-            lights.ltype.to(torch.float32)[:, None],
-            lights.p, lights.i, lights.m.reshape(-1, 16),
-            lights.area[:, None], lights.cos_w[:, None],
-            lights.cos_f[:, None], z,
-        ],
-        dim=1,
-    ).contiguous()
-
-
-def _sphere_table(spheres, n_spheres: int, device) -> torch.Tensor:
-    if not n_spheres:
-        return torch.zeros((1, 40), dtype=torch.float32, device=device)
-    return torch.cat(
-        [
-            spheres.world_to_obj.reshape(-1, 16),
-            spheres.obj_to_world.reshape(-1, 16),
-            spheres.radius[:, None],
-            spheres.swaps_hand.to(torch.float32)[:, None],
-            spheres.material.to(torch.float32)[:, None],
-            torch.zeros((n_spheres, 5), dtype=torch.float32, device=device),
-        ],
-        dim=1,
-    ).contiguous()
-
-
 def _tex_tables(atlas, pool_texels: int):
     """Descriptor table [K,4] (w, h, off>>12, off&0xFFF as floats, as in
     yuki_tpu) + the u8 pool zero-padded to a multiple of 256 texels."""
@@ -235,11 +211,7 @@ def make_tables(scene, camera, params: PathParams) -> WaveTables:
     dev = data.tris.p0.device
     f32 = dict(dtype=torch.float32, device=dev)
 
-    lo, hi = data.world_lo, data.world_hi
-    center = 0.5 * (lo + hi)
-    ext = hi - lo
-    diag = _sqrt(ext[0] * ext[0] + ext[1] * ext[1] + ext[2] * ext[2])
-    diag = diag * 1.002 + 1e-3
+    center, diag = scene_center_diag(data)
     ms = torch.zeros(_MS_LEN, **f32)
     ms[_MS_R2C:_MS_R2C + 16] = torch.as_tensor(
         camera.raster_to_camera, **f32).reshape(16)
@@ -264,8 +236,8 @@ def make_tables(scene, camera, params: PathParams) -> WaveTables:
         tri=pack_triangles(data.tris.p0, data.tris.p1, data.tris.p2),
         trs=data.tris.shading_packed.contiguous(),
         mat=data.materials.packed.contiguous(),
-        lt=_light_table(data.lights),
-        sp=_sphere_table(data.spheres, meta.n_spheres, dev),
+        lt=light_table(data.lights),
+        sp=sphere_table(data.spheres, meta.n_spheres, dev),
         td=td,
         tex=tex,
         n_tris=meta.n_tris,
@@ -607,48 +579,18 @@ def bounce_plain(st: torch.Tensor, ph: torch.Tensor, bounce: int,
 # --------------------------------------------------------------------
 
 
-def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
-
-
-def _check(t: torch.Tensor, name: str, dtype, shape, device) -> None:
-    if t.device != device:
-        raise ValueError(f"{name} on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise ValueError(f"{name} has dtype {t.dtype}, expected {dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} is not contiguous")
-
-
 def _check_tables(tb: WaveTables, device) -> None:
     f32 = torch.float32
-    _check(tb.ms, "ms", f32, (_MS_LEN,), device)
-    _check(tb.tri, "tri", f32, (tb.tri.shape[0], 12), device)
-    _check(tb.trs, "trs", f32, (tb.tri.shape[0], 32), device)
-    _check(tb.mat, "mat", f32, (tb.mat.shape[0], 16), device)
-    _check(tb.lt, "lt", f32, (tb.n_lights, 32), device)
-    _check(tb.sp, "sp", f32, (max(tb.n_spheres, 1), 40), device)
-    _check(tb.td, "td", f32, (tb.td.shape[0], 4), device)
-    _check(tb.tex, "tex", torch.uint8, (tb.pool_pad, 3), device)
+    _build.check(tb.ms, "ms", f32, (_MS_LEN,), device)
+    _build.check(tb.tri, "tri", f32, (tb.tri.shape[0], 12), device)
+    _build.check(tb.trs, "trs", f32, (tb.tri.shape[0], 32), device)
+    _build.check(tb.mat, "mat", f32, (tb.mat.shape[0], 16), device)
+    _build.check(tb.lt, "lt", f32, (tb.n_lights, 32), device)
+    _build.check(tb.sp, "sp", f32, (max(tb.n_spheres, 1), 40), device)
+    _build.check(tb.td, "td", f32, (tb.td.shape[0], 4), device)
+    _build.check(tb.tex, "tex", torch.uint8, (tb.pool_pad, 3), device)
     if tb.n_tris > tb.tri.shape[0]:
         raise ValueError("n_tris exceeds the triangle table")
-
-
-def _launch_check(err: int, what: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"{what} launch failed: {_build.error_string(err)}")
-
-
-def _dispatch(t: torch.Tensor) -> bool:
-    """True: launch the kernel (CUDA tensor).  False: plain version (CPU
-    tensor).  Anything else raises."""
-    if t.device.type == "cuda":
-        return True
-    if t.device.type == "cpu":
-        return False
-    raise RuntimeError(f"no kernel or plain version for device {t.device}")
 
 
 def raygen_trace(px: torch.Tensor, py: torch.Tensor, sample_index: int,
@@ -656,12 +598,12 @@ def raygen_trace(px: torch.Tensor, py: torch.Tensor, sample_index: int,
     """Camera rays of one sample + their closest hits: px/py [N] int32 ->
     (st [24, N] f32, ph [N] int32).  CUDA tensors launch the raygen
     kernel; CPU tensors run ``raygen_trace_plain``."""
-    if not _dispatch(px):
+    if not _build.dispatch(px):
         return raygen_trace_plain(px, py, sample_index, seed, tb)
     dev = px.device
     n = px.shape[0]
-    _check(px, "px", torch.int32, (n,), dev)
-    _check(py, "py", torch.int32, (n,), dev)
+    _build.check(px, "px", torch.int32, (n,), dev)
+    _build.check(py, "py", torch.int32, (n,), dev)
     _check_tables(tb, dev)
     st = torch.empty((_N_ST, n), dtype=torch.float32, device=dev)
     ph = torch.empty((n,), dtype=torch.int32, device=dev)
@@ -669,14 +611,14 @@ def raygen_trace(px: torch.Tensor, py: torch.Tensor, sample_index: int,
         return st, ph
     lib = _build.library()
     err = lib.yk_raygen_trace(
-        dev.index, _ptr(px), _ptr(py), n,
+        dev.index, _build.ptr(px), _build.ptr(py), n,
         ctypes.c_uint32(int(sample_index) & MASK32),
         ctypes.c_uint32(int(seed) & MASK32),
-        _ptr(tb.ms), _ptr(tb.tri), tb.n_tris, _ptr(tb.sp), tb.n_spheres,
-        _ptr(st), _ptr(ph),
-        ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream),
+        _build.ptr(tb.ms), _build.ptr(tb.tri), tb.n_tris, _build.ptr(tb.sp), tb.n_spheres,
+        _build.ptr(st), _build.ptr(ph),
+        _build.stream(dev),
     )
-    _launch_check(err, "raygen_trace")
+    _build.launch_check(err, "raygen_trace")
     LAUNCHES["raygen_trace"] += 1
     return st, ph
 
@@ -685,12 +627,12 @@ def bounce(st: torch.Tensor, ph: torch.Tensor, bounce_index: int,
            tb: WaveTables) -> torch.Tensor:
     """One path bounce: state [24, N] -> state [24, N].  CUDA tensors
     launch the bounce kernel; CPU tensors run ``bounce_plain``."""
-    if not _dispatch(st):
+    if not _build.dispatch(st):
         return bounce_plain(st, ph, bounce_index, tb)
     dev = st.device
     n = st.shape[1]
-    _check(st, "st", torch.float32, (_N_ST, n), dev)
-    _check(ph, "ph", torch.int32, (n,), dev)
+    _build.check(st, "st", torch.float32, (_N_ST, n), dev)
+    _build.check(ph, "ph", torch.int32, (n,), dev)
     _check_tables(tb, dev)
     if not 0 <= bounce_index < tb.max_depth:
         raise ValueError(f"bounce {bounce_index} outside [0, {tb.max_depth})")
@@ -700,13 +642,13 @@ def bounce(st: torch.Tensor, ph: torch.Tensor, bounce_index: int,
     lib = _build.library()
     dim0 = 2 + bounce_index * tb.dims_per_bounce
     err = lib.yk_bounce(
-        dev.index, _ptr(st), _ptr(ph), _ptr(out), n, dim0, bounce_index, tb.max_depth,
-        _ptr(tb.ms), _ptr(tb.tri), tb.n_tris, _ptr(tb.trs), _ptr(tb.mat),
-        _ptr(tb.lt), tb.n_lights, _ptr(tb.sp), tb.n_spheres,
-        _ptr(tb.td), tb.td.shape[0], _ptr(tb.tex), tb.pool_pad, tb.flags,
-        ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream),
+        dev.index, _build.ptr(st), _build.ptr(ph), _build.ptr(out), n, dim0, bounce_index, tb.max_depth,
+        _build.ptr(tb.ms), _build.ptr(tb.tri), tb.n_tris, _build.ptr(tb.trs), _build.ptr(tb.mat),
+        _build.ptr(tb.lt), tb.n_lights, _build.ptr(tb.sp), tb.n_spheres,
+        _build.ptr(tb.td), tb.td.shape[0], _build.ptr(tb.tex), tb.pool_pad, tb.flags,
+        _build.stream(dev),
     )
-    _launch_check(err, "bounce")
+    _build.launch_check(err, "bounce")
     LAUNCHES["bounce"] += 1
     return out
 

@@ -1,10 +1,11 @@
-"""Per-bounce shading body on flat [N] tensors: the plain PyTorch port of
-``yuki_tpu/ops/shade_fused.py:_shade_body`` (:360-797) and its helpers
-(:101-358).
+"""Per-bounce shading: port of ``yuki_tpu/ops/shade_fused.py``.
 
-This is the shading half of the bounce's plain version
-(``path_fused.bounce_plain``); the CUDA bounce kernel carries the same
-maths per thread.  The formulas and their op order are ``yuki_tpu``'s:
+``shade_body`` is the plain PyTorch port of ``_shade_body`` (:360-797)
+and its helpers (:101-358) on flat [N] tensors.  It is the shading half
+of the dense wave's plain bounce (``path_fused.bounce_plain``) and the
+plain version of the treelet path's shade kernel; both CUDA kernels run
+the same maths per thread (``shade_lane`` in ``csrc/path_fused.cuh``).
+The formulas and their op order are ``yuki_tpu``'s:
   surface.make_surface          (triangle.rs:186-224, sphere.rs:91-150)
   bsdf.gather_materials tail    (matte.rs:22-41, trowbridge_reitz.rs:22-30)
   integrators._nee_setup        (path.rs:102-124)
@@ -20,15 +21,30 @@ of the scene can select, so per-lane results do not depend on it.
 Every division has a tensor divisor: on CUDA, torch turns ``tensor /
 python_scalar`` into a multiply by the reciprocal, which is not the IEEE
 quotient the JAX body and the CUDA kernel compute.
+
+The treelet path's two kernels and the host code around them follow
+``shade_body`` (the second half of this module):
+
+  shade    replaces ``_shade_kernel`` (shade_fused.py:798), called by
+           ``shade_fused`` (:1064-1292)
+  resolve  replaces ``_resolve_kernel`` (:868), called by
+           ``resolve_fused`` (:926-1030)
+
+A CUDA tensor launches the kernel in ``csrc/shade_fused.cu`` or raises; a
+CPU tensor runs the plain version (``shade_planes_plain``,
+``resolve_planes_plain``).  Each kernel launch adds one to ``LAUNCHES``.
 """
 
 from __future__ import annotations
 
+import ctypes
 import math
+from dataclasses import dataclass
 
 import torch
 
-from ..sampling import MASK32
+from . import _build
+from ..sampling import MASK32, UniformSampler
 from ..vecmath import sqrt as _sqrt
 from ..scene.data import (
     LIGHT_DISTANT,
@@ -730,3 +746,425 @@ def shade_body(dim0, bounce, rh, tr, mp, ltab, spm, center, diag, ph_base,
         beta2 = _scale(beta2, inv_keep)
 
     return o2, d2v, beta2, alive2, spec2, ne, nee
+
+
+# --------------------------------------------------------------------
+# The treelet path's shade and resolve kernels: plane layouts
+# (shade_fused.py:66-95)
+# --------------------------------------------------------------------
+
+# Shade input planes: the ray / hit / carry stack.
+_RH = dict(
+    ox=0, oy=1, oz=2, dx=3, dy=4, dz=5, t=6, b0=7, b1=8, sph=9,
+    alive=10, bx=11, by=12, bz=13, spec=14, pad=15,
+)
+_N_RH = 16
+
+# Material planes (kd/s0 texture-resolved), as shade_body reads them.
+_MP = dict(mtype=0, kdx=1, kdy=2, kdz=3, c1x=4, c1y=5, c1z=6, s0=7,
+           remap=8)
+
+# Shade output planes; light li's planes start at
+# _N_FIXED_OUT + _N_PER_LIGHT * li: o_s(3) d_s(3) t_s worth contrib(3) pad.
+_OUT = dict(
+    o2x=0, o2y=1, o2z=2, d2x=3, d2y=4, d2z=5,
+    b2x=6, b2y=7, b2z=8, alive2=9, spec2=10,
+    nex=11, ney=12, nez=13, pad0=14, pad1=15,
+)
+_N_FIXED_OUT = 16
+_N_PER_LIGHT = 12
+
+# Resolve input planes (shade_fused.py:870-875); the per-light verdict
+# planes follow as [5L, N]: occ, cx, cy, cz, worth per light.
+_RS = dict(
+    rx=0, ry=1, rz=2, bx=3, by=4, bz=5, alive=6, missed=7,
+    nex=8, ney=9, nez=10, bgx=11, bgy=12, bgz=13, clamp=14, pad=15,
+)
+_N_RS = 16
+_N_NEE = 5
+
+# Runtime flag bits of the shade kernel (the JAX kernel's statics).
+FLAG_SIGMA = 1
+FLAG_TEX = 4
+
+# Kernel launches since the last reset_launches(); only the kernel
+# branch of each wrapper counts.
+LAUNCHES = {"shade": 0, "resolve": 0}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _fused_n_out(n_lights: int) -> int:
+    return _N_FIXED_OUT + _N_PER_LIGHT * n_lights
+
+
+# --------------------------------------------------------------------
+# Tables and the gate
+# --------------------------------------------------------------------
+
+
+def light_table(lights) -> torch.Tensor:
+    """[L,32] light rows: ltype, p(3), i(3), m(16), area, cos_w, cos_f."""
+    n = lights.ltype.shape[0]
+    z = torch.zeros((n, 6), dtype=torch.float32, device=lights.p.device)
+    return torch.cat(
+        [
+            lights.ltype.to(torch.float32)[:, None],
+            lights.p, lights.i, lights.m.reshape(-1, 16),
+            lights.area[:, None], lights.cos_w[:, None],
+            lights.cos_f[:, None], z,
+        ],
+        dim=1,
+    ).contiguous()
+
+
+def sphere_table(spheres, n_spheres: int, device) -> torch.Tensor:
+    """[max(S,1),40] sphere rows: world_to_obj(16), obj_to_world(16),
+    radius, swaps, material (the port adds the material id at 34)."""
+    if not n_spheres:
+        return torch.zeros((1, 40), dtype=torch.float32, device=device)
+    return torch.cat(
+        [
+            spheres.world_to_obj.reshape(-1, 16),
+            spheres.obj_to_world.reshape(-1, 16),
+            spheres.radius[:, None],
+            spheres.swaps_hand.to(torch.float32)[:, None],
+            spheres.material.to(torch.float32)[:, None],
+            torch.zeros((n_spheres, 5), dtype=torch.float32, device=device),
+        ],
+        dim=1,
+    ).contiguous()
+
+
+def scene_center_diag(data):
+    """Scene centre (where dead lanes park) and the distant-light target
+    distance: diag = |hi - lo| * 1.002 + 1e-3 (shade_fused.py:1209-1210)."""
+    lo, hi = data.world_lo, data.world_hi
+    ext = hi - lo
+    diag = _sqrt(ext[0] * ext[0] + ext[1] * ext[1] + ext[2] * ext[2])
+    return 0.5 * (lo + hi), diag * 1.002 + 1e-3
+
+
+@dataclass
+class ShadeTables:
+    """What the shade and resolve kernels read besides the rays: the
+    scene's shading tables on its device plus the statics the JAX kernels
+    specialise on.  Built once per (scene, params) by
+    ``make_shade_tables``."""
+
+    trs: torch.Tensor  # [T,32] f32 shading rows
+    mat: torch.Tensor  # [M,16] f32 material rows
+    lt: torch.Tensor  # [L,32] f32 light rows
+    sp: torch.Tensor  # [max(S,1),40] f32 sphere rows
+    center: torch.Tensor  # [3] f32
+    diag: torch.Tensor  # () f32
+    center_diag: tuple  # the same four values as Python floats (kernel args)
+    bg: torch.Tensor  # [3] f32 background radiance
+    textures: object  # the scene's TextureAtlas
+    n_spheres: int
+    light_types: tuple
+    present: frozenset
+    has_sigma: bool
+    has_textures: bool
+    has_sigma_tex: bool
+    indirect_clamp: object  # float or None
+
+    @property
+    def n_lights(self) -> int:
+        return len(self.light_types)
+
+    @property
+    def device(self) -> torch.device:
+        return self.trs.device
+
+    @property
+    def flags(self) -> int:
+        return ((FLAG_SIGMA if self.has_sigma else 0)
+                | (FLAG_TEX if self.has_textures else 0))
+
+
+def make_shade_tables(scene, params) -> ShadeTables:
+    data, meta = scene.data, scene.meta
+    center, diag = scene_center_diag(data)
+    return ShadeTables(
+        trs=data.tris.shading_packed.contiguous(),
+        mat=data.materials.packed.contiguous(),
+        lt=light_table(data.lights),
+        sp=sphere_table(data.spheres, meta.n_spheres, data.tris.p0.device),
+        center=center, diag=diag,
+        center_diag=tuple(center.tolist()) + (float(diag),),
+        bg=data.background.to(torch.float32),
+        textures=data.textures,
+        n_spheres=meta.n_spheres,
+        light_types=tuple(meta.light_types),
+        present=frozenset(meta.material_types),
+        has_sigma=bool(meta.has_sigma or meta.has_sigma_tex),
+        has_textures=bool(meta.has_textures),
+        has_sigma_tex=bool(meta.has_sigma_tex),
+        indirect_clamp=params.indirect_clamp,
+    )
+
+
+def fused_shade_supported(meta, sampler) -> bool:
+    """Static gate (shade_fused.py:1038-1061), from SceneMeta and the
+    sampler only: every sphere's material must be untextured (the kernel
+    skips sphere uv).  The UniformSampler only: yuki_tpu's kernel also
+    takes the StratifiedSampler's hoisted sample planes, but that sampler
+    is not ported yet (ROADMAP Queue 1 item 2)."""
+    if not isinstance(sampler, UniformSampler):
+        return False
+    return meta.n_spheres == 0 or meta.sphere_mats_untextured
+
+
+# --------------------------------------------------------------------
+# Shade: host side, plain version, kernel wrapper
+# --------------------------------------------------------------------
+
+
+def _gather_rows(tb: ShadeTables, prim, sph):
+    """The triangle shading row at max(prim, 0) and the material row,
+    spheres overriding the material (shade_fused.py:1108-1118)."""
+    trow = tb.trs[torch.clamp(prim, min=0).to(torch.int64)]
+    mid = trow[:, 26]
+    for s in range(tb.n_spheres):
+        mid = torch.where(sph == float(s), tb.sp[s, 34], mid)
+    mrow = tb.mat[torch.clamp(mid, min=0.0).to(torch.int64)]
+    return trow, mrow
+
+
+def texture_planes(tb: ShadeTables, prim, sph, b0, b1):
+    """kd and sigma resolved against the textures (shade_fused.py:1120-
+    1138), as [4, N] planes kdx, kdy, kdz, s0; None without textures.
+    Sphere lanes read garbage uv into lookups their untextured materials
+    never use."""
+    if not tb.has_textures:
+        return None
+    from ..textures import eval_texture
+
+    trow, mrow = _gather_rows(tb, prim, sph)
+    kd = mrow[:, 1:4]
+    s0 = mrow[:, 7]
+    b0c = b0[:, None]
+    b1c = b1[:, None]
+    b2c = 1.0 - b0c - b1c
+    uv = trow[:, 18:20] * b0c + trow[:, 20:22] * b1c + trow[:, 22:24] * b2c
+    tex0 = mrow[:, 9].to(torch.int32)
+    tex_val = eval_texture(tb.textures, torch.clamp(tex0, min=0), uv)
+    kd = torch.where((tex0 >= 0)[:, None], tex_val, kd)
+    if tb.has_sigma_tex:
+        tex1 = mrow[:, 10].to(torch.int32)
+        s0_tex = eval_texture(tb.textures, torch.clamp(tex1, min=0), uv)[..., 0]
+        s0 = torch.where(tex1 >= 0, s0_tex, s0)
+    return torch.stack([kd[:, 0], kd[:, 1], kd[:, 2], s0]).contiguous()
+
+
+def shade_planes_plain(tb: ShadeTables, rh, prim, ph, texp, dim0: int,
+                       bounce: int) -> torch.Tensor:
+    """Plain version of the shade kernel: rh [16,N] (_RH), prim [N] i32,
+    ph [N] i32 (pcg(pixel_hash ^ sample_index)), texp [4,N] or None ->
+    out [16 + 12L, N] (_OUT)."""
+    trow, mrow = _gather_rows(tb, prim, rh[_RH["sph"]])
+    mpd = {name: mrow[:, i] for name, i in _MP.items()}
+    if texp is not None:
+        mpd.update(kdx=texp[0], kdy=texp[1], kdz=texp[2], s0=texp[3])
+    o2, d2v, beta2, alive2, spec2, ne, nee = shade_body(
+        dim0, bounce,
+        rh=lambda name: rh[_RH[name]],
+        tr=lambda i: trow[:, i],
+        mp=lambda name: mpd[name],
+        ltab=lambda li, i: tb.lt[li, i],
+        spm=lambda s, i: tb.sp[s, i],
+        center=(tb.center[0], tb.center[1], tb.center[2]),
+        diag=tb.diag,
+        ph_base=ph.to(torch.int64) & MASK32,
+        n_lights=tb.n_lights, light_types=tb.light_types,
+        n_spheres=tb.n_spheres, present=tb.present, has_sigma=tb.has_sigma,
+    )
+    zero = torch.zeros_like(o2[0])
+    planes = [*o2, *d2v, *beta2, alive2.to(torch.float32),
+              spec2.to(torch.float32), *ne, zero, zero]
+    for o_s, d_s, t_s, worth, contrib in nee:
+        planes += [*o_s, *d_s, t_s, worth.to(torch.float32), *contrib, zero]
+    return torch.stack(planes)
+
+
+def shade_planes(tb: ShadeTables, rh, prim, ph, texp, dim0: int,
+                 bounce: int) -> torch.Tensor:
+    """The shade kernel on CUDA tensors, its plain version on CPU ones."""
+    if not _build.dispatch(rh):
+        return shade_planes_plain(tb, rh, prim, ph, texp, dim0, bounce)
+    dev = rh.device
+    n = rh.shape[1]
+    f32 = torch.float32
+    _build.check(rh, "rh", f32, (_N_RH, n), dev)
+    _build.check(prim, "prim", torch.int32, (n,), dev)
+    _build.check(ph, "ph", torch.int32, (n,), dev)
+    if tb.has_textures:
+        _build.check(texp, "texp", f32, (4, n), dev)
+    _build.check(tb.trs, "trs", f32, (tb.trs.shape[0], 32), dev)
+    _build.check(tb.mat, "mat", f32, (tb.mat.shape[0], 16), dev)
+    _build.check(tb.lt, "lt", f32, (tb.n_lights, 32), dev)
+    _build.check(tb.sp, "sp", f32, (max(tb.n_spheres, 1), 40), dev)
+    out = torch.empty((_fused_n_out(tb.n_lights), n), dtype=f32, device=dev)
+    if n == 0:
+        return out
+    err = _build.library().yk_shade(
+        dev.index, _build.ptr(rh), _build.ptr(prim), _build.ptr(ph),
+        _build.ptr(texp) if tb.has_textures else None, n, int(dim0), int(bounce),
+        _build.ptr(tb.trs), _build.ptr(tb.mat), _build.ptr(tb.lt), tb.n_lights, _build.ptr(tb.sp),
+        tb.n_spheres, *tb.center_diag, tb.flags, _build.ptr(out),
+        _build.stream(dev),
+    )
+    _build.launch_check(err, "shade")
+    LAUNCHES["shade"] += 1
+    return out
+
+
+def pack_shade(hit, o, d, beta, alive, specular_bounce):
+    """The shade kernel's ray inputs: (rh [16,N] (_RH), prim [N] i32)."""
+    n = o.shape[0]
+    zero = torch.zeros(n, dtype=torch.float32, device=o.device)
+    rh = torch.stack([
+        o[:, 0], o[:, 1], o[:, 2], d[:, 0], d[:, 1], d[:, 2],
+        hit.t, hit.b0, hit.b1, hit.sphere.to(torch.float32),
+        alive.to(torch.float32), beta[:, 0], beta[:, 1], beta[:, 2],
+        specular_bounce.to(torch.float32), zero,
+    ])
+    return rh, hit.prim.to(torch.int32).contiguous()
+
+
+def shade_fused(tb: ShadeTables, hit, o, d, beta, alive, specular_bounce,
+                ph, dim0: int, bounce: int):
+    """path_li's shading step (shade_fused.py:1064-1292): returns (o2, d2,
+    beta2, alive2, spec2, no, nd, nt, ns_skip, nw, nc, ne) with the
+    per-light NEE outputs flattened light-major; ``alive`` is the lanes
+    alive and hitting.  Torch does the plane packing and the texture
+    resolve; the shade kernel does the rest."""
+    n = o.shape[0]
+    rh, prim = pack_shade(hit, o, d, beta, alive, specular_bounce)
+    texp = texture_planes(tb, prim, rh[_RH["sph"]], hit.b0, hit.b1)
+    out = shade_planes(tb, rh, prim, ph, texp, dim0, bounce)
+
+    def vec(i):
+        return out[i:i + 3].t().contiguous()
+
+    o2, d2, beta2 = vec(_OUT["o2x"]), vec(_OUT["d2x"]), vec(_OUT["b2x"])
+    alive2 = out[_OUT["alive2"]] > 0.0
+    spec2 = out[_OUT["spec2"]] > 0.0
+    ne = vec(_OUT["nex"])
+    obs = [_N_FIXED_OUT + _N_PER_LIGHT * li for li in range(tb.n_lights)]
+    no = torch.cat([vec(ob) for ob in obs])
+    nd = torch.cat([vec(ob + 3) for ob in obs])
+    nt = torch.cat([out[ob + 6] for ob in obs])
+    nw = torch.cat([out[ob + 7] > 0.0 for ob in obs])
+    nc = torch.cat([vec(ob + 8) for ob in obs])
+    # The skip id is static per light: rect lights skip themselves, -2
+    # skips nothing (-1 would skip every ordinary triangle).
+    ns_skip = torch.cat([
+        torch.full((n,), li if lt == LIGHT_RECT else -2, dtype=torch.int32,
+                   device=o.device)
+        for li, lt in enumerate(tb.light_types)
+    ])
+    return o2, d2, beta2, alive2, spec2, no, nd, nt, ns_skip, nw, nc, ne
+
+
+# --------------------------------------------------------------------
+# Resolve: host side, plain version, kernel wrapper
+# --------------------------------------------------------------------
+
+
+def resolve_planes_plain(rs, nee, n_lights: int, bounce: int,
+                         has_clamp: bool) -> torch.Tensor:
+    """Plain version of the resolve kernel: rs [16,N] (_RS), nee [5L,N]
+    -> out [4,N] (radiance xyz, pad), in _resolve_kernel's select/add
+    order (shade_fused.py:876-923)."""
+    rad = (rs[_RS["rx"]], rs[_RS["ry"]], rs[_RS["rz"]])
+    beta = (rs[_RS["bx"]], rs[_RS["by"]], rs[_RS["bz"]])
+    alive = rs[_RS["alive"]] > 0.0
+    missed = rs[_RS["missed"]] > 0.0
+    bg = (rs[_RS["bgx"]], rs[_RS["bgy"]], rs[_RS["bgz"]])
+    clamp_v = rs[_RS["clamp"]]
+    zero = torch.zeros_like(rad[0])
+    rad = _where3(
+        missed,
+        (rad[0] + beta[0] * bg[0], rad[1] + beta[1] * bg[1],
+         rad[2] + beta[2] * bg[2]),
+        rad,
+    )
+    br = (rs[_RS["nex"]], rs[_RS["ney"]], rs[_RS["nez"]])
+    for li in range(n_lights):
+        b = _N_NEE * li
+        lit = (nee[b + 4] > 0.0) & ~(nee[b] > 0.0)
+        br = tuple(br[c] + torch.where(lit, nee[b + 1 + c], zero)
+                   for c in range(3))
+    if has_clamp and bounce > 0:
+        br = tuple(torch.minimum(br[c], clamp_v) for c in range(3))
+    rad = _where3(
+        alive,
+        (rad[0] + beta[0] * br[0], rad[1] + beta[1] * br[1],
+         rad[2] + beta[2] * br[2]),
+        rad,
+    )
+    return torch.stack([rad[0], rad[1], rad[2], zero])
+
+
+def resolve_planes(rs, nee, n_lights: int, bounce: int,
+                   has_clamp: bool) -> torch.Tensor:
+    """The resolve kernel on CUDA tensors, its plain version on CPU ones."""
+    if not _build.dispatch(rs):
+        return resolve_planes_plain(rs, nee, n_lights, bounce, has_clamp)
+    dev = rs.device
+    n = rs.shape[1]
+    _build.check(rs, "rs", torch.float32, (_N_RS, n), dev)
+    _build.check(nee, "nee", torch.float32, (_N_NEE * n_lights, n), dev)
+    out = torch.empty((4, n), dtype=torch.float32, device=dev)
+    if n == 0:
+        return out
+    err = _build.library().yk_resolve(
+        dev.index, _build.ptr(rs), _build.ptr(nee), n, n_lights, int(bounce),
+        int(bool(has_clamp)), _build.ptr(out), _build.stream(dev),
+    )
+    _build.launch_check(err, "resolve")
+    LAUNCHES["resolve"] += 1
+    return out
+
+
+def pack_resolve(tb: ShadeTables, radiance, beta, alive, missed, ne, occ,
+                 worth, contrib):
+    """The resolve kernel's inputs: (rs [16,N] (_RS), nee [5L,N])."""
+    n = radiance.shape[0]
+    n_lights = tb.n_lights
+    clamp_v = 0.0 if tb.indirect_clamp is None else float(tb.indirect_clamp)
+    f32 = torch.float32
+    rs = torch.stack([
+        radiance[:, 0], radiance[:, 1], radiance[:, 2],
+        beta[:, 0], beta[:, 1], beta[:, 2],
+        alive.to(f32), missed.to(f32), ne[:, 0], ne[:, 1], ne[:, 2],
+        tb.bg[0].expand(n), tb.bg[1].expand(n), tb.bg[2].expand(n),
+        torch.full((n,), clamp_v, dtype=f32, device=radiance.device),
+        torch.zeros(n, dtype=f32, device=radiance.device),
+    ])
+    occ_f = occ.to(f32).reshape(n_lights, n)
+    worth_f = worth.to(f32).reshape(n_lights, n)
+    c = contrib.reshape(n_lights, n, 3)
+    nee = torch.stack([
+        plane for li in range(n_lights)
+        for plane in (occ_f[li], c[li, :, 0], c[li, :, 1], c[li, :, 2],
+                      worth_f[li])
+    ])
+    return rs, nee
+
+
+def resolve_fused(tb: ShadeTables, radiance, beta, alive, missed, ne, occ,
+                  worth, contrib, bounce: int):
+    """NEE resolve + emission + clamp + miss background + radiance update
+    (shade_fused.py:926-1030).  occ/worth [L*N] light-major, contrib
+    [L*N,3]; returns the updated radiance [N,3]."""
+    rs, nee = pack_resolve(tb, radiance, beta, alive, missed, ne, occ, worth,
+                           contrib)
+    out = resolve_planes(rs, nee, tb.n_lights, bounce,
+                         tb.indirect_clamp is not None)
+    return out[:3].t().contiguous()

@@ -2,8 +2,10 @@
 ``make_wave_renderer`` (:60-172) and of the synchronous, non-accumulating
 wave loop of its manager thread (:383-436) as ``render_frame``.
 
-Only the path tracer on scenes that pass ``path_fused.wave_supported``
-is ported; anything else raises ``NotImplementedError`` rather than
+Only the path tracer is ported.  Scenes that pass
+``path_fused.wave_supported`` take the fused wave (:107-121); treelet
+scenes take camera rays + ``integrators.path_li`` (:122-128); anything
+else raises ``NotImplementedError`` naming what is missing rather than
 running another path.  The threaded ``Renderer`` facade (launch /
 check_status / kill, progress and ETA) comes later (ROADMAP Queue 1
 item 9).
@@ -19,8 +21,9 @@ import torch
 
 from ..camera import Camera, CameraParameters
 from ..film import Film, FilmSettings, film_tiles
-from ..integrators import PathParams
-from ..ops import path_fused
+from ..integrators import PathParams, check_path_li_supported, path_li
+from ..ops import path_fused, shade_fused
+from ..sampling import SampleCtx
 
 
 def make_wave_renderer(scene, camera: Camera, sampler, integrator,
@@ -42,35 +45,56 @@ def make_wave_renderer(scene, camera: Camera, sampler, integrator,
             f"integrator {integrator!r}: only PathParams is ported "
             "(Whitted and debug integrators: ROADMAP Queue 1 item 10)"
         )
-    path_fused.check_wave_supported(scene.meta, sampler)
     if wave_tiles < 1 or samples_per_launch < 1:
         raise ValueError("wave_tiles and samples_per_launch must be >= 1")
+    meta = scene.meta
     td = tile_dim
-    tables = path_fused.make_tables(scene, camera, integrator)
-    dev = tables.device
+    dev = scene.device
     iy, ix = torch.meshgrid(
         torch.arange(td, dtype=torch.int32, device=dev),
         torch.arange(td, dtype=torch.int32, device=dev),
         indexing="ij",
     )
 
-    def render_one(origins, sample_index: int, seed: int):
-        b = origins.shape[0]
+    def pixels(origins):
         px = (origins[:, 0, None, None] + ix[None]).reshape(-1)
         py = (origins[:, 1, None, None] + iy[None]).reshape(-1)
-        li, rcount = path_fused.path_li_wave(tables, px.contiguous(),
-                                             py.contiguous(), sample_index,
-                                             seed)
-        return li.reshape(b, td, td, 3), rcount.to(torch.float32).sum()
+        return px.contiguous(), py.contiguous()
+
+    if path_fused.wave_supported(meta, sampler):
+        tables = path_fused.make_tables(scene, camera, integrator)
+
+        def render_one(origins, sample_index: int, seed: int):
+            px, py = pixels(origins)
+            li, rcount = path_fused.path_li_wave(tables, px, py,
+                                                 sample_index, seed)
+            return li, rcount.to(torch.float32).sum()
+    elif meta.traversal == "treelet":
+        check_path_li_supported(meta, sampler)
+        tables = shade_fused.make_shade_tables(scene, integrator)
+
+        def render_one(origins, sample_index: int, seed: int):
+            px, py = pixels(origins)
+            ctx = SampleCtx(px=px, py=py, sample_index=sample_index,
+                            seed=seed)
+            u = sampler.get_2d(ctx, 0)
+            p_film = torch.stack([px.to(torch.float32),
+                                  py.to(torch.float32)], dim=-1) + u
+            o, d = camera.ray(p_film)
+            res = path_li(scene, meta, integrator, sampler, ctx,
+                          o.contiguous(), d.contiguous(), tables, dim=2)
+            return res.li, res.ray_count.to(torch.float32).sum()
+    else:
+        path_fused.check_wave_supported(meta, sampler)  # raises, says why
 
     def call(origins, sample_index: int, seed: int):
         origins = torch.as_tensor(origins, device=dev).to(torch.int32)
-        pixels, rays = render_one(origins, int(sample_index), int(seed))
+        li, rays = render_one(origins, int(sample_index), int(seed))
         for k in range(1, samples_per_launch):
-            p_k, r_k = render_one(origins, int(sample_index) + k, int(seed))
-            pixels = pixels + p_k
+            li_k, r_k = render_one(origins, int(sample_index) + k, int(seed))
+            li = li + li_k
             rays = rays + r_k
-        return pixels, rays
+        return li.reshape(origins.shape[0], td, td, 3), rays
 
     return call
 

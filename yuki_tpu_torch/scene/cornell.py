@@ -183,7 +183,9 @@ def cornell(device=None) -> tuple[Scene, CameraParameters, FilmSettings]:
     # Copper sphere.
     b.add_sphere(tf.translation((0.186, 0.082, -0.168)), 0.082, copper)
 
-    scene = b.build(device=device)
+    # yuki_tpu's cornell() defaults: middle split, one shape per leaf.
+    scene = b.build(split_method="middle", max_shapes_in_node=1,
+                    device=device)
 
     cam = CameraParameters(
         position=(0.278, 0.273, 0.800),

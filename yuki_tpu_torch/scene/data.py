@@ -1,30 +1,33 @@
 """Scene representation: dataclasses of tensors + a host-side builder.
 
-Port of ``yuki_tpu/scene/data.py`` for dense scenes.  Everything the
-integrators touch per ray lives in flat tensors on the scene's device:
-world-space triangles with a one-row ``[T,32]`` shading table, spheres
-with their object<->world matrices (tested brute-force after the
-triangles), and material / light / texture tables keyed by type id.  The
-tables are computed in numpy exactly as ``yuki_tpu`` computes them, so
-the two packages hold the same bits.
+Port of ``yuki_tpu/scene/data.py``.  Everything the integrators touch per
+ray lives in flat tensors on the scene's device: world-space triangles
+with a one-row ``[T,32]`` shading table, spheres with their
+object<->world matrices (tested brute-force after the triangles), and
+material / light / texture tables keyed by type id.  The tables are
+computed in numpy exactly as ``yuki_tpu`` computes them, so the two
+packages hold the same bits.
 
-Not ported yet: the BVH and the treelet structures (ROADMAP Queue 1,
-"BVH and treelet builders").  A dense scene needs neither — the scene
-bounds are the min/max over triangle vertices, which is what the BVH
-root holds — and ``build`` refuses scenes above ``DENSE_TRI_THRESHOLD``,
-which need treelet traversal (ROADMAP Slice B).
+``build`` makes the SAH BVH on the host for every scene (its root box is
+the scene box); scenes above ``DENSE_TRI_THRESHOLD`` triangles also get
+the two-level treelet structure the treelet walk reads and the flat
+~128-triangle chunk cut (unused until the adaptive dispatch is ported,
+ROADMAP Slice B2, but built so the Scene matches yuki_tpu's).
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+import time
+from dataclasses import dataclass, field
 from typing import Any, Optional
 
 import numpy as np
 import torch
 
 from .. import transforms as tf
+from ..bvh import build_bvh
 from ..device import resolve_device
+from ..treelets import build_treelets
 
 # Material type ids (materials/{matte,glass,metal,glossy}.rs)
 MAT_MATTE = 0
@@ -146,8 +149,10 @@ class SceneData:
     lights: LightArrays
     textures: TextureAtlas
     background: Any  # [3]
-    world_lo: Any  # [3] scene AABB (the BVH root's bounds)
+    world_lo: Any  # [3] scene AABB (BVH root + sphere boxes)
     world_hi: Any  # [3]
+    treelets: Any = None  # treelets.TreeletArrays (treelet scenes only)
+    chunks: Any = None  # treelets.TreeletArrays: flat ~128-tri cut
 
 
 @dataclass
@@ -161,14 +166,15 @@ class SceneMeta:
     n_lights: int = 0
     n_materials: int = 0
     light_types: tuple = ()
-    # BVH leaf bound; no BVH is built for dense scenes yet.
+    # Fattest BVH leaf.
     bvh_max_leaf: int = 4
     traversal: str = "dense"
     material_types: tuple = (0,)
     has_sigma: bool = False
     has_textures: bool = False
     has_sigma_tex: bool = False
-    # Treelet slot-stream budgets (unused by dense scenes).
+    # Treelet slot-stream budgets (_estimate_slot_mult; used by the
+    # adaptive dispatch, ROADMAP Slice B2).
     slot_mult: int = 6
     slot_mult_tight: int = 4
     bun_closest: int = 1
@@ -188,6 +194,10 @@ class Scene:
 
     data: SceneData
     meta: SceneMeta
+    bvh_host: Any = None  # bvh.BvhHost
+    # Host seconds of build's stages: "bvh", and for treelet scenes
+    # "treelets", "chunks" and "slot_mult".
+    build_seconds: dict = field(default_factory=dict)
 
     @property
     def name(self) -> str:
@@ -196,6 +206,40 @@ class Scene:
     @property
     def device(self) -> torch.device:
         return self.data.tris.p0.device
+
+
+def _estimate_slot_mult(chunks, tri_p, n_sample: int = 8192,
+                        seed: int = 17) -> tuple[int, int]:
+    """Sampled diffuse-bounce chunk incidence -> static slot budgets
+    (tight, wide), yuki_tpu scene/data.py:271-308: random surface points
+    with hemisphere directions slab-tested against every chunk box; wide
+    = mean * 1.3 + 2 clamped to [6, 16], tight = mean * 0.66 + 1 clamped
+    to [4, wide]."""
+    cb = chunks.treelet_bounds.cpu().numpy()
+    rng = np.random.default_rng(seed)
+    nt = tri_p.shape[0]
+    ids = rng.integers(0, nt, n_sample)
+    u = rng.random((n_sample, 1)).astype(np.float32)
+    v = (rng.random((n_sample, 1)) * (1 - u)).astype(np.float32)
+    p0, p1, p2 = tri_p[ids, 0], tri_p[ids, 1], tri_p[ids, 2]
+    orig = p0 + u * (p1 - p0) + v * (p2 - p0)
+    nrm = np.cross(p1 - p0, p2 - p0)
+    nrm /= np.maximum(np.linalg.norm(nrm, axis=1, keepdims=True), 1e-12)
+    dirs = rng.standard_normal((n_sample, 3)).astype(np.float32)
+    dirs /= np.maximum(np.linalg.norm(dirs, axis=1, keepdims=True), 1e-12)
+    flip = (dirs * nrm).sum(1, keepdims=True) < 0
+    dirs = np.where(flip, -dirs, dirs).astype(np.float32)
+    orig = (orig + 1e-3 * nrm).astype(np.float32)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        inv = 1.0 / dirs
+        t0 = (cb[None, :, 0:3] - orig[:, None, :]) * inv[:, None, :]
+        t1 = (cb[None, :, 3:6] - orig[:, None, :]) * inv[:, None, :]
+    tn = np.nan_to_num(np.minimum(t0, t1), nan=-np.inf).max(axis=2)
+    tf_ = np.nan_to_num(np.maximum(t0, t1), nan=np.inf).min(axis=2)
+    mean_inc = float((np.maximum(tn, 0.0) <= tf_).sum(axis=1).mean())
+    wide = int(np.clip(np.ceil(mean_inc * 1.3) + 2, 6, 16))
+    tight = int(np.clip(np.ceil(mean_inc * 0.66) + 1, 4, wide))
+    return tight, wide
 
 
 def _t(x, device, dtype=None) -> Optional[torch.Tensor]:
@@ -366,17 +410,14 @@ class SceneBuilder:
         )
 
     # --- freeze --------------------------------------------------------
-    def build(self, device=None) -> Scene:
-        """Freeze into a Scene on ``device`` (None: default_device())."""
+    def build(self, split_method: str = "sah", max_shapes_in_node: int = 1,
+              device=None) -> Scene:
+        """Freeze into a Scene on ``device`` (None: default_device()); the
+        BVH arguments are yuki_tpu's (scene/data.py:498-503, whose
+        max_leaf_size stays at its default 4 here)."""
         dev = resolve_device(device)
         nt = sum(chunk.shape[0] for chunk in self._tri_p)
         ns = len(self._spheres)
-        if nt > DENSE_TRI_THRESHOLD:
-            raise NotImplementedError(
-                f"{nt} triangles needs treelet traversal, which is not "
-                "ported yet (ROADMAP Slice B: BVH/treelet builders and the "
-                "treelet trace kernels)"
-            )
 
         tri_p_chunks = list(self._tri_p)
         tri_n_chunks = list(self._tri_n)
@@ -515,11 +556,34 @@ class SceneBuilder:
             palette=_t(palette, dev),
         )
 
-        # Scene bounds: the BVH root's box is the min/max over every
-        # triangle vertex; then extend by the sphere AABBs.
-        flat_p = tri_p.reshape(-1, 3)
-        world_lo = flat_p.min(axis=0).astype(np.float32)
-        world_hi = flat_p.max(axis=0).astype(np.float32)
+        # BVH over triangles (spheres are tested brute-force); treelet
+        # scenes also get the two-level treelet cut (fat 64-triangle
+        # leaves) and the flat 128-triangle chunk cut.
+        seconds = {}
+        t0 = time.perf_counter()
+        bvh_host = build_bvh(tri_p, split_method=split_method,
+                             max_shapes_in_node=max_shapes_in_node)
+        seconds["bvh"] = time.perf_counter() - t0
+        treelet = nt > DENSE_TRI_THRESHOLD
+        treelet_arrays = chunk_arrays = None
+        slot_mult_tight, slot_mult = 4, 6
+        if treelet:
+            t0 = time.perf_counter()
+            treelet_arrays = build_treelets(bvh_host, tri_p, tri_light_np,
+                                            leaf_size=64, super_size=4096,
+                                            device=dev)
+            seconds["treelets"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            chunk_arrays = build_treelets(bvh_host, tri_p, tri_light_np,
+                                          leaf_size=128, super_size=128,
+                                          device=dev)
+            seconds["chunks"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            slot_mult_tight, slot_mult = _estimate_slot_mult(chunk_arrays,
+                                                             tri_p)
+            seconds["slot_mult"] = time.perf_counter() - t0
+        world_lo = bvh_host.node_lo[0].copy()
+        world_hi = bvh_host.node_hi[0].copy()
         for s in self._spheres:
             t = tf.Transform(np.asarray(s[0]), np.asarray(s[1]))
             r = s[2]
@@ -540,6 +604,8 @@ class SceneBuilder:
             background=_t(self.background, dev),
             world_lo=_t(world_lo, dev),
             world_hi=_t(world_hi, dev),
+            treelets=treelet_arrays,
+            chunks=chunk_arrays,
         )
         meta = SceneMeta(
             name=self.name,
@@ -556,7 +622,10 @@ class SceneBuilder:
             ),
             has_textures=any(int(m["tex0"]) >= 0 for m in mats),
             has_sigma_tex=any(int(m.get("tex1", -1)) >= 0 for m in mats),
-            traversal="dense",
+            slot_mult=slot_mult,
+            slot_mult_tight=slot_mult_tight,
+            bvh_max_leaf=bvh_host.max_leaf,
+            traversal="treelet" if treelet else "dense",
             sphere_mats_untextured=all(
                 int(mats[s[4]]["tex0"]) < 0
                 and int(mats[s[4]].get("tex1", -1)) < 0
@@ -567,4 +636,5 @@ class SceneBuilder:
             texpool_palette=pal_colors,
             n_textures=len(self._textures),
         )
-        return Scene(data=data, meta=meta)
+        return Scene(data=data, meta=meta, bvh_host=bvh_host,
+                     build_seconds=seconds)
