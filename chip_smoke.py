@@ -34,12 +34,22 @@ beside this file.  It imports no JAX.  Phases:
      stated slices of whole 1024-ray blocks (on bounce 1, blocks holding
      live and parked lanes), and tally the work each ray's own query
      needs, from which the walks' bounds are computed;
-  7. the colonnade golden: 64x48, depth 3, 1 spp, seed 1 against
+  7. the divergent-wave kernels against their plain versions on the same
+     wave's bounce-1 rays and their shadow rays (both lights): the cull on
+     both, the crossing words on the cull's overflow mini-wave and on a
+     64-block slice, the closest and occlusion slot walks on the slots the
+     dispatch lays out; with the bounds from the plain versions' tallies;
+  8. the treelet dispatch against the treelet walk on the same rays: prim
+     and occlusion equal apart from counted ties (|t| gaps of at most one
+     ulp), t within one ulp and b0/b1 equal where prim is equal; then
+     each query's time per call and its device breakdown;
+  9. the colonnade golden: 64x48, depth 3, 1 spp, seed 1 against
      tests/goldens/torch_colonnade_64x48_path3_1spp_seed1.npz;
-  8. the treelet main path: render_frame on the colonnade at 1920x1080,
+ 10. the treelet main path: render_frame on the colonnade at 1920x1080,
      depth 5, UniformSampler 1 spp, 16-pixel tiles, 2048-tile waves, seed
-     1 (bench.py:273-276), counting launches, then the same frame under
-     torch.profiler for where the device time goes.
+     1 (bench.py:273-276), counting launches and the dispatch's branches,
+     then the same frame under torch.profiler for where the device time
+     goes and the device's idle share.
 
 Prints one JSON line describing the kernels, the card's name and power
 limit, then as its last line {"ok": true, "device": {...}}.  Any failed
@@ -74,6 +84,10 @@ KERNELS = {  # name: (source, the TPU kernel it replaces)
     "treelet_any": ("trace_treelets.cu", "yuki_tpu/ops/trace_treelets.py:129"),
     "shade": ("shade_fused.cu", "yuki_tpu/ops/shade_fused.py:798"),
     "resolve": ("shade_fused.cu", "yuki_tpu/ops/shade_fused.py:868"),
+    "cull": ("trace_cull.cu", "yuki_tpu/ops/trace_cull.py:60"),
+    "cross_words": ("trace_stream.cu", "yuki_tpu/ops/trace_stream.py:117"),
+    "slot_closest": ("trace_stream.cu", "yuki_tpu/ops/trace_stream.py:812"),
+    "slot_any": ("trace_stream.cu", "yuki_tpu/ops/trace_stream.py:850"),
 }
 
 # Bounds: the least time the card could take for a kernel's work, the
@@ -88,6 +102,8 @@ OPS_WATERTIGHT = 43  # 9 translate, 12 shear, 9 edges, 2 det, 6 t_scaled,
 OPS_SLAB = 24  # 6 subtract, 6 multiply, 12 min/max
 OPS_SPHERE = 60  # transform 33, quadratic 21, root, q, two divides
 OPS_CAMERA = 54  # jitter 2, raster->camera 19, normalise 9 (twice), c2w 15
+OPS_SCALED = 40  # slot walks' scaled test: 9 translate, 12 shear, 9 edges,
+# 2 det, 6 ts, 2 for the cross-multiplied compare (occlusion: 39, one bound)
 CLOSEST_RAY_BYTES = 12 + 12 + 4 + 16  # o, d, t_max in; t, prim, b0, b1 out
 ANY_RAY_BYTES = 12 + 12 + 4 + 4 + 1  # o, d, t_max, skip id in; occluded out
 FLOATS = ("ox", "oy", "oz", "dx", "dy", "dz", "bx", "by", "bz",
@@ -145,18 +161,24 @@ def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def reset_all_launches():
-    from yuki_tpu_torch.ops import path_fused, shade_fused, trace_treelets
+def _kernel_modules():
+    from yuki_tpu_torch.ops import (path_fused, shade_fused, trace_cull,
+                                    trace_stream, trace_treelets)
 
-    for m in (path_fused, shade_fused, trace_treelets):
+    return (path_fused, shade_fused, trace_treelets, trace_cull, trace_stream)
+
+
+def reset_all_launches():
+    from yuki_tpu_torch import traverse
+
+    for m in _kernel_modules():
         m.reset_launches()
+    traverse.reset_counts()
 
 
 def all_launches():
-    from yuki_tpu_torch.ops import path_fused, shade_fused, trace_treelets
-
     out = {}
-    for m in (path_fused, shade_fused, trace_treelets):
+    for m in _kernel_modules():
         out.update(m.LAUNCHES)
     return out
 
@@ -638,7 +660,173 @@ def phase_colonnade_kernels(torch, np, dev, scene, cam):
           f"{ms_full:.4f} ms; {span} of each light, {n_parked} parked with "
           f"t_max 0: kernel {ms_k:.4f} ms, bound {b_ms:.4f} ms ({b_by}; "
           f"{work(stats)})]: occlusion equal on the slices")
+    return result, (o2, d2, t_max2, no2, nd2, nt2, sk2)
+
+
+def phase_stream_kernels(torch, np, scene, rays, card):
+    """The divergent-wave kernels against their plain versions on the
+    wave's bounce-1 rays and their shadow rays, with the plain versions'
+    tallies for the bounds."""
+    from yuki_tpu_torch.ops import trace_cull as tcu
+    from yuki_tpu_torch.ops import trace_stream as ts
+
+    o2, d2, t2, no2, nd2, nt2, sk2 = rays
+    ch, meta = scene.data.chunks, scene.meta
+    n = o2.shape[0]
+    w = ts.n_words(ch.n_treelets)
+    tables = nbytes(ch.treelet_bounds) + w * 8 * 4  # chunk and word boxes
+    waves = {"bounce-1 rays": (o2, d2, t2), "shadow rays": (no2, nd2, nt2)}
+    result = {}
+
+    lists = {}
+    for what, (o, d, t) in waves.items():
+        got = tcu.candidate_lists_fused(ch, o, d, t, ts.C_MAIN)
+        stats = {}
+        ref = tcu.candidate_lists_2l(ch, o, d, t, ts.C_MAIN, stats=stats)
+        torch.cuda.synchronize()
+        check(torch.equal(got[0], ref[0]), f"cull on {what}: lists differ")
+        check(torch.equal(got[1], ref[1]), f"cull on {what}: overflow differs")
+        ms_k = cuda_ms(torch, lambda: tcu.candidate_lists_fused(
+            ch, o, d, t, ts.C_MAIN), 10)
+        ms_p = cuda_ms(torch, lambda: tcu.candidate_lists_2l(
+            ch, o, d, t, ts.C_MAIN), 1)
+        m = o.shape[0]
+        b_ms, b_by = bound(m * 28 + m * (4 * ts.C_MAIN + 1) + tables,
+                           stats["boxes"] * OPS_SLAB)
+        print(f"cull [{m} {what}, {int((t > 0).sum())} live, "
+              f"{int(got[1].sum())} overflow]: kernel {ms_k:.4f} ms, plain "
+              f"{ms_p:.4f} ms, bound {b_ms:.4f} ms ({b_by}; {stats['boxes']} "
+              f"slab tests): lists and overflow equal [{card}]")
+        if what == "bounce-1 rays":
+            result["cull"] = dict(max_abs_err=0.0, ms=ms_k, plain_ms=ms_p,
+                                  bound_ms=b_ms, bound_by=b_by)
+        lists[what] = got
+
+    idx = torch.nonzero(lists["bounce-1 rays"][1]).squeeze(1)
+    sl = SLICE_BLOCKS * 1024
+    for what, sel in (("the cull's overflow mini-wave", idx),
+                      (f"a {SLICE_BLOCKS}-block slice", slice(0, sl))):
+        o, d, t = (x[sel].contiguous() for x in (o2, d2, t2))
+        m = o.shape[0]
+        check(m > 0, f"cross_words: {what} is empty")
+        got = ts.cross_words(ch, o, d, t)
+        stats = {}
+        ref = ts.cross_words_plain(ch, o, d, t, stats)
+        torch.cuda.synchronize()
+        check(torch.equal(got, ref), f"cross_words on {what}: words differ")
+        ms_k = cuda_ms(torch, lambda: ts.cross_words(ch, o, d, t), 10)
+        ms_p = cuda_ms(torch, lambda: ts.cross_words_plain(ch, o, d, t), 3)
+        b_ms, b_by = bound(m * 28 + m * w * 4 + tables,
+                           stats["boxes"] * OPS_SLAB)
+        print(f"cross_words [{what}: {m} bounce-1 rays]: kernel {ms_k:.4f} "
+              f"ms, plain {ms_p:.4f} ms, bound {b_ms:.4f} ms ({b_by}; "
+              f"{stats['boxes']} slab tests): words equal [{card}]")
+        result["cross_words"] = dict(max_abs_err=0.0, ms=ms_k, plain_ms=ms_p,
+                                     bound_ms=b_ms, bound_by=b_by)
+
+    k = ch.leaf_size
+    budgets = {"bounce-1 rays": (meta.slot_mult_tight, meta.slot_mult),
+               "shadow rays": (max(3, meta.slot_mult_tight - 1),
+                               max(4, meta.slot_mult - 2))}
+    for what, name in (("bounce-1 rays", "slot_closest"),
+                       ("shadow rays", "slot_any")):
+        o, d, t = waves[what]
+        m = o.shape[0]
+        slots = ts._slots(ch, lists[what][0], ts.C_MAIN, *budgets[what], m)
+        check(slots is not None, f"{name}: the {what}' slot budget blew")
+        _, slot_ray, row_chunk, valid = slots
+        extra = sk2 if name == "slot_any" else None
+        stream = ts._pack_stream(o, d, t, slot_ray, valid, extra=extra)
+        kern = getattr(ts, name)
+        plain = getattr(ts, name + "_plain")
+        got = kern(ch.rows, k, row_chunk, stream)
+        stats = {}
+        ref = plain(ch.rows, k, row_chunk, stream, stats)
+        torch.cuda.synchronize()
+        check(torch.equal(got, ref), f"{name} on the {what}' slots differs")
+        ms_k = cuda_ms(torch, lambda: kern(ch.rows, k, row_chunk, stream), 10)
+        ms_p = cuda_ms(torch, lambda: plain(ch.rows, k, row_chunk, stream), 1)
+        n_slots = stream.shape[0]
+        chunks = int(torch.unique(row_chunk).numel())
+        out_b = 12 if name == "slot_closest" else 4
+        ops = OPS_SCALED if name == "slot_closest" else OPS_SCALED - 1
+        b_ms, b_by = bound(n_slots * (32 + out_b) + row_chunk.numel() * 4
+                           + chunks * k * 48, stats["tests"] * ops)
+        print(f"{name} [{m} {what}: {row_chunk.numel()} slot rows, "
+              f"{int(valid.sum())} valid slots, {int((stream[:, 6] > 0).sum())}"
+              f" live, {chunks} chunks]: kernel {ms_k:.4f} ms, plain "
+              f"{ms_p:.4f} ms, bound {b_ms:.4f} ms ({b_by}; {stats['tests']} "
+              f"triangle tests): {'ts, prim, det' if out_b == 12 else 'occlusion'}"
+              f" equal on every slot [{card}]")
+        result[name] = dict(max_abs_err=0.0, ms=ms_k, plain_ms=ms_p,
+                            bound_ms=b_ms, bound_by=b_by)
     return result
+
+
+def phase_dispatch_vs_walk(torch, scene, rays, card):
+    """The dispatch's divergent branch against the treelet walk on the
+    wave's bounce-1 rays and their shadow rays.  The engines are both
+    exact; a prim may differ only where two triangles lie at the same
+    distance to within an ulp (the slot merge takes the lower id among
+    equal t, the walk the first it meets), and t by an ulp (one IEEE
+    divide of a scaled hit against a multiply by a reciprocal)."""
+    from yuki_tpu_torch import traverse
+    from yuki_tpu_torch.ops import trace_treelets as ttt
+
+    o2, d2, t2, no2, nd2, nt2, sk2 = rays
+    data, tl = scene.data, scene.data.treelets
+    traverse.reset_counts()
+    t_s, p_s, b0_s, b1_s = traverse._closest_dispatch(data, scene.meta, o2,
+                                                      d2, t2)
+    t_w, p_w, b0_w, b1_w = ttt.treelet_closest(tl, o2, d2, t2)
+    occ_s = traverse._any_dispatch(data, scene.meta, no2, nd2, nt2, sk2)
+    occ_w = ttt.treelet_any(tl, no2, nd2, nt2, sk2)
+    torch.cuda.synchronize()
+    c = traverse.counts()
+    check(c["closest_slot"] == 1 and c["any_slot"] == 1 and not c["fallbacks"],
+          f"dispatch: bounce-1 waves did not take the slot branch: {c}")
+    ulp = (t_s.view(torch.int32) - t_w.view(torch.int32)).abs()
+    same = p_s == p_w
+    ties = ~same & (ulp <= 1)
+    n_diff, n_ties = int((~same).sum()), int(ties.sum())
+    check(n_diff == n_ties, f"dispatch vs walk: {n_diff - n_ties} prim "
+          "differences that are not ties")
+    max_ulp = int(ulp[same].max())
+    check(max_ulp <= 1, f"dispatch vs walk: t {max_ulp} ulps apart")
+    check(torch.equal(b0_s[same], b0_w[same])
+          and torch.equal(b1_s[same], b1_w[same]),
+          "dispatch vs walk: b0/b1 differ where prim is equal")
+    n_occ = int((occ_s != occ_w).sum())
+    check(n_occ == 0, f"dispatch vs walk: {n_occ} occlusion verdicts differ")
+    print(f"dispatch vs treelet walk [{o2.shape[0]} bounce-1 rays, "
+          f"{int((p_s >= 0).sum())} hits; {no2.shape[0]} shadow rays, "
+          f"{int(occ_s.sum())} occluded]: prim differs at {n_ties} ties "
+          f"(t within 1 ulp), t gap at most {max_ulp} ulp where prim is "
+          f"equal ({int((same & (ulp == 1)).sum())} rays at 1 ulp), b0/b1 "
+          f"equal there, occlusion equal; {c['overflow_rays']} overflow "
+          f"rays, {c['wide_reruns']} wide re-runs [{card}]")
+
+    # Each query as path_li makes it: time per call from CUDA events (the
+    # host reads inside it stall the stream, so they are included), then
+    # one call under torch.profiler for where its device time goes.
+    from torch.profiler import ProfilerActivity, profile
+
+    for what, call in (
+            ("closest, bounce-1 rays", lambda: traverse._closest_dispatch(
+                data, scene.meta, o2, d2, t2)),
+            ("occlusion, shadow rays", lambda: traverse._any_dispatch(
+                data, scene.meta, no2, nd2, nt2, sk2))):
+        ms = cuda_ms(torch, call, 3)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            call()
+            torch.cuda.synchronize()
+        groups, _ = device_breakdown(torch, prof)
+        busy = sum(ms_k for ms_k, _ in groups.values())
+        parts = ", ".join(f"{k} {ms_k:.3f} ms / {cnt}"
+                          for k, (ms_k, cnt) in groups.items() if cnt)
+        print(f"dispatch {what}: {ms:.3f} ms per call, device busy "
+              f"{busy:.3f} ms (kernels: {parts}) [{card}]")
 
 
 def phase_colonnade_golden(torch, np, scene, cam):
@@ -660,27 +848,49 @@ def phase_colonnade_golden(torch, np, scene, cam):
           f"(limit {limit}), mean rel diff {mean_rel:.3g}, rmse {rmse:.4g}")
 
 
-def device_breakdown(prof):
+KERNEL_FAMILIES = ("cull", "cross_words", "slot_closest", "slot_any",
+                   "treelet_closest", "treelet_any", "shade", "resolve")
+GLUE_FAMILIES = (("glue: sort", ("sort",)),
+                 ("glue: scatter/gather/index", ("scatter", "gather",
+                                                 "index")),
+                 ("glue: memcpy/memset", ("memcpy", "memset")))
+
+
+def device_breakdown(torch, prof):
     """Device time (ms) and kernel count by family from a torch.profiler
-    run: {family: [ms, launches]}."""
-    groups = {k: [0.0, 0] for k in ("treelet_closest", "treelet_any",
-                                    "shade", "resolve", "torch glue")}
+    run: {family: [ms, launches]}, over the device's own events (a torch
+    operator's entry repeats the time of the kernels it launched); torch's
+    kernels split into sorts, scatters/gathers/indexing, copies and the
+    rest.  Also the torch operators that launched the most device time:
+    [(ms, calls, name)]."""
+    names = [*KERNEL_FAMILIES, *(g for g, _ in GLUE_FAMILIES), "glue: other"]
+    groups = {k: [0.0, 0] for k in names}
+    glue = []
     for e in prof.key_averages():
         t = float(getattr(e, "self_device_time_total", 0.0) or 0.0) / 1e3
         if t <= 0.0:
             continue
-        key = next((k for k in ("treelet_closest", "treelet_any", "shade",
-                                "resolve") if f"{k}_kernel" in e.key),
-                   "torch glue")
+        if e.device_type == torch.autograd.DeviceType.CPU:
+            if e.key.startswith("aten::"):
+                glue.append((t, e.count, e.key))
+            continue
+        low = e.key.lower()
+        key = next((k for k in KERNEL_FAMILIES if f"{k}_kernel" in e.key),
+                   None) or next((g for g, words in GLUE_FAMILIES
+                                  if any(wd in low for wd in words)),
+                                 "glue: other")
         groups[key][0] += t
         groups[key][1] += e.count
-    return groups
+    return groups, sorted(glue, reverse=True)[:8]
 
 
 def phase_colonnade_main_path(torch, np, scene, cam, card):
+    from yuki_tpu_torch import traverse
     from yuki_tpu_torch.film import FilmSettings
     from yuki_tpu_torch.integrators import PathParams
     from yuki_tpu_torch.ops import shade_fused as tsf
+    from yuki_tpu_torch.ops import trace_cull as tcu
+    from yuki_tpu_torch.ops import trace_stream as ts
     from yuki_tpu_torch.ops import trace_treelets as ttt
     from yuki_tpu_torch.renderer import render_frame
     from yuki_tpu_torch.sampling import UniformSampler
@@ -697,7 +907,9 @@ def phase_colonnade_main_path(torch, np, scene, cam, card):
     res = frame()
     torch.cuda.synchronize()
     counts = all_launches()
-    launches = {k: counts[k] for k in (*ttt.LAUNCHES, *tsf.LAUNCHES)}
+    branches = traverse.counts()
+    launches = {k: counts[k] for k in (*ttt.LAUNCHES, *tsf.LAUNCHES,
+                                       *tcu.LAUNCHES, *ts.LAUNCHES)}
     for name, count in counts.items():
         if name in launches:
             check(count > 0, f"colonnade main path: {name} never launched")
@@ -714,7 +926,8 @@ def phase_colonnade_main_path(torch, np, scene, cam, card):
           f"{COL_WAVE_TILES}-tile waves: {res.ray_count} closest-hit rays in "
           f"{res.elapsed_s:.3f} s = {mrays:.2f} Mrays/s, "
           f"{1.0 / res.elapsed_s:.3f} spp/s, {res.elapsed_s:.3f} s/frame, "
-          f"launches {launches}, image mean {float(img.mean()):.5f} [{card}]")
+          f"launches {launches}, dispatch {branches}, image mean "
+          f"{float(img.mean()):.5f} [{card}]")
 
     from torch.profiler import ProfilerActivity, profile
 
@@ -724,15 +937,20 @@ def phase_colonnade_main_path(torch, np, scene, cam, card):
         frame()
         torch.cuda.synchronize()
         wall = time.monotonic() - t0
-    groups = device_breakdown(prof)
+    groups, top_ops = device_breakdown(torch, prof)
     busy = sum(v[0] for v in groups.values())
     if busy > 0.0:
         parts = ", ".join(
             f"{k} {ms:.3f} ms / {cnt} kernels = {ms / max(cnt, 1):.3f} ms each"
             for k, (ms, cnt) in groups.items())
         print(f"colonnade frame under torch.profiler: wall {wall * 1e3:.3f} "
-              f"ms, device busy {busy:.3f} ms ({100 * busy / wall / 1e3:.1f}%):"
-              f" {parts} [{card}]")
+              f"ms, device busy {busy:.3f} ms ({100 * busy / wall / 1e3:.1f}%"
+              f"; idle share {100 * (1 - busy / wall / 1e3):.1f}% of this "
+              f"frame, {100 * (1 - busy / res.elapsed_s / 1e3):.1f}% of the "
+              f"unprofiled frame's {res.elapsed_s * 1e3:.3f} ms): {parts} "
+              f"[{card}]")
+        print("torch operators by device time: " + "; ".join(
+            f"{name} {ms:.3f} ms / {cnt} calls" for ms, cnt, name in top_ops))
     else:
         print("colonnade frame under torch.profiler: no device time recorded "
               "(device breakdown not measured)")
@@ -766,7 +984,12 @@ def main():
         phase_golden(torch, np, dev)
         launches = phase_main_path(torch, np, dev, card)
         scene, cam = phase_colonnade_build(torch, np, dev)
-        kernels.update(phase_colonnade_kernels(torch, np, dev, scene, cam))
+        col_kernels, rays = phase_colonnade_kernels(torch, np, dev, scene,
+                                                    cam)
+        kernels.update(col_kernels)
+        kernels.update(phase_stream_kernels(torch, np, scene, rays, card))
+        phase_dispatch_vs_walk(torch, scene, rays, card)
+        del rays
         phase_colonnade_golden(torch, np, scene, cam)
         launches.update(phase_colonnade_main_path(torch, np, scene, cam,
                                                   card))

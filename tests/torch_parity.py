@@ -166,6 +166,63 @@ def soup(sd, tf, **build):
     return b.build(split_method="sah", max_shapes_in_node=4, **build)
 
 
+def soup_scenes(n_tris, seed):
+    """(JAX scene, port scene on the CPU) of soup_triangles(n_tris, seed),
+    one mesh per triangle, sah with four shapes per leaf (tests/
+    test_stream.py's soup)."""
+    from yuki_tpu import transforms as jtf
+    from yuki_tpu.scene import data as jdata
+    from yuki_tpu_torch import transforms as tf
+    from yuki_tpu_torch.scene import data as tdata
+
+    jax_native_bvh()
+    out = []
+    for sd, tfm, build in ((jdata, jtf, {}), (tdata, tf, {"device": "cpu"})):
+        b = sd.SceneBuilder("soup")
+        m = b.add_matte(kd=(0.7, 0.6, 0.5))
+        for t in soup_triangles(n_tris, seed):
+            b.add_mesh(tfm.Transform.identity(), [0, 1, 2], t, material=m)
+        out.append(b.build(split_method="sah", max_shapes_in_node=4,
+                           **build))
+    return tuple(out)
+
+
+def chunk_soup(n_tris, seed, leaf_size):
+    """A soup's flat chunk cut (supers == chunks, as the scene builder cuts
+    chunks) built by either package: (JAX scene, JAX chunks, port scene,
+    port chunks)."""
+    from yuki_tpu.treelets import build_treelets as jax_build_treelets
+    from yuki_tpu_torch.treelets import build_treelets
+
+    jsc, tsc = soup_scenes(n_tris, seed)
+    tri = np.stack([np.asarray(jsc.data.tris.p0), np.asarray(jsc.data.tris.p1),
+                    np.asarray(jsc.data.tris.p2)], axis=1)
+    light = np.asarray(jsc.data.tris.area_light)
+    jch = jax_build_treelets(jsc.bvh_host, tri, light, leaf_size=leaf_size,
+                             super_size=leaf_size)
+    tch = build_treelets(tsc.bvh_host, tri, light, leaf_size=leaf_size,
+                         super_size=leaf_size, device="cpu")
+    return jsc, jch, tsc, tch
+
+
+def divergent_rays(n, seed, boxes=None, span=6.0):
+    """n rays with origins in [-span/2, span/2]^3 and random unit
+    directions; with ``boxes`` ([K, >=3] box rows), an eighth are
+    axis-parallel (direction components exactly 0) from box lo corners,
+    the slab tests' 0 * inf case."""
+    rng = np.random.default_rng(seed)
+    o = ((rng.random((n, 3), np.float32) - 0.5) * span).astype(np.float32)
+    d = rng.standard_normal((n, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    if boxes is not None:
+        q = n // 8
+        axis = rng.integers(0, 3, q)
+        d[:q] = 0.0
+        d[np.arange(q), axis] = rng.choice([-1.0, 1.0], q)
+        o[:q] = boxes[rng.integers(0, boxes.shape[0], q), :3]
+    return o, d
+
+
 def jax_scene(name):
     """(JAX scene, JAX camera params) for 'cornell' | 'pointspot' |
     'midsize'."""
@@ -313,6 +370,92 @@ def eager_pallas():
         yield
     finally:
         pl.pallas_call = orig
+
+
+class _GridRef:
+    """A kernel ref over a numpy block: reads give jnp arrays, writes land
+    in the block (a view of the call's output for output refs)."""
+
+    def __init__(self, arr):
+        self.arr = arr
+        self.shape = arr.shape
+        self.dtype = arr.dtype
+
+    @staticmethod
+    def _index(idx):
+        from jax._src.state.indexing import Slice
+
+        idx = idx if isinstance(idx, tuple) else (idx,)
+        return tuple(slice(int(i.start), int(i.start) + int(i.size))
+                     if isinstance(i, Slice) else i for i in idx)
+
+    def __getitem__(self, idx):
+        return jnp.asarray(self.arr[self._index(idx)])
+
+    def __setitem__(self, idx, v):
+        self.arr[self._index(idx)] = np.asarray(v)
+
+
+def _grid_pallas_call(kernel, out_shape=(), *, grid_spec=None, **_):
+    """pallas_call for grid kernels with scalar prefetch (trace_stream's
+    slot walks): every grid step runs the kernel body op by op on its
+    blocks, cut by the BlockSpecs' index maps."""
+    import itertools
+
+    def call(*args):
+        nsp = grid_spec.num_scalar_prefetch
+        scalars = [np.asarray(a) for a in args[:nsp]]
+        ins = [np.asarray(a) for a in args[nsp:]]
+        outs = [np.zeros(o.shape, o.dtype) for o in out_shape]
+
+        def block(spec, arr, p):
+            at = spec.index_map(*p, *scalars)
+            return arr[tuple(slice(int(i) * b, (int(i) + 1) * b)
+                             for i, b in zip(at, spec.block_shape))]
+
+        for p in itertools.product(*(range(g) for g in grid_spec.grid)):
+            refs = [_GridRef(s) for s in scalars]
+            refs += [_GridRef(block(s, a, p).copy())
+                     for s, a in zip(grid_spec.in_specs, ins)]
+            refs += [_GridRef(block(s, a, p))
+                     for s, a in zip(grid_spec.out_specs, outs)]
+            kernel(*refs)
+        return [jnp.asarray(o) for o in outs]
+    return call
+
+
+@contextlib.contextmanager
+def eager_grid_pallas():
+    """Run yuki_tpu's slot-stream kernels (trace_stream._closest_kernel,
+    _any_kernel) step by step and op by op, as eager_pallas runs the plane
+    kernels: pl.pallas_call walks the grid in Python, and pl.when,
+    jax.lax.fori_loop and jax.lax.while_loop become Python control flow
+    over concrete values.  Call the stream functions with one slot-budget
+    tier (mult_wide None), so that no lax.cond is staged."""
+    import jax
+    from jax.experimental import pallas as pl
+
+    def when(cond):
+        return lambda fn: fn() if bool(cond) else None
+
+    def fori_loop(lo, hi, body, val):
+        for i in range(int(lo), int(hi)):
+            val = body(i, val)
+        return val
+
+    def while_loop(cond, body, val):
+        while bool(cond(val)):
+            val = body(val)
+        return val
+
+    saved = (pl.pallas_call, pl.when, jax.lax.fori_loop, jax.lax.while_loop)
+    pl.pallas_call, pl.when = _grid_pallas_call, when
+    jax.lax.fori_loop, jax.lax.while_loop = fori_loop, while_loop
+    try:
+        yield
+    finally:
+        (pl.pallas_call, pl.when, jax.lax.fori_loop,
+         jax.lax.while_loop) = saved
 
 
 # --- chaos-aware render bounds (tests/test_path_fused.py:58-81) ----------

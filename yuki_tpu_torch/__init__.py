@@ -12,7 +12,8 @@ sampler, the scene builder and Cornell box, the watertight trace, the
 shading body, the fused dense wave, the wave renderer) and "Slice B1"
 (the native BVH builder, treelets, the colonnade, the treelet walks,
 sphere queries, textures, the shade and resolve kernels and
-``integrators.path_li``).
+``integrators.path_li``) and "B2a" (the treelet dispatch's probe, its
+divergent branch, the overflow re-run and the walk fallback).
 """
 
 from .device import default_device, resolve_device

@@ -8,8 +8,11 @@ headers, so the build takes seconds):
   path_fused.cu      the dense wave: raygen_trace, bounce
   shade_fused.cu     the treelet path's shade and resolve kernels
   trace_treelets.cu  the two-level treelet walks (closest, any)
+  trace_stream.cu    the crossing words and the slot walks (closest, any)
+  trace_cull.cu      the two-level cull
 
-``path_fused.cuh`` holds the device maths they share.  The library lands
+``path_fused.cuh`` holds the device maths they share, ``trace_stream.cuh``
+the slab and scaled watertight tests of the last two.  The library lands
 in ``build/yuki_tpu_torch/`` at the repository root, named by a hash of
 the sources and flags, so an edited source is rebuilt and an unchanged
 one is reused; a file lock keeps concurrent processes from building it
@@ -33,8 +36,9 @@ from pathlib import Path
 from ..native import BUILD_DIR, locked_build
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-UNITS = ("path_fused.cu", "shade_fused.cu", "trace_treelets.cu")
-SOURCES = UNITS + ("path_fused.cuh",)
+UNITS = ("path_fused.cu", "shade_fused.cu", "trace_treelets.cu",
+         "trace_stream.cu", "trace_cull.cu")
+SOURCES = UNITS + ("path_fused.cuh", "trace_stream.cuh")
 
 # -fmad=false: contracting a*b - c*d into an FMA changes the watertight
 # test's edge functions (ARCHITECTURE.md, "FMA hazard" in ROADMAP.md).
@@ -92,8 +96,20 @@ def _declare(lib: ctypes.CDLL) -> None:
         i, p, p, p, p, i, i,  # device, sb, sr, tb, rows, n_supers, leaf_size
         p, p, p, p, i, p, p,  # o, d, tmax, skip, n, occ, stream
     ]
+    lib.yk_cross_words.argtypes = [
+        i, p, i, p, i,  # device, word boxes, n_words, chunk boxes, n_chunks
+        p, p, p, i, p, p,  # o, d, tmax, n, words, stream
+    ]
+    lib.yk_cull.argtypes = [
+        i, p, i, p, i, i, i,  # device, word boxes, n_words, chunk boxes, n_chunks, S, C
+        p, p, p, i, p, p, p,  # o, d, tmax, n, lists, overflow, stream
+    ]
+    for name in ("yk_slot_closest", "yk_slot_any"):
+        # device, rows, leaf_size, row_chunk, n_rows, ray stream, out, stream
+        getattr(lib, name).argtypes = [i, p, i, p, i, p, p, p]
     for name in ("yk_raygen_trace", "yk_bounce", "yk_shade", "yk_resolve",
-                 "yk_treelet_closest", "yk_treelet_any"):
+                 "yk_treelet_closest", "yk_treelet_any", "yk_cross_words",
+                 "yk_cull", "yk_slot_closest", "yk_slot_any"):
         getattr(lib, name).restype = i
     lib.yk_error_string.argtypes = [i]
     lib.yk_error_string.restype = ctypes.c_char_p

@@ -1,5 +1,5 @@
-"""Plain ray-triangle pieces shared by the wave (port of the plain parts of
-``yuki_tpu/ops/trace.py``).
+"""Plain ray-triangle pieces shared by the wave and the slot stream (port
+of the plain parts of ``yuki_tpu/ops/trace.py``).
 
 ``watertight`` is the pbrt watertight test (shapes/triangle.rs:49-130) on
 [N] ray tensors against one triangle, with ``yuki_tpu``'s op order kept
@@ -7,6 +7,12 @@
 so it gives the same bits as the JAX form and as the CUDA kernel, which
 is built with ``-fmad=false`` for the same reason — contracting
 ``a*b - c*d`` into an FMA changes the edge functions.
+
+``ray_shear``, ``watertight_scaled`` and ``scaled_min8`` are the
+divide-free form the slot-stream walks use (``ops/trace.py:41-117``): the
+per-ray shear is hoisted out of the triangle loop, a hit is carried as a
+scaled (ts, det) with det > 0 and t = ts / det, and hits are compared by
+cross-multiplication.
 """
 
 from __future__ import annotations
@@ -27,51 +33,57 @@ def pack_triangles(p0: torch.Tensor, p1: torch.Tensor,
     ).contiguous()
 
 
-def watertight(ox, oy, oz, dx, dy, dz, t_cur, cols):
-    """Watertight test of one triangle (``cols``: its nine corner
-    coordinates) against [N] rays.  Returns (hit, t, b0, b1) with
-    t = F32_MAX on a miss."""
-    p0x, p0y, p0z, p1x, p1y, p1z, p2x, p2y, p2z = cols
+def _permute(x_max, y_max, vx, vy, vz):
+    """(kx, ky, kz): the cyclic axis order starting after kz = argmax |d|."""
+    px = torch.where(x_max, vy, torch.where(y_max, vz, vx))
+    py = torch.where(x_max, vz, torch.where(y_max, vx, vy))
+    pz = torch.where(x_max, vx, torch.where(y_max, vy, vz))
+    return px, py, pz
 
+
+def ray_shear(dx, dy, dz):
+    """The per-ray part of the watertight test (``_ray_shear``): returns
+    (x_max, y_max, sx, sy, inv_dz)."""
     adx, ady, adz = torch.abs(dx), torch.abs(dy), torch.abs(dz)
-    # kz = argmax |d| per lane, via selects.
     x_max = (adx > ady) & (adx > adz)
     y_max = (~x_max) & (ady > adz)
-
-    def permute(vx, vy, vz):
-        # (kx, ky, kz) = cyclic starting after kz.
-        px = torch.where(x_max, vy, torch.where(y_max, vz, vx))
-        py = torch.where(x_max, vz, torch.where(y_max, vx, vy))
-        pz = torch.where(x_max, vx, torch.where(y_max, vy, vz))
-        return px, py, pz
-
-    ddx, ddy, ddz = permute(dx, dy, dz)
-    p0tx, p0ty, p0tz = permute(p0x - ox, p0y - oy, p0z - oz)
-    p1tx, p1ty, p1tz = permute(p1x - ox, p1y - oy, p1z - oz)
-    p2tx, p2ty, p2tz = permute(p2x - ox, p2y - oy, p2z - oz)
-
+    ddx, ddy, ddz = _permute(x_max, y_max, dx, dy, dz)
     inv_dz = torch.reciprocal(ddz)
-    sx = -ddx * inv_dz
-    sy = -ddy * inv_dz
+    return x_max, y_max, -ddx * inv_dz, -ddy * inv_dz, inv_dz
+
+
+def _edges(pre, ox, oy, oz, cols):
+    """The sheared edge functions of one triangle: (e0, e1, e2, miss_sign,
+    t_scaled), t_scaled = (e0 p0z + e1 p1z + e2 p2z) / dz."""
+    x_max, y_max, sx, sy, inv_dz = pre
+    p0x, p0y, p0z, p1x, p1y, p1z, p2x, p2y, p2z = cols
+    p0tx, p0ty, p0tz = _permute(x_max, y_max, p0x - ox, p0y - oy, p0z - oz)
+    p1tx, p1ty, p1tz = _permute(x_max, y_max, p1x - ox, p1y - oy, p1z - oz)
+    p2tx, p2ty, p2tz = _permute(x_max, y_max, p2x - ox, p2y - oy, p2z - oz)
     p0tx = p0tx + sx * p0tz
     p0ty = p0ty + sy * p0tz
     p1tx = p1tx + sx * p1tz
     p1ty = p1ty + sy * p1tz
     p2tx = p2tx + sx * p2tz
     p2ty = p2ty + sy * p2tz
-
     e0 = p1tx * p2ty - p1ty * p2tx
     e1 = p2tx * p0ty - p2ty * p0tx
     e2 = p0tx * p1ty - p0ty * p1tx
-
     miss_sign = ((e0 < 0) | (e1 < 0) | (e2 < 0)) & (
         (e0 > 0) | (e1 > 0) | (e2 > 0)
     )
+    return e0, e1, e2, miss_sign, (e0 * p0tz + e1 * p1tz + e2 * p2tz) * inv_dz
+
+
+def watertight(ox, oy, oz, dx, dy, dz, t_cur, cols):
+    """Watertight test of one triangle (``cols``: its nine corner
+    coordinates) against [N] rays.  Returns (hit, t, b0, b1) with
+    t = F32_MAX on a miss."""
+    e0, e1, e2, miss_sign, t_scaled = _edges(ray_shear(dx, dy, dz), ox, oy,
+                                             oz, cols)
     det = e0 + e1 + e2
     miss_det = det == 0.0
     det_safe = torch.where(miss_det, torch.ones_like(det), det)
-
-    t_scaled = (e0 * p0tz + e1 * p1tz + e2 * p2tz) * inv_dz
     neg = det < 0.0
     bound = t_cur * det
     miss_range = (neg & ((t_scaled >= 0.0) | (t_scaled < bound))) | (
@@ -81,3 +93,34 @@ def watertight(ox, oy, oz, dx, dy, dz, t_cur, cols):
     hit = ~(miss_sign | miss_det | miss_range)
     t = torch.where(hit, t_scaled * inv_det, F32_MAX)
     return hit, t, e0 * inv_det, e1 * inv_det
+
+
+def watertight_scaled(pre, ox, oy, oz, cols):
+    """Divide-free watertight test (``_watertight_scaled``) against the
+    shear ``pre`` of ``ray_shear``.  Returns (ok, ts, det) with det > 0:
+    ``ok`` covers the sign test, det != 0 and ts > 0; the caller applies
+    the upper bound by cross-multiplication."""
+    e0, e1, e2, miss_sign, ts = _edges(pre, ox, oy, oz, cols)
+    det = e0 + e1 + e2
+    neg = det < 0.0
+    ts = torch.where(neg, -ts, ts)
+    det = torch.where(neg, -det, det)
+    return ~miss_sign & (det != 0.0) & (ts > 0.0), ts, det
+
+
+def scaled_min8(ts, det, prim):
+    """Reduce [8, ...] scaled-hit carries to the closest (``_scaled_min8``):
+    a halving tournament of cross-multiplied compares, the lower prim id
+    on an exact scaled tie.  Returns (ts, det, prim) over [...]."""
+    while ts.shape[0] > 1:
+        h = ts.shape[0] // 2
+        ts_a, ts_b = ts[:h], ts[h:]
+        det_a, det_b = det[:h], det[h:]
+        pr_a, pr_b = prim[:h], prim[h:]
+        lhs = ts_b * det_a
+        rhs = ts_a * det_b
+        take_b = (lhs < rhs) | ((lhs == rhs) & (pr_b < pr_a))
+        ts = torch.where(take_b, ts_b, ts_a)
+        det = torch.where(take_b, det_b, det_a)
+        prim = torch.where(take_b, pr_b, pr_a)
+    return ts[0], det[0], prim[0]

@@ -11,8 +11,8 @@ packages hold the same bits.
 ``build`` makes the SAH BVH on the host for every scene (its root box is
 the scene box); scenes above ``DENSE_TRI_THRESHOLD`` triangles also get
 the two-level treelet structure the treelet walk reads and the flat
-~128-triangle chunk cut (unused until the adaptive dispatch is ported,
-ROADMAP Slice B2, but built so the Scene matches yuki_tpu's).
+~128-triangle chunk cut the adaptive dispatch's probe, cull and slot
+stream read (``traverse``).
 """
 
 from __future__ import annotations
@@ -173,8 +173,8 @@ class SceneMeta:
     has_sigma: bool = False
     has_textures: bool = False
     has_sigma_tex: bool = False
-    # Treelet slot-stream budgets (_estimate_slot_mult; used by the
-    # adaptive dispatch, ROADMAP Slice B2).
+    # Treelet slot-stream budgets (_estimate_slot_mult; the slot branch of
+    # traverse's adaptive dispatch).
     slot_mult: int = 6
     slot_mult_tight: int = 4
     bun_closest: int = 1

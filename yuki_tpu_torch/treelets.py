@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from .bvh import BvhHost
+from .device import resolve_device
 
 ROW_COLS = 12
 
@@ -49,7 +50,7 @@ def build_treelets(bvh: BvhHost, tri_p: np.ndarray, tri_light: np.ndarray,
                    leaf_size: int = 16, super_size: int = 2048,
                    device=None) -> TreeletArrays:
     """Cut the built BVH into supers/treelets (host numpy), then move the
-    tables to ``device`` (None: the CPU)."""
+    tables to ``device`` (None: ``device.default_device()``)."""
     n_nodes = len(bvh.child0)
 
     # Subtree prim counts + first-prim offsets via reverse topological
@@ -119,7 +120,7 @@ def build_treelets(bvh: BvhHost, tri_p: np.ndarray, tri_light: np.ndarray,
         s_bounds[si, 3:6] = hi
         s_range[si] = (t0, tc)
 
-    dev = torch.device("cpu") if device is None else torch.device(device)
+    dev = resolve_device(device)
     return TreeletArrays(
         super_bounds=torch.as_tensor(s_bounds, device=dev),
         super_range=torch.as_tensor(s_range, device=dev),
