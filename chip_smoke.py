@@ -23,6 +23,16 @@ beside this file.  It imports no JAX.  Phases:
      UniformSampler 16 spp, 16-pixel tiles, 4096-tile waves, seed 1,
      counting kernel launches; the image must be finite, non-black and
      have the red wall left and the green wall right;
+  4a. the dense trace kernels against their plain versions on Cornell's
+     1,048,576-ray camera wave (closest) and its bounce-0 shadow rays
+     (occlusion), and on a 4096-triangle soup with 65,536 rays, t_max 0
+     lanes and skip ids; with the bounds at 43 operations a test;
+  4b. the dense path_li main path: the same Cornell film at 1 spp with
+     the fused wave off (PATH_FUSED_MODE "off"), through camera rays,
+     path_li and the dense trace kernels, at depth 5 and depth 2, each
+     held against the fused wave's frame (depth 2: rtol 2e-6; depth 5:
+     the chaos-aware bounds and ray counts within 1%); then the Cornell
+     golden through the path_li route;
   5. the colonnade's host build (124,478 triangles): BVH, treelets,
      chunks and slot budgets, each timed;
   6. the treelet path's kernels against their plain versions on one
@@ -43,13 +53,19 @@ beside this file.  It imports no JAX.  Phases:
      and occlusion equal apart from counted ties (|t| gaps of at most one
      ulp), t within one ulp and b0/b1 equal where prim is equal; then
      each query's time per call and its device breakdown;
+  8a. the row-union kernels against their plain versions on the same
+     wave's camera rays (with the probe's own words) and bounce-0 shadow
+     rays (forced through the rows engine), with the bounds from the
+     plain versions' tallies; then the dispatch on those coherent waves
+     against the treelet walk under phase 8's rules;
   9. the colonnade golden: 64x48, depth 3, 1 spp, seed 1 against
      tests/goldens/torch_colonnade_64x48_path3_1spp_seed1.npz;
  10. the treelet main path: render_frame on the colonnade at 1920x1080,
      depth 5, UniformSampler 1 spp, 16-pixel tiles, 2048-tile waves, seed
-     1 (bench.py:273-276), counting launches and the dispatch's branches,
-     then the same frame under torch.profiler for where the device time
-     goes and the device's idle share.
+     1 (bench.py:273-276), counting launches and the dispatch's branches
+     (the treelet walk launches only on counted fallbacks), then the same
+     frame under torch.profiler for where the device time goes and the
+     device's idle share.
 
 Prints one JSON line describing the kernels, the card's name and power
 limit, then as its last line {"ok": true, "device": {...}}.  Any failed
@@ -74,6 +90,8 @@ COL_WAVE_TILES = 2048
 COL_GOLDEN = os.path.join(REPO, "tests", "goldens",
                           "torch_colonnade_64x48_path3_1spp_seed1.npz")
 SLICE_BLOCKS = 64  # camera-wave 1024-ray blocks the plain walks run on
+SOUP_TRIS = 4096  # the dense band's top (DENSE_TRI_THRESHOLD)
+SOUP_RAYS = 65536
 B1_BLOCKS = 8  # bounce-1 blocks the plain walks run on
 CSRC = "yuki_tpu_torch/ops/csrc/"
 KERNELS = {  # name: (source, the TPU kernel it replaces)
@@ -88,6 +106,10 @@ KERNELS = {  # name: (source, the TPU kernel it replaces)
     "cross_words": ("trace_stream.cu", "yuki_tpu/ops/trace_stream.py:117"),
     "slot_closest": ("trace_stream.cu", "yuki_tpu/ops/trace_stream.py:812"),
     "slot_any": ("trace_stream.cu", "yuki_tpu/ops/trace_stream.py:850"),
+    "rows_closest": ("trace_rows.cu", "yuki_tpu/ops/trace_rows.py:246"),
+    "rows_any": ("trace_rows.cu", "yuki_tpu/ops/trace_rows.py:299"),
+    "dense_closest": ("trace_dense.cu", "yuki_tpu/ops/trace.py:176"),
+    "dense_any": ("trace_dense.cu", "yuki_tpu/ops/trace.py:221"),
 }
 
 # Bounds: the least time the card could take for a kernel's work, the
@@ -162,10 +184,11 @@ def nbytes(*tensors):
 
 
 def _kernel_modules():
-    from yuki_tpu_torch.ops import (path_fused, shade_fused, trace_cull,
-                                    trace_stream, trace_treelets)
+    from yuki_tpu_torch.ops import (path_fused, shade_fused, trace, trace_cull,
+                                    trace_rows, trace_stream, trace_treelets)
 
-    return (path_fused, shade_fused, trace_treelets, trace_cull, trace_stream)
+    return (path_fused, shade_fused, trace_treelets, trace_cull, trace_stream,
+            trace_rows, trace)
 
 
 def reset_all_launches():
@@ -325,7 +348,7 @@ def phase_kernels(torch, np, dev):
     return result
 
 
-def phase_golden(torch, np, dev):
+def phase_golden(torch, np, dev, route="the fused wave"):
     from yuki_tpu_torch.film import FilmSettings
     from yuki_tpu_torch.integrators import PathParams
     from yuki_tpu_torch.renderer import render_frame
@@ -342,8 +365,9 @@ def phase_golden(torch, np, dev):
     check(np.isfinite(img).all(), "golden: non-finite pixels")
     n_bad, limit, mean_rel = deep_parity(np, gold, img, spp=8)
     rmse = float(np.sqrt(np.mean((img - gold) ** 2)))
-    print(f"golden cornell 64x48 d4 8spp seed 42: divergent px {n_bad} "
-          f"(limit {limit}), mean rel diff {mean_rel:.3g}, rmse {rmse:.4g}")
+    print(f"golden cornell 64x48 d4 8spp seed 42 through {route}: divergent "
+          f"px {n_bad} (limit {limit}), mean rel diff {mean_rel:.3g}, rmse "
+          f"{rmse:.4g}")
 
 
 def phase_main_path(torch, np, dev, card):
@@ -389,6 +413,192 @@ def phase_main_path(torch, np, dev, card):
     return launches
 
 
+def _soup(torch, dev):
+    """A 4096-triangle soup in [-3, 3]^3 with light ids -1, 0, 1, and
+    SOUP_RAYS rays from seed 4: half at a triangle's centroid, the rest in
+    random directions, every 16th axis-parallel from a corner; every
+    seventh parked with t_max 0, a fifth with a chord of 2; skip ids -2,
+    0, 1.  Returns (tris [T, 12], light, o, d, t_max, skip)."""
+    g = torch.Generator().manual_seed(4)
+    n, t = SOUP_RAYS, SOUP_TRIS
+    base = (torch.rand((t, 1, 3), generator=g) - 0.5) * 6
+    tri = base + torch.randn((t, 3, 3), generator=g) * 0.25
+    packed = torch.cat([tri.reshape(t, 9), torch.zeros((t, 3))], dim=1)
+    light = torch.randint(-1, 2, (t,), generator=g, dtype=torch.int32)
+    o = (torch.rand((n, 3), generator=g) - 0.5) * 6
+    d = torch.randn((n, 3), generator=g)
+    i = torch.arange(n)
+    aim = i % 2 == 1
+    pick = torch.randint(0, t, (n,), generator=g)
+    d[aim] = tri.mean(dim=1)[pick[aim]] - o[aim]
+    par = i % 16 == 0
+    d[par] = 0.0
+    axis = torch.randint(0, 3, (n,), generator=g)[par]
+    d[par.nonzero().squeeze(1), axis] = 1.0
+    o[par] = tri[pick[par], 0]
+    d = d / torch.linalg.vector_norm(d, dim=1, keepdim=True)
+    t_max = torch.full((n,), 3.4028234663852886e38)
+    t_max[torch.rand((n,), generator=g) < 0.2] = 2.0
+    t_max[i % 7 == 3] = 0.0
+    skip = torch.randint(-2, 2, (n,), generator=g, dtype=torch.int32)
+    skip[skip == -1] = -2
+    return [x.contiguous().to(dev) for x in (packed, light, o, d, t_max,
+                                             skip)]
+
+
+def phase_dense_kernels(torch, np, dev, card):
+    """The dense trace kernels against their plain versions: closest on
+    Cornell's 1080p 4096-tile camera wave, occlusion on that wave's
+    bounce-0 shadow rays (path_li's own shading), both on a 4096-triangle
+    soup.  Bounds: 43 operations a watertight test; closest tests every
+    triangle for each lane with t_max > 0, occlusion up to its first
+    occluder (the plain version's tally); bytes: rays in, results out,
+    the triangle rows once."""
+    from yuki_tpu_torch import traverse
+    from yuki_tpu_torch.integrators import PathParams, _ph_i32
+    from yuki_tpu_torch.ops import shade_fused as tsf
+    from yuki_tpu_torch.ops import trace as ttr
+    from yuki_tpu_torch.ops.trace import F32_MAX, pack_triangles
+    from yuki_tpu_torch.scene.cornell import cornell
+
+    scene, cam, _ = cornell(device=dev)
+    data = scene.data
+    ctx, o, d = _camera_wave(torch, dev, cam, WAVE_TILES)
+    n = o.shape[0]
+    t_max = torch.full((n,), F32_MAX, device=dev)
+    tris = pack_triangles(data.tris.p0, data.tris.p1, data.tris.p2)
+    hit = traverse.intersect(data, scene.meta, o, d, t_max)
+    tables = tsf.make_shade_tables(scene, PathParams(DEPTH))
+    ones = torch.ones_like(o)
+    out = tsf.shade_fused(tables, hit, o, d, ones, hit.hit,
+                          torch.zeros_like(hit.hit), _ph_i32(ctx), 2, 0)
+    no, nd, nt, skip = out[5:9]
+    light = data.tris.area_light
+    soup = _soup(torch, dev)
+    cases = (("Cornell camera wave", ("dense_closest",), tris, light, o, d,
+              t_max, None),
+             ("Cornell bounce-0 shadow rays", ("dense_any",), tris, light, no,
+              nd, nt, skip),
+             (f"{SOUP_TRIS}-triangle soup", ("dense_closest", "dense_any"),
+              *soup))
+    result = {}
+    for what, names, tp, lt, ro, rd, rt, sk in cases:
+        m, t = ro.shape[0], tp.shape[0]
+        live = int((rt > 0.0).sum())
+        for name in names:
+            if name == "dense_closest":
+                def kern():
+                    return ttr.dense_trace(tp, ro, rd, rt)
+
+                def plain(stats=None):
+                    return ttr.dense_trace_plain(tp, ro, rd, rt)
+            else:
+                def kern():
+                    return ttr.any_trace(tp, lt, ro, rd, rt, sk)
+
+                def plain(stats=None):
+                    return ttr.any_trace_plain(tp, lt, ro, rd, rt, sk, stats)
+            got = kern()
+            stats = {}
+            ref = plain(stats)
+            torch.cuda.synchronize()
+            if name == "dense_closest":
+                for g, r, k in zip(got, ref, ("t", "prim", "b0", "b1")):
+                    check(torch.equal(g, r), f"{name} on the {what}: {k} "
+                          "differs")
+                tests, nb = live * t, m * (28 + 16) + t * 48
+                found = f"{int((got[1] >= 0).sum())} hits"
+            else:
+                check(torch.equal(got, ref), f"{name} on the {what}: "
+                      "occlusion differs")
+                tests, nb = stats["tests"], m * (32 + 1) + t * 52
+                found = f"{int(got.sum())} occluded"
+            ms_k = cuda_ms(torch, kern, 10)
+            ms_p = cuda_ms(torch, plain, 1)
+            b_ms, b_by = bound(nb, tests * OPS_WATERTIGHT)
+            print(f"{name} [{what}: {m} rays, {live} with t_max > 0, {t} "
+                  f"triangles, {found}]: kernel {ms_k:.4f} ms, plain "
+                  f"{ms_p:.4f} ms, bound {b_ms:.4f} ms ({b_by}; {tests} "
+                  f"triangle tests): equal bit for bit [{card}]")
+            result.setdefault(name, dict(max_abs_err=0.0, ms=ms_k,
+                                         plain_ms=ms_p, bound_ms=b_ms,
+                                         bound_by=b_by))
+    return result
+
+
+def phase_dense_path_li(torch, np, dev, card):
+    """The dense path_li route at full width: the 1080p Cornell film at
+    1 spp with the fused wave off, at depth 5 (the main path, launches
+    counted) and depth 2, each against the fused wave's frame; then the
+    Cornell golden through the same route."""
+    from yuki_tpu_torch.film import FilmSettings
+    from yuki_tpu_torch.integrators import PathParams
+    from yuki_tpu_torch.ops import path_fused as tpf
+    from yuki_tpu_torch.ops import shade_fused as tsf
+    from yuki_tpu_torch.ops import trace as ttr
+    from yuki_tpu_torch.renderer import render_frame
+    from yuki_tpu_torch.sampling import UniformSampler
+    from yuki_tpu_torch.scene.cornell import cornell
+
+    scene, cam, _ = cornell(device=dev)
+    fs = FilmSettings(res=RES, tile_dim=16)
+
+    def frame(depth):
+        return render_frame(scene, cam, fs, UniformSampler(1),
+                            PathParams(max_depth=depth),
+                            wave_tiles=WAVE_TILES, seed=1)
+
+    frames = {}
+    tpf.PATH_FUSED_MODE = "off"
+    try:
+        torch.cuda.synchronize()
+        reset_all_launches()
+        res = frame(DEPTH)
+        torch.cuda.synchronize()
+        counts = all_launches()
+        launches = {k: counts[k] for k in ttr.LAUNCHES}
+        used = {*ttr.LAUNCHES, *tsf.LAUNCHES}
+        for name, count in counts.items():
+            if name in used:
+                check(count > 0, f"dense path_li: {name} never launched")
+            else:
+                check(count == 0, f"dense path_li: {name} launched")
+        frames["path_li", DEPTH] = res
+        frames["path_li", 2] = frame(2)
+        phase_golden(torch, np, dev, "the path_li route")
+    finally:
+        tpf.PATH_FUSED_MODE = "auto"
+    for depth in (DEPTH, 2):
+        frames["wave", depth] = frame(depth)
+    for depth in (DEPTH, 2):
+        li, wave = frames["path_li", depth], frames["wave", depth]
+        got, ref = li.film.image(), wave.film.image()
+        check(np.isfinite(got).all() and float(got.mean()) > 0.0,
+              f"dense path_li d{depth}: non-finite or black image")
+        rays_l, rays_w = li.ray_count, wave.ray_count
+        if depth <= 2:
+            check(rays_l == rays_w, f"dense path_li d{depth}: rays {rays_l} "
+                  f"vs the wave's {rays_w}")
+            err = float(np.abs(got - ref).max())
+            check(np.allclose(got, ref, rtol=2e-6, atol=1e-7),
+                  f"dense path_li d{depth}: outside rtol 2e-6 of the wave "
+                  f"(max abs {err:.3g})")
+            how = f"max abs diff {err:.3g} (rtol 2e-6 held)"
+        else:
+            check(abs(rays_l - rays_w) <= max(16, 0.01 * rays_w),
+                  f"dense path_li d{depth}: rays {rays_l} vs {rays_w}")
+            n_bad, limit, mean_rel = deep_parity(np, ref, got)
+            how = (f"divergent px {n_bad} (limit {limit}), mean rel diff "
+                   f"{mean_rel:.3g}")
+        print(f"dense path_li cornell {RES[0]}x{RES[1]} d{depth} 1spp "
+              f"{WAVE_TILES}-tile waves: {rays_l} closest-hit rays in "
+              f"{li.elapsed_s:.3f} s (the wave: {rays_w} in "
+              f"{wave.elapsed_s:.3f} s); against the wave: {how}"
+              + (f"; launches {launches}" if depth == DEPTH else "")
+              + f" [{card}]")
+    return launches
+
+
 def phase_colonnade_build(torch, np, dev):
     """The colonnade's host build, with SceneBuilder.build's stage times."""
     from yuki_tpu_torch.scene.testscenes import colonnade
@@ -408,14 +618,14 @@ def phase_colonnade_build(torch, np, dev):
     return scene, cam
 
 
-def _colonnade_wave(torch, dev, cam):
-    """Camera rays of one 2048-tile wave of the 1080p colonnade film,
+def _camera_wave(torch, dev, cam, n_tiles):
+    """Camera rays of the first ``n_tiles``-tile wave of a 1080p film,
     sample 0, seed 1, as make_wave_renderer makes them."""
     from yuki_tpu_torch.camera import Camera
     from yuki_tpu_torch.film import FilmSettings, film_tiles
     from yuki_tpu_torch.sampling import SampleCtx, UniformSampler
 
-    tiles = film_tiles(FilmSettings(res=RES, tile_dim=16))[:COL_WAVE_TILES]
+    tiles = film_tiles(FilmSettings(res=RES, tile_dim=16))[:n_tiles]
     origins = torch.as_tensor([[t.x0, t.y0] for t in tiles],
                               dtype=torch.int32, device=dev)
     iy, ix = torch.meshgrid(torch.arange(16, device=dev, dtype=torch.int32),
@@ -479,7 +689,7 @@ def phase_colonnade_kernels(torch, np, dev, scene, cam):
     from yuki_tpu_torch.ops import trace_treelets as ttt
     from yuki_tpu_torch.ops.trace import F32_MAX
 
-    ctx, o, d = _colonnade_wave(torch, dev, cam)
+    ctx, o, d = _camera_wave(torch, dev, cam, COL_WAVE_TILES)
     n = o.shape[0]
     check(n == COL_WAVE_TILES * 256, f"colonnade wave has {n} rays")
     tl = scene.data.treelets
@@ -660,7 +870,8 @@ def phase_colonnade_kernels(torch, np, dev, scene, cam):
           f"{ms_full:.4f} ms; {span} of each light, {n_parked} parked with "
           f"t_max 0: kernel {ms_k:.4f} ms, bound {b_ms:.4f} ms ({b_by}; "
           f"{work(stats)})]: occlusion equal on the slices")
-    return result, (o2, d2, t_max2, no2, nd2, nt2, sk2)
+    return result, (o2, d2, t_max2, no2, nd2, nt2, sk2), (
+        o, d, t_max, no, nd, nt, ns_skip)
 
 
 def phase_stream_kernels(torch, np, scene, rays, card):
@@ -806,16 +1017,20 @@ def phase_dispatch_vs_walk(torch, scene, rays, card):
           f"equal there, occlusion equal; {c['overflow_rays']} overflow "
           f"rays, {c['wide_reruns']} wide re-runs [{card}]")
 
-    # Each query as path_li makes it: time per call from CUDA events (the
-    # host reads inside it stall the stream, so they are included), then
-    # one call under torch.profiler for where its device time goes.
+    profile_queries(torch, card, (
+        ("closest, bounce-1 rays", lambda: traverse._closest_dispatch(
+            data, scene.meta, o2, d2, t2)),
+        ("occlusion, shadow rays", lambda: traverse._any_dispatch(
+            data, scene.meta, no2, nd2, nt2, sk2))))
+
+
+def profile_queries(torch, card, calls):
+    """Each query as path_li makes it: time per call from CUDA events (the
+    host reads inside it stall the stream, so they are included), then
+    one call under torch.profiler for where its device time goes."""
     from torch.profiler import ProfilerActivity, profile
 
-    for what, call in (
-            ("closest, bounce-1 rays", lambda: traverse._closest_dispatch(
-                data, scene.meta, o2, d2, t2)),
-            ("occlusion, shadow rays", lambda: traverse._any_dispatch(
-                data, scene.meta, no2, nd2, nt2, sk2))):
+    for what, call in calls:
         ms = cuda_ms(torch, call, 3)
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -827,6 +1042,122 @@ def phase_dispatch_vs_walk(torch, scene, rays, card):
                           for k, (ms_k, cnt) in groups.items() if cnt)
         print(f"dispatch {what}: {ms:.3f} ms per call, device busy "
               f"{busy:.3f} ms (kernels: {parts}) [{card}]")
+
+
+def phase_rows_kernels(torch, scene, wave0, card):
+    """The row-union kernels against their plain versions on the wave's
+    camera rays (the probe's own words, which must call the wave
+    coherent) and its bounce-0 shadow rays (forced through the rows
+    engine, whatever the probe says), then the dispatch on those waves
+    against the treelet walk under phase 8's rules.  Bounds: the plain
+    walks' tally of rechecks (24 operations) and triangle tests (40; 39
+    for occlusion); bytes: rays in, results out, the kept lists and the
+    rows of every chunk the lists name once."""
+    from yuki_tpu_torch import traverse
+    from yuki_tpu_torch.ops import trace_rows as trw
+    from yuki_tpu_torch.ops import trace_treelets as ttt
+
+    o, d, t_max, no, nd, nt, sk = wave0
+    data, tl, ch = scene.data, scene.data.treelets, scene.data.chunks
+    k = ch.leaf_size
+    skf = sk.to(torch.float32)
+    result = {}
+    for name, (ro, rd, rt, what) in (
+            ("rows_closest", (o, d, t_max, "camera rays")),
+            ("rows_any", (no, nd, nt, "bounce-0 shadow rays"))):
+        m = ro.shape[0]
+        words = trw.row_words_interval(ch, ro, rd, rt)
+        rows = words.shape[0]
+        demand = int(traverse._rows_demand(words))
+        coherent = demand <= rows * traverse._ROWS_MULT
+        if name == "rows_closest":
+            check(coherent, f"rows: the camera wave's demand {demand} is "
+                  f"past the rows budget {rows * traverse._ROWS_MULT}")
+        lists, ov = trw.kept_lists(words, traverse._ROWS_C,
+                                   traverse._ROWS_MULT)
+        if name == "rows_closest":
+            def kern():
+                return trw.rows_closest_walk(ch, lists, ro, rd, rt)
+
+            def plain(stats=None):
+                return trw.rows_closest_walk_plain(ch, lists, ro, rd, rt,
+                                                   stats)
+        else:
+            def kern():
+                return trw.rows_any_walk(ch, lists, ro, rd, rt, skf)
+
+            def plain(stats=None):
+                return trw.rows_any_walk_plain(ch, lists, ro, rd, rt, skf,
+                                               stats)
+        got = kern()
+        stats = {}
+        ref = plain(stats)
+        torch.cuda.synchronize()
+        check(torch.equal(got, ref), f"{name} on the {what} differs from its "
+              "plain version")
+        ms_k = cuda_ms(torch, kern, 10)
+        ms_p = cuda_ms(torch, plain, 1)
+        chunks = int(torch.unique(lists[lists >= 0]).numel())
+        out_b = 12 if name == "rows_closest" else 4
+        ops = OPS_SCALED if name == "rows_closest" else OPS_SCALED - 1
+        b_ms, b_by = bound(m * (28 + (4 if name == "rows_any" else 0) + out_b)
+                           + lists.numel() * 4 + chunks * k * 48,
+                           stats["boxes"] * OPS_SLAB + stats["tests"] * ops)
+        found = (f"{int((got[1] >= 0).sum())} hits" if name == "rows_closest"
+                 else f"{int(got.sum())} occluded")
+        print(f"{name} [{m} {what}, {rows} rows, pair demand {demand} against "
+              f"the budget {rows * traverse._ROWS_MULT} (coherent: "
+              f"{coherent}), {int(ov.sum())} overflow rows, {chunks} chunks "
+              f"listed, {found}]: kernel {ms_k:.4f} ms, plain {ms_p:.4f} ms, "
+              f"bound {b_ms:.4f} ms ({b_by}; {stats['boxes']} rechecks, "
+              f"{stats['tests']} triangle tests): "
+              f"{'ts, prim, det' if out_b == 12 else 'occlusion'} equal on "
+              f"every ray [{card}]")
+        result[name] = dict(max_abs_err=0.0, ms=ms_k, plain_ms=ms_p,
+                            bound_ms=b_ms, bound_by=b_by)
+
+    # The dispatch on the coherent waves against the treelet walk.
+    traverse.reset_counts()
+    t_s, p_s, b0_s, b1_s = traverse._closest_dispatch(data, scene.meta, o, d,
+                                                      t_max)
+    c = traverse.counts()
+    occ_s = traverse._any_dispatch(data, scene.meta, no, nd, nt, sk)
+    t_w, p_w, b0_w, b1_w = ttt.treelet_closest(tl, o, d, t_max)
+    occ_w = ttt.treelet_any(tl, no, nd, nt, sk)
+    torch.cuda.synchronize()
+    c2 = traverse.counts()
+    check(c["closest_rows"] == 1 and not c["fallbacks"],
+          f"dispatch: the camera wave did not take the rows branch: {c}")
+    ulp = (t_s.view(torch.int32) - t_w.view(torch.int32)).abs()
+    same = p_s == p_w
+    ties = ~same & (ulp <= 1)
+    n_diff, n_ties = int((~same).sum()), int(ties.sum())
+    check(n_diff == n_ties, f"rows dispatch vs walk: {n_diff - n_ties} prim "
+          "differences that are not ties")
+    max_ulp = int(ulp[same].max())
+    check(max_ulp <= 1, f"rows dispatch vs walk: t {max_ulp} ulps apart")
+    check(torch.equal(b0_s[same], b0_w[same])
+          and torch.equal(b1_s[same], b1_w[same]),
+          "rows dispatch vs walk: b0/b1 differ where prim is equal")
+    n_occ = int((occ_s != occ_w).sum())
+    check(n_occ == 0, f"rows dispatch vs walk: {n_occ} occlusion verdicts "
+          "differ")
+    branch = "rows" if c2["any_rows"] else "slot"
+    print(f"dispatch vs treelet walk on coherent waves [{o.shape[0]} camera "
+          f"rays, {int((p_s >= 0).sum())} hits, rows branch; {no.shape[0]} "
+          f"bounce-0 shadow rays, {int(occ_s.sum())} occluded, {branch} "
+          f"branch]: prim differs at {n_ties} ties (t within 1 ulp), t gap at "
+          f"most {max_ulp} ulp where prim is equal "
+          f"({int((same & (ulp == 1)).sum())} rays at 1 ulp), b0/b1 equal "
+          f"there, occlusion equal; {c2['overflow_rays']} overflow rays, "
+          f"{c2['wide_reruns']} wide re-runs, {c2['fallbacks']} fallbacks "
+          f"[{card}]")
+    profile_queries(torch, card, (
+        ("closest, camera rays", lambda: traverse._closest_dispatch(
+            data, scene.meta, o, d, t_max)),
+        ("occlusion, bounce-0 shadow rays", lambda: traverse._any_dispatch(
+            data, scene.meta, no, nd, nt, sk))))
+    return result
 
 
 def phase_colonnade_golden(torch, np, scene, cam):
@@ -849,7 +1180,9 @@ def phase_colonnade_golden(torch, np, scene, cam):
 
 
 KERNEL_FAMILIES = ("cull", "cross_words", "slot_closest", "slot_any",
-                   "treelet_closest", "treelet_any", "shade", "resolve")
+                   "rows_closest", "rows_any", "treelet_closest",
+                   "treelet_any", "shade", "resolve", "dense_closest",
+                   "dense_any")
 GLUE_FAMILIES = (("glue: sort", ("sort",)),
                  ("glue: scatter/gather/index", ("scatter", "gather",
                                                  "index")),
@@ -890,6 +1223,7 @@ def phase_colonnade_main_path(torch, np, scene, cam, card):
     from yuki_tpu_torch.integrators import PathParams
     from yuki_tpu_torch.ops import shade_fused as tsf
     from yuki_tpu_torch.ops import trace_cull as tcu
+    from yuki_tpu_torch.ops import trace_rows as trw
     from yuki_tpu_torch.ops import trace_stream as ts
     from yuki_tpu_torch.ops import trace_treelets as ttt
     from yuki_tpu_torch.renderer import render_frame
@@ -909,8 +1243,14 @@ def phase_colonnade_main_path(torch, np, scene, cam, card):
     counts = all_launches()
     branches = traverse.counts()
     launches = {k: counts[k] for k in (*ttt.LAUNCHES, *tsf.LAUNCHES,
-                                       *tcu.LAUNCHES, *ts.LAUNCHES)}
+                                       *tcu.LAUNCHES, *ts.LAUNCHES,
+                                       *trw.LAUNCHES)}
+    walks = sum(counts[k] for k in ttt.LAUNCHES)
+    check(walks == branches["fallbacks"], f"colonnade main path: {walks} "
+          f"treelet walks for {branches['fallbacks']} fallbacks")
     for name, count in counts.items():
+        if name in ttt.LAUNCHES:
+            continue
         if name in launches:
             check(count > 0, f"colonnade main path: {name} never launched")
         else:
@@ -983,13 +1323,17 @@ def main():
         kernels = phase_kernels(torch, np, dev)
         phase_golden(torch, np, dev)
         launches = phase_main_path(torch, np, dev, card)
+        kernels.update(phase_dense_kernels(torch, np, dev, card))
+        launches.update(phase_dense_path_li(torch, np, dev, card))
         scene, cam = phase_colonnade_build(torch, np, dev)
-        col_kernels, rays = phase_colonnade_kernels(torch, np, dev, scene,
-                                                    cam)
+        col_kernels, rays, wave0 = phase_colonnade_kernels(torch, np, dev,
+                                                           scene, cam)
         kernels.update(col_kernels)
         kernels.update(phase_stream_kernels(torch, np, scene, rays, card))
         phase_dispatch_vs_walk(torch, scene, rays, card)
         del rays
+        kernels.update(phase_rows_kernels(torch, scene, wave0, card))
+        del wave0
         phase_colonnade_golden(torch, np, scene, cam)
         launches.update(phase_colonnade_main_path(torch, np, scene, cam,
                                                   card))

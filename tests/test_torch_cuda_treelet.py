@@ -22,6 +22,7 @@ from yuki_tpu_torch.camera import Camera
 from yuki_tpu_torch.film import FilmSettings
 from yuki_tpu_torch.integrators import PathParams
 from yuki_tpu_torch.ops import shade_fused as tsf
+from yuki_tpu_torch.ops import trace_rows as trw
 from yuki_tpu_torch.ops import trace_stream as tst
 from yuki_tpu_torch.ops import trace_treelets as ttt
 from yuki_tpu_torch.ops.trace import F32_MAX
@@ -138,20 +139,22 @@ def test_path_li_render_kernels_match_plain(cuda):
         scene, cam, _ = colonnade(device=dev, **REDUCED)
         render = make_wave_renderer(scene, Camera.create(cam, *RES),
                                     UniformSampler(1), PathParams(5), TD, 12)
-        for m in (ttt, tsf, tst):
+        for m in (ttt, tsf, tst, trw):
             m.reset_launches()
         traverse.reset_counts()
         px, rays = render(ORIGINS, 0, 7)
         out[dev.type] = (px.cpu().numpy(), float(rays))
         if dev.type == "cuda":
-            # Each bounce's two queries take the treelet walk (coherent
-            # wave or fallback) or the slot stream.
+            # Each bounce's two queries take the rows engine (coherent
+            # wave) or the slot stream; the treelet walk runs only on a
+            # counted fallback.
             c = traverse.counts()
-            assert c["closest_slot"] + c["closest_coherent_walk"] == 5
-            assert c["any_slot"] + c["any_coherent_walk"] == 5
-            assert (ttt.LAUNCHES["treelet_closest"]
+            assert c["closest_slot"] + c["closest_rows"] == 5
+            assert c["any_slot"] + c["any_rows"] == 5
+            assert (trw.LAUNCHES["rows_closest"]
                     + tst.LAUNCHES["slot_closest"]) >= 5
-            assert ttt.LAUNCHES["treelet_any"] + tst.LAUNCHES["slot_any"] >= 5
+            assert trw.LAUNCHES["rows_any"] + tst.LAUNCHES["slot_any"] >= 5
+            assert sum(ttt.LAUNCHES.values()) == c["fallbacks"]
             assert tsf.LAUNCHES == {"shade": 5, "resolve": 5}
     (got, rays_k), (ref, rays_p) = out["cuda"], out["cpu"]
     assert np.isfinite(got).all()

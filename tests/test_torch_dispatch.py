@@ -4,17 +4,20 @@ yuki_tpu.traverse, and its probe (ops/trace_rows.py).
 The probe's words and demand are held bit for bit.  The whole dispatch is
 held against yuki_tpu's intersect / any_intersect with
 traverse.FORCE_PALLAS_INTERPRET set (yuki_tpu's own test hook, as
-tests/test_cull_fused.py uses it) on a treelet soup with divergent rays,
-so that both take the slot branch (check_dispatch): plainly, with an
+tests/test_cull_fused.py uses it) on a treelet soup (check_dispatch):
+divergent rays, so that both take the slot branch, plainly, with an
 overflow re-run, and with a blown slot budget that falls back to the
-treelet walk.  prim and occlusion must be equal.  yuki_tpu's kernels run
+treelet walk; coherent rays, so that both take the rows branch, plainly
+and with rows cut at a narrow list width that re-run through the wide
+pass.  prim and occlusion must be equal.  yuki_tpu's kernels run
 in interpret mode, which XLA compiles and may contract into FMAs, so t
 is held to rtol 2e-5 and b0/b1 to atol 1e-5 (assert_dispatch_agrees);
 the port's own parts are held bit for bit in test_torch_stream.py and
 test_torch_cull.py.  yuki_tpu compiles its whole dispatch for each call
 (about a minute for intersect, half that for any_intersect on one
-worker), so the closest query lives here and the occlusion and fallback
-cases in test_torch_dispatch_{any,fallback,fallback_any}.py.
+worker), so the closest query lives here and the occlusion, fallback and
+rows cases in test_torch_dispatch_{any,fallback,fallback_any,rows,
+rows_any}.py.
 """
 
 import dataclasses
@@ -126,8 +129,9 @@ def port_dispatch(tsc, query, o, d, t_max, skip):
                                   torch.as_tensor(skip)).numpy()
 
 
-def dispatch_rays(tsc, seed=3):
-    o, d, t_max = _divergent(tsc, seed)
+def dispatch_rays(tsc, seed=3, rays="divergent"):
+    o, d, t_max = _coherent(seed) if rays == "coherent" else _divergent(
+        tsc, seed)
     skip = np.random.default_rng(seed).choice([-2, -1, 0], N).astype(
         np.int32)
     return o, d, t_max, skip
@@ -152,15 +156,22 @@ def assert_dispatch_agrees(query, ref, got):
                                    getattr(ref, f)[hit], atol=1e-5)
 
 
-def check_dispatch(soup, query, monkeypatch, cases):
-    """The port's dispatch against yuki_tpu's on divergent rays, for each
-    of ``cases``: "plain"; "overflow" with the port's C_MAIN lowered to 2,
-    so that most rays re-run through the crossing words and the wide pass
-    (yuki_tpu's answers do not depend on C, so one yuki_tpu call serves
-    both); "fallback" with a budget of 8 slot rows on both sides, so that
-    the wave goes to the treelet walk."""
+def _no_walk(*_):
+    raise AssertionError("the treelet walk ran outside a fallback")
+
+
+def check_dispatch(soup, query, monkeypatch, cases, rays="divergent"):
+    """The port's dispatch against yuki_tpu's on ``rays`` ("divergent":
+    the slot branch; "coherent": the rows branch), for each of ``cases``:
+    "plain"; "overflow" with the port's list width (C_MAIN, or the rows
+    engine's _ROWS_C) lowered to 2, so that many rays re-run through the
+    crossing words and the wide pass (yuki_tpu's answers do not depend on
+    C, so one yuki_tpu call serves both); "fallback" with a budget of 8
+    slot rows on both sides, so that the wave goes to the treelet walk.
+    Outside "fallback" the port's treelet walk must not run."""
     jsc, tsc = soup
-    rays = dispatch_rays(tsc)
+    branch = "rows" if rays == "coherent" else "slot"
+    rays = dispatch_rays(tsc, rays=rays)
     with monkeypatch.context() as m:
         if "fallback" in cases:
             m.setattr(jts, "_max_rows", lambda *a: 8)
@@ -168,14 +179,20 @@ def check_dispatch(soup, query, monkeypatch, cases):
     for case in cases:
         with monkeypatch.context() as m:
             if case == "overflow":
-                m.setattr(ts, "C_MAIN", 2)
+                # (Lowering _ROWS_C also lowers the probe's demand, so it
+                # would turn a divergent wave coherent.)
+                m.setattr(*((traverse, "_ROWS_C") if branch == "rows"
+                            else (ts, "C_MAIN")), 2)
             if case == "fallback":
                 m.setattr(ts, "_max_rows", lambda *a: 8)
+            else:
+                for walk in ("treelet_closest", "treelet_any"):
+                    m.setattr(traverse, walk, _no_walk)
             traverse.reset_counts()
             got = port_dispatch(tsc, query, *rays)
         assert_dispatch_agrees(query, ref, got)
         c = traverse.counts()
-        assert c[f"{query}_slot"] == 1
+        assert c[f"{query}_{branch}"] == 1
         assert c["fallbacks"] == (case == "fallback")
         assert (c["wide_reruns"] == 1) == (case == "overflow")
         if case == "overflow":
@@ -187,17 +204,22 @@ def test_closest_dispatch_matches_jax(soup, monkeypatch):
 
 
 def test_coherent_wave_takes_the_walk(soup):
-    """A wave the probe calls coherent goes to the treelet walk (the
-    row-union kernels are not ported), and gets the walk's results."""
+    """A wave the probe calls coherent takes the rows engine, not the
+    treelet walk, and agrees with the walk: prim and b0/b1 equal, t within
+    an ulp (the rows engine divides a scaled hit once, the walk multiplies
+    by a reciprocal)."""
     _, tsc = soup
     o, d, t_max = (torch.as_tensor(x) for x in _coherent(4))
     traverse.reset_counts()
     hit = traverse.intersect(tsc.data, tsc.meta, o, d, t_max)
     t, prim, b0, b1 = ttt.treelet_closest(tsc.data.treelets, o, d, t_max)
-    assert torch.equal(hit.prim, prim) and torch.equal(hit.t, t)
-    assert torch.equal(hit.b0, b0) and int((prim >= 0).sum()) > N // 2
-    assert traverse.counts()["closest_coherent_walk"] == 1
-    assert traverse.counts()["closest_slot"] == 0
+    assert torch.equal(hit.prim, prim) and int((prim >= 0).sum()) > N // 2
+    ulp = (hit.t.view(torch.int32) - t.view(torch.int32)).abs()
+    assert int(ulp.max()) <= 1
+    assert torch.equal(hit.b0, b0) and torch.equal(hit.b1, b1)
+    c = traverse.counts()
+    assert c["closest_rows"] == 1 and c["closest_slot"] == 0
+    assert c["fallbacks"] == 0
 
 
 def test_build_treelets_default_device(soup):

@@ -325,7 +325,8 @@ def test_gate_rejects_loudly():
                            tp.TD, tp.TILES)
 
     # Past the 1024-triangle wave gate (a dense scene by SceneBuilder's
-    # rule, but the fused wave refuses it, as yuki_tpu's does).
+    # rule, but the fused wave refuses it, as yuki_tpu's does): the
+    # renderer builds the path_li route over the dense sweeps instead.
     n = tpf.MAX_TRIS_WAVE + 1
     b = SceneBuilder("past-gate")
     pts = np.random.default_rng(0).random((3 * n, 3)).astype(np.float32)
@@ -333,9 +334,11 @@ def test_gate_rejects_loudly():
     b.add_point_light(tf.translation((0, 2, 0)), (1.0, 1.0, 1.0))
     big = b.build(device="cpu")
     assert not tpf.wave_supported(big.meta, UniformSampler(1))
-    with pytest.raises(NotImplementedError, match="triangles"):
-        make_wave_renderer(big, camera, UniformSampler(1), PathParams(5),
-                           tp.TD, tp.TILES)
+    px, rays = make_wave_renderer(big, camera, UniformSampler(1),
+                                  PathParams(2), tp.TD, tp.TILES)(
+        tp.ORIGINS[:1], 0, 0)
+    assert px.shape == (1, tp.TD, tp.TD, 3) and torch.isfinite(px).all()
+    assert float(rays) >= tp.TD * tp.TD
 
 
 def test_cuda_request_without_cuda_raises():

@@ -4,8 +4,8 @@ resolve per bounce) on the CPU, held against yuki_tpu's make_wave_renderer
 on the reduced colonnade with its fused shade kernels in Pallas interpret
 mode (on the CPU yuki_tpu traverses with intersect_bvh, an exact query
 over the same watertight test), under _assert_parity's bounds with equal
-ray counts at every depth; plus the gates that refuse what B1 does not
-cover."""
+ray counts at every depth; plus the renderer's gates: what they route to
+path_li and what they refuse."""
 
 import numpy as np
 import pytest
@@ -27,7 +27,7 @@ torch.set_num_threads(2)
 
 @pytest.mark.parametrize("depth", [1, 3, 5])
 def test_path_li_matches_jax_reduced_colonnade(depth):
-    ref, rays_ref, got, rays_got = tp.render_treelet_both("reduced", depth)
+    ref, rays_ref, got, rays_got = tp.render_path_li_both("reduced", depth)
     assert np.isfinite(got).all() and got.mean() > 0
     assert rays_got == rays_ref
     tp.assert_parity(ref, rays_ref, got, rays_got, depth)
@@ -70,10 +70,13 @@ def test_gates_raise():
         return make_wave_renderer(scene, camera, sampler, PathParams(5),
                                   tp.TD, tp.TILES)
 
-    dense_band = _soup_scene(2000)  # dense, past the fused wave's 1024
+    # Dense, past the fused wave's 1024: path_li over the dense sweeps.
+    dense_band = _soup_scene(2000)
     assert dense_band.meta.traversal == "dense"
-    with pytest.raises(NotImplementedError, match="Queue 2 item 3"):
-        mwr(dense_band)
+    assert not tpf.wave_supported(dense_band.meta, UniformSampler(1))
+    px, rays = mwr(dense_band)(tp.ORIGINS[:1], 0, 1)
+    assert px.shape == (1, tp.TD, tp.TD, 3) and torch.isfinite(px).all()
+    assert float(rays) >= tp.TD * tp.TD
     textured_sphere = _soup_scene(DENSE_TRI_THRESHOLD + 10, sphere_tex=True)
     assert textured_sphere.meta.traversal == "treelet"
     with pytest.raises(NotImplementedError, match="Queue 1 item 5"):

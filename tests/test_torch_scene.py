@@ -122,11 +122,13 @@ def test_bridge_rejects_missing_leaves():
 
 
 def test_treelet_sized_scene_raises():
-    """Scenes past DENSE_TRI_THRESHOLD now build as treelet scenes; what
-    still raises is a query the scene cannot answer: the treelet walk
-    refuses a dense scene (its dense kernels are ROADMAP Queue 2 item 3)."""
+    """Scenes past DENSE_TRI_THRESHOLD build as treelet scenes, scenes up
+    to it as dense ones; a dense scene's queries run the dense sweeps, and
+    what still raises is a combined closest + shadow query (skip_light),
+    whose skip sweeps are not ported."""
     from yuki_tpu_torch import transforms as tf
     from yuki_tpu_torch import traverse
+    from yuki_tpu_torch.ops.trace import dense_trace_plain, pack_triangles
     from yuki_tpu_torch.scene.data import DENSE_TRI_THRESHOLD, SceneBuilder
 
     def soup(n):
@@ -140,10 +142,21 @@ def test_treelet_sized_scene_raises():
     assert big.data.treelets.n_treelets > 0 and big.data.chunks is not None
     small = soup(DENSE_TRI_THRESHOLD)
     assert small.meta.traversal == "dense" and small.data.treelets is None
-    o = torch.zeros((4, 3))
+    o = torch.tensor([[0.5, 0.5, -1.0]]).expand(4, 3).contiguous()
     d = torch.tensor([[0.0, 0.0, 1.0]]).expand(4, 3).contiguous()
+    t_max = torch.full((4,), 9.0)
+    hit = traverse.intersect(small.data, small.meta, o, d, t_max)
+    tris = small.data.tris
+    t, prim, _, _ = dense_trace_plain(
+        pack_triangles(tris.p0, tris.p1, tris.p2), o, d, t_max)
+    assert hit.hit.all() and torch.equal(hit.prim, prim)
+    assert torch.equal(hit.t, t)
+    occ = traverse.any_intersect(small.data, small.meta, o, d, t_max,
+                                 torch.full((4,), -2, dtype=torch.int32))
+    assert occ.all()
     with pytest.raises(NotImplementedError, match="Queue 2 item 3"):
-        traverse.intersect(small.data, small.meta, o, d, torch.ones(4))
+        traverse.intersect(small.data, small.meta, o, d, torch.ones(4),
+                           skip_light=torch.zeros(4, dtype=torch.int32))
 
 
 def test_tiling_asset_raises(tmp_path):

@@ -146,6 +146,25 @@ def midsize(sd, tf, cam_mod, **build):
     return b.build(**build), cam
 
 
+def lit_soup(sd, tf, cam_mod, **build):
+    """tests/test_torch_path_li.py's _soup_scene(2000): 2000 random
+    triangles in [-2, 2]^3, a dense scene past the fused wave's
+    1024-triangle gate, with its point light moved between the camera and
+    the soup (above it, the tangle shadows every visible point)."""
+    rng = np.random.default_rng(0)
+    n = 2000
+    b = sd.SceneBuilder("soup")
+    m = b.add_matte(kd=(0.5, 0.5, 0.5))
+    pts = (rng.random((3 * n, 3)) * 4 - 2).astype(np.float32)
+    b.add_mesh(tf.Transform.identity(), np.arange(3 * n), pts, material=m)
+    b.add_point_light(tf.translation((0.5, 1.0, 4.0)), (8.0, 8.0, 8.0))
+    cam = cam_mod.CameraParameters(
+        position=(0.0, 0.5, 6.0), target=(0.0, 0.0, 0.0),
+        up=(0.0, 1.0, 0.0), fov=cam_mod.FoV.x(50.0),
+    )
+    return b.build(**build), cam
+
+
 def soup_triangles(n_tris=300, seed=7) -> np.ndarray:
     """tests/test_treelets.py's triangle soup: [n,3,3] f32."""
     rng = np.random.default_rng(seed)
@@ -240,7 +259,7 @@ def jax_scene(name):
         scene, cam, _ = colonnade(**(REDUCED if name == "reduced" else {}))
         return scene, cam
     return {"pointspot": pointspot, "midsize": midsize,
-            "textured-treelet": textured_treelet}[name](
+            "textured-treelet": textured_treelet, "lit-soup": lit_soup}[name](
         data, transforms, camera
     )
 
@@ -261,7 +280,7 @@ def port_scene(name):
             device="cpu", **(REDUCED if name == "reduced" else {}))
         return scene, cam
     return {"pointspot": pointspot, "midsize": midsize,
-            "textured-treelet": textured_treelet}[name](
+            "textured-treelet": textured_treelet, "lit-soup": lit_soup}[name](
         data, transforms, camera, device="cpu"
     )
 
@@ -396,10 +415,13 @@ class _GridRef:
         self.arr[self._index(idx)] = np.asarray(v)
 
 
+_GRID_AT = [0]  # the grid step a kernel body runs at, for pl.program_id
+
+
 def _grid_pallas_call(kernel, out_shape=(), *, grid_spec=None, **_):
     """pallas_call for grid kernels with scalar prefetch (trace_stream's
-    slot walks): every grid step runs the kernel body op by op on its
-    blocks, cut by the BlockSpecs' index maps."""
+    slot walks, trace_rows' row walks): every grid step runs the kernel
+    body op by op on its blocks, cut by the BlockSpecs' index maps."""
     import itertools
 
     def call(*args):
@@ -414,6 +436,7 @@ def _grid_pallas_call(kernel, out_shape=(), *, grid_spec=None, **_):
                              for i, b in zip(at, spec.block_shape))]
 
         for p in itertools.product(*(range(g) for g in grid_spec.grid)):
+            _GRID_AT[:] = p
             refs = [_GridRef(s) for s in scalars]
             refs += [_GridRef(block(s, a, p).copy())
                      for s, a in zip(grid_spec.in_specs, ins)]
@@ -426,12 +449,14 @@ def _grid_pallas_call(kernel, out_shape=(), *, grid_spec=None, **_):
 
 @contextlib.contextmanager
 def eager_grid_pallas():
-    """Run yuki_tpu's slot-stream kernels (trace_stream._closest_kernel,
-    _any_kernel) step by step and op by op, as eager_pallas runs the plane
-    kernels: pl.pallas_call walks the grid in Python, and pl.when,
-    jax.lax.fori_loop and jax.lax.while_loop become Python control flow
-    over concrete values.  Call the stream functions with one slot-budget
-    tier (mult_wide None), so that no lax.cond is staged."""
+    """Run yuki_tpu's grid kernels (trace_stream._closest_kernel,
+    _any_kernel, trace_rows._rows_closest_kernel, _rows_any_kernel) step by
+    step and op by op, as eager_pallas runs the plane kernels:
+    pl.pallas_call walks the grid in Python, and pl.when,
+    jax.lax.fori_loop, jax.lax.while_loop and jax.lax.map (trace_rows'
+    segments) become Python control flow over concrete values.  Call the
+    stream functions with one slot-budget tier (mult_wide None), so that
+    no lax.cond is staged."""
     import jax
     from jax.experimental import pallas as pl
 
@@ -448,14 +473,22 @@ def eager_grid_pallas():
             val = body(val)
         return val
 
-    saved = (pl.pallas_call, pl.when, jax.lax.fori_loop, jax.lax.while_loop)
+    def lax_map(fn, xs):
+        outs = [fn(jax.tree_util.tree_map(lambda x, i=i: x[i], xs))
+                for i in range(jax.tree_util.tree_leaves(xs)[0].shape[0])]
+        return jax.tree_util.tree_map(lambda *v: jnp.stack(v), *outs)
+
+    saved = (pl.pallas_call, pl.when, pl.program_id, jax.lax.fori_loop,
+             jax.lax.while_loop, jax.lax.map)
     pl.pallas_call, pl.when = _grid_pallas_call, when
+    pl.program_id = lambda axis: _GRID_AT[axis]
     jax.lax.fori_loop, jax.lax.while_loop = fori_loop, while_loop
+    jax.lax.map = lax_map
     try:
         yield
     finally:
-        (pl.pallas_call, pl.when, jax.lax.fori_loop,
-         jax.lax.while_loop) = saved
+        (pl.pallas_call, pl.when, pl.program_id, jax.lax.fori_loop,
+         jax.lax.while_loop, jax.lax.map) = saved
 
 
 # --- chaos-aware render bounds (tests/test_path_fused.py:58-81) ----------
@@ -498,37 +531,71 @@ def assert_parity(ref, rays_ref, got, rays_got, depth, spp=1,
 # --- whole waves ---------------------------------------------------------
 
 
-def render_treelet_both(name, depth, seed=7):
-    """One 12-tile wave of a treelet scene's 64x48 film through JAX's
+@contextlib.contextmanager
+def jax_dense_kernels():
+    """Make yuki_tpu's dense queries (traverse.intersect_dense,
+    any_intersect_dense) run its Pallas dense kernels (ops/trace.py
+    dense_trace, any_trace) in interpret mode, as they run on the TPU,
+    instead of its CPU sweep over intersect.ray_triangle, whose t_scaled
+    associates differently (e0 * (p0z * sz) + ... against the kernels'
+    (e0 * p0z + ...) * inv_dz)."""
+    import functools
+
+    from yuki_tpu import traverse as jtr
+    from yuki_tpu.ops import trace as jtrace
+
+    saved = jtr._backend_tpu, jtrace.dense_trace, jtrace.any_trace
+    jtr._backend_tpu = lambda: True
+    jtrace.dense_trace = functools.partial(saved[1], interpret=True)
+    jtrace.any_trace = functools.partial(saved[2], interpret=True)
+    try:
+        yield
+    finally:
+        jtr._backend_tpu, jtrace.dense_trace, jtrace.any_trace = saved
+
+
+def render_path_li_both(name, depth, seed=7):
+    """One 12-tile wave of a scene's 64x48 film through JAX's
     make_wave_renderer with the fused shade kernels in Pallas interpret
-    mode (on the CPU JAX traverses with intersect_bvh) and through the
-    port's make_wave_renderer on the CPU (path_li over the plain treelet
-    walk, shade and resolve).  Returns (ref, rays_ref, got, rays_got)."""
+    mode and the fused wave off (on the CPU JAX traverses a treelet scene
+    with intersect_bvh, a dense one with its dense Pallas kernels in
+    interpret mode: jax_dense_kernels) and through the port's
+    make_wave_renderer on the CPU with the fused wave off (path_li over
+    the plain dispatch or dense sweeps, shade and resolve).  Returns (ref,
+    rays_ref, got, rays_got)."""
     from yuki_tpu import integrators as jintg
     from yuki_tpu.camera import Camera as JCamera
+    from yuki_tpu.ops import path_fused as jpf
     from yuki_tpu.renderer import make_wave_renderer as jax_mwr
     from yuki_tpu.sampling import UniformSampler as JUniform
     from yuki_tpu_torch.camera import Camera
     from yuki_tpu_torch.integrators import PathParams
+    from yuki_tpu_torch.ops import path_fused as tpf
     from yuki_tpu_torch.renderer import make_wave_renderer
     from yuki_tpu_torch.sampling import UniformSampler
 
     jscene, jcam = jax_scene(name)
-    old = jintg.FUSED_SHADE_MODE
-    jintg.FUSED_SHADE_MODE = "interpret"
+    old = jintg.FUSED_SHADE_MODE, jpf.PATH_FUSED_MODE
+    jintg.FUSED_SHADE_MODE, jpf.PATH_FUSED_MODE = "interpret", "off"
     try:
         render = jax_mwr(jscene, JCamera.create(jcam, *RES), JUniform(1),
                          jintg.PathParams(max_depth=depth), TD, TILES)
-        px, rays = render(jnp.asarray(ORIGINS), jnp.int32(0),
-                          jnp.uint32(seed))
+        with jax_dense_kernels():
+            px, rays = render(jnp.asarray(ORIGINS), jnp.int32(0),
+                              jnp.uint32(seed))
         ref, rays_ref = np.asarray(px), float(rays)
     finally:
-        jintg.FUSED_SHADE_MODE = old
+        jintg.FUSED_SHADE_MODE, jpf.PATH_FUSED_MODE = old
     tscene, tcam = port_scene(name)
-    render = make_wave_renderer(tscene, Camera.create(tcam, *RES),
-                                UniformSampler(1), PathParams(max_depth=depth),
-                                TD, TILES)
-    px, rays = render(ORIGINS, 0, seed)
+    old = tpf.PATH_FUSED_MODE
+    tpf.PATH_FUSED_MODE = "off"
+    try:
+        render = make_wave_renderer(tscene, Camera.create(tcam, *RES),
+                                    UniformSampler(1),
+                                    PathParams(max_depth=depth), TD, TILES)
+        px, rays = render(ORIGINS, 0, seed)
+    finally:
+        tpf.PATH_FUSED_MODE = old
     return ref, rays_ref, px.numpy(), float(rays)
 
 

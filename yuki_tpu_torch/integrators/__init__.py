@@ -2,13 +2,15 @@
 ``PathParams`` (:40-42), ``LiResult`` (:93-97) and ``path_li`` (:190-392).
 
 The dense path-tracing wave (``ops/path_fused.py``) is the path tracer
-for dense scenes.  ``path_li`` is the path tracer for treelet scenes: its
-fused-shade branch (:234-314), bounce by bounce a closest-hit query, the
-shade kernel, one light-major occlusion query for every light's shadow
-rays, and the resolve kernel.  yuki_tpu's XLA shading chain (:316-377:
-make_surface, gather_materials, _nee, bsdf_sample), which runs where the
-fused gate fails, is not ported yet: ``path_li`` raises there (ROADMAP
-Queue 1 item 5: ``surface.py``, ``bsdf.py``, ``lights.py``).  Whitted and
+for the dense scenes it accepts.  ``path_li`` is the path tracer for
+every other scene, dense (the dense trace sweeps) or treelet (the
+adaptive dispatch): its fused-shade branch (:234-314), bounce by bounce a
+closest-hit query, the shade kernel, one light-major occlusion query for
+every light's shadow rays, and the resolve kernel.  yuki_tpu's XLA
+shading chain (:316-377: make_surface, gather_materials, _nee,
+bsdf_sample), which runs where the fused gate fails, is not ported yet:
+``path_li`` raises there (ROADMAP Queue 1 item 5: ``surface.py``,
+``bsdf.py``, ``lights.py``).  Whitted and
 the debug integrators come later (Queue 1 item 10).
 """
 
@@ -60,7 +62,8 @@ def _ph_i32(ctx) -> torch.Tensor:
 def path_li(scene, meta, params: PathParams, sampler, ctx, o, d,
             tables=None, dim: int = 2) -> LiResult:
     """Path tracing with NEE every bounce, optional indirect clamp and
-    Russian roulette after bounce 3 (path.rs:48-178), for treelet scenes.
+    Russian roulette after bounce 3 (path.rs:48-178), for dense and
+    treelet scenes (``traverse.intersect`` / ``any_intersect``).
 
     Sampler dimensions advance by 2L+3 per bounce (2 per light, 2 for the
     BSDF sample, 1 for roulette, reserved on every bounce).  Dead lanes

@@ -10,9 +10,12 @@ headers, so the build takes seconds):
   trace_treelets.cu  the two-level treelet walks (closest, any)
   trace_stream.cu    the crossing words and the slot walks (closest, any)
   trace_cull.cu      the two-level cull
+  trace_rows.cu      the row-union walks of coherent waves (closest, any)
+  trace_dense.cu     the dense scenes' trace sweeps (closest, any)
 
 ``path_fused.cuh`` holds the device maths they share, ``trace_stream.cuh``
-the slab and scaled watertight tests of the last two.  The library lands
+the slab and scaled watertight tests and the chunk walk of the stream,
+cull and row kernels.  The library lands
 in ``build/yuki_tpu_torch/`` at the repository root, named by a hash of
 the sources and flags, so an edited source is rebuilt and an unchanged
 one is reused; a file lock keeps concurrent processes from building it
@@ -37,7 +40,7 @@ from ..native import BUILD_DIR, locked_build
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 UNITS = ("path_fused.cu", "shade_fused.cu", "trace_treelets.cu",
-         "trace_stream.cu", "trace_cull.cu")
+         "trace_stream.cu", "trace_cull.cu", "trace_rows.cu", "trace_dense.cu")
 SOURCES = UNITS + ("path_fused.cuh", "trace_stream.cuh")
 
 # -fmad=false: contracting a*b - c*d into an FMA changes the watertight
@@ -107,9 +110,27 @@ def _declare(lib: ctypes.CDLL) -> None:
     for name in ("yk_slot_closest", "yk_slot_any"):
         # device, rows, leaf_size, row_chunk, n_rows, ray stream, out, stream
         getattr(lib, name).argtypes = [i, p, i, p, i, p, p, p]
+    lib.yk_rows_closest.argtypes = [
+        i, p, p, i, p, i, i,  # device, chunk boxes, rows, leaf_size, lists, C, n_rows
+        p, p, p, p, p,  # o, d, tmax, out, stream
+    ]
+    lib.yk_rows_any.argtypes = [
+        i, p, p, i, p, i, i,  # device, chunk boxes, rows, leaf_size, lists, C, n_rows
+        p, p, p, p, p, p,  # o, d, tmax, skip, occ, stream
+    ]
+    lib.yk_dense_closest.argtypes = [
+        i, p, i, p, p, p, i,  # device, tris, n_tris, o, d, tmax, n
+        p, p, p, p, p,  # t, prim, b0, b1, stream
+    ]
+    lib.yk_dense_any.argtypes = [
+        i, p, p, i, p, p, p, p, i,  # device, tris, light, n_tris, o, d, tmax, skip, n
+        p, p,  # occ, stream
+    ]
     for name in ("yk_raygen_trace", "yk_bounce", "yk_shade", "yk_resolve",
                  "yk_treelet_closest", "yk_treelet_any", "yk_cross_words",
-                 "yk_cull", "yk_slot_closest", "yk_slot_any"):
+                 "yk_cull", "yk_slot_closest", "yk_slot_any",
+                 "yk_rows_closest", "yk_rows_any", "yk_dense_closest",
+                 "yk_dense_any"):
         getattr(lib, name).restype = i
     lib.yk_error_string.argtypes = [i]
     lib.yk_error_string.restype = ctypes.c_char_p

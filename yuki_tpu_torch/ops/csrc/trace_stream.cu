@@ -71,11 +71,10 @@ __global__ void __launch_bounds__(CROSS_THREADS)
   }
 }
 
-// Stage chunk c's k triangle rows ([k, 12] floats) and the slot's ray.
+// Stage the slot row's chunk: its k triangle rows, [k, 12] floats.
 __device__ __forceinline__ void stage_chunk(float* tri_s, const float* __restrict__ rows,
                                             const int* __restrict__ row_chunk, int k) {
-  const float* src = rows + (size_t)__ldg(row_chunk + blockIdx.x) * k * 12;
-  for (int j = threadIdx.x; j < k * 12; j += ROW) tri_s[j] = __ldg(src + j);
+  stage_floats(tri_s, rows + (size_t)__ldg(row_chunk + blockIdx.x) * k * 12, k * 12);
 }
 
 __global__ void __launch_bounds__(ROW)
@@ -95,45 +94,11 @@ __global__ void __launch_bounds__(ROW)
     out[2 * n_slots + i] = 1.0f;
     return;
   }
-  const Shear sh = make_shear(dr);
-  float ts_b[8], det_b[8], prim_b[8];
-#pragma unroll
-  for (int s = 0; s < 8; ++s) {
-    ts_b[s] = jmax(tm, 0.0f);
-    det_b[s] = 1.0f;
-    prim_b[s] = -1.0f;
-  }
-  for (int g = 0; g < k; g += 8) {
-#pragma unroll
-    for (int s = 0; s < 8; ++s) {
-      const float* c = tri_s + 12 * (g + s);
-      float ts_c, det_c;
-      const bool ok = watertight_scaled(sh, o, c, ts_c, det_c);
-      const float pid = c[10];
-      if (ok && pid >= 0.0f && ts_c * det_b[s] < ts_b[s] * det_c) {
-        ts_b[s] = ts_c;
-        det_b[s] = det_c;
-        prim_b[s] = pid;
-      }
-    }
-  }
-  // _scaled_min8: carry a against carry a + h, h = 4, 2, 1.
-#pragma unroll
-  for (int h = 4; h >= 1; h /= 2) {
-#pragma unroll
-    for (int a = 0; a < h; ++a) {
-      const float lhs = ts_b[a + h] * det_b[a];
-      const float rhs = ts_b[a] * det_b[a + h];
-      if (lhs < rhs || (lhs == rhs && prim_b[a + h] < prim_b[a])) {
-        ts_b[a] = ts_b[a + h];
-        det_b[a] = det_b[a + h];
-        prim_b[a] = prim_b[a + h];
-      }
-    }
-  }
-  out[i] = ts_b[0];
-  out[n_slots + i] = prim_b[0];
-  out[2 * n_slots + i] = det_b[0];
+  float ts = jmax(tm, 0.0f), det = 1.0f, prim = -1.0f;
+  closest_chunk(make_shear(dr), o, tri_s, k, ts, det, prim);
+  out[i] = ts;
+  out[n_slots + i] = prim;
+  out[2 * n_slots + i] = det;
 }
 
 __global__ void __launch_bounds__(ROW)

@@ -1,7 +1,8 @@
-// Device maths shared by the slot-stream kernels (trace_stream.cu) and the
-// two-level cull (trace_cull.cu): the finite slab reciprocal and axis fold
-// of yuki_tpu/ops/trace_stream.py (:94-114), the chunk-box slab test, and
-// the divide-free watertight test of yuki_tpu/ops/trace.py (:57-98).
+// Device maths shared by the slot-stream kernels (trace_stream.cu), the
+// two-level cull (trace_cull.cu) and the row-union walks (trace_rows.cu):
+// the finite slab reciprocal and axis fold of yuki_tpu/ops/trace_stream.py
+// (:94-114), the chunk-box slab test, the divide-free watertight test of
+// yuki_tpu/ops/trace.py (:57-98) and the closest walk of one chunk.
 // Compiled with -fmad=false, like path_fused.cuh, so every product and sum
 // rounds on its own as in the JAX and PyTorch versions.
 #pragma once
@@ -93,6 +94,61 @@ __device__ __forceinline__ bool watertight_scaled(const Shear& s, V3 o, const fl
     det = -det;
   }
   return !miss_sign && det != 0.0f && ts > 0.0f;
+}
+
+// Copy n floats from device memory into shared memory, by all threads of
+// the block (the caller synchronises).
+__device__ __forceinline__ void stage_floats(float* dst, const float* __restrict__ src, int n) {
+  for (int j = threadIdx.x; j < n; j += blockDim.x) dst[j] = __ldg(src + j);
+}
+
+// closest_walk (yuki_tpu/ops/trace_stream.py:729-773) for one ray: walk a
+// chunk's k staged triangle rows (12 floats each; column 10 is the prim id,
+// negative on padding rows) from the running scaled best (ts, det, prim),
+// t = ts / det.  Triangle r goes to carry r % 8, the TPU kernel's sublanes,
+// every carry seeded from the running best, and the eight are reduced in
+// _scaled_min8's halving order: the cross-multiplied compare is not
+// transitive in floating point, so one carry would not give the same bits.
+__device__ __forceinline__ void closest_chunk(const Shear& sh, V3 o, const float* tri, int k, float& ts,
+                                              float& det, float& prim) {
+  float ts_b[8], det_b[8], prim_b[8];
+#pragma unroll
+  for (int s = 0; s < 8; ++s) {
+    ts_b[s] = ts;
+    det_b[s] = det;
+    prim_b[s] = prim;
+  }
+  for (int g = 0; g < k; g += 8) {
+#pragma unroll
+    for (int s = 0; s < 8; ++s) {
+      const float* c = tri + 12 * (g + s);
+      float ts_c, det_c;
+      const bool ok = watertight_scaled(sh, o, c, ts_c, det_c);
+      const float pid = c[10];
+      if (ok && pid >= 0.0f && ts_c * det_b[s] < ts_b[s] * det_c) {
+        ts_b[s] = ts_c;
+        det_b[s] = det_c;
+        prim_b[s] = pid;
+      }
+    }
+  }
+  // _scaled_min8: carry a against carry a + h, h = 4, 2, 1.
+#pragma unroll
+  for (int h = 4; h >= 1; h /= 2) {
+#pragma unroll
+    for (int a = 0; a < h; ++a) {
+      const float lhs = ts_b[a + h] * det_b[a];
+      const float rhs = ts_b[a] * det_b[a + h];
+      if (lhs < rhs || (lhs == rhs && prim_b[a + h] < prim_b[a])) {
+        ts_b[a] = ts_b[a + h];
+        det_b[a] = det_b[a + h];
+        prim_b[a] = prim_b[a + h];
+      }
+    }
+  }
+  ts = ts_b[0];
+  det = det_b[0];
+  prim = prim_b[0];
 }
 
 }  // namespace yk

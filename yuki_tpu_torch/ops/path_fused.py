@@ -52,6 +52,11 @@ from .trace import F32_MAX, pack_triangles, watertight
 MAX_TRIS_WAVE = 1024  # dense-scene gate (yuki_tpu path_fused.py:75)
 TEXPOOL_MAX = 65536  # texel-pool gate (path_fused.py:76)
 
+# "auto": scenes that pass wave_supported render through the wave; "off":
+# none do, and the renderer takes camera rays + path_li over the dense
+# queries instead (yuki_tpu path_fused.py:864-866, :907-916).
+PATH_FUSED_MODE = "auto"
+
 # State plane indices (f32 [24, N]).
 _ST = dict(
     ox=0, oy=1, oz=2, dx=3, dy=4, dz=5,
@@ -96,7 +101,8 @@ def reset_launches() -> None:
 def wave_supported(meta, sampler) -> bool:
     """Static gate, decided from SceneMeta and the sampler only
     (yuki_tpu path_fused.py:880-904, UniformSampler only: the stratified
-    sampler is not ported yet)."""
+    sampler is not ported yet).  A dense scene it refuses renders through
+    ``integrators.path_li`` where that accepts it."""
     if not isinstance(sampler, UniformSampler):
         return False
     if meta.traversal != "dense" or meta.n_tris > MAX_TRIS_WAVE:
@@ -116,31 +122,6 @@ def wave_supported(meta, sampler) -> bool:
     ):
         return False
     return True
-
-
-def check_wave_supported(meta, sampler) -> None:
-    """Raise NotImplementedError, naming what is missing, where
-    ``wave_supported`` is false: the port runs no other path."""
-    if wave_supported(meta, sampler):
-        return
-    if not isinstance(sampler, UniformSampler):
-        why = (f"sampler {type(sampler).__name__}: only UniformSampler is "
-               "ported (StratifiedSampler: ROADMAP Queue 1 item 2)")
-    elif meta.traversal != "dense":
-        why = (f"{meta.n_tris} triangles: a treelet scene, rendered by "
-               "integrators.path_li")
-    elif meta.n_tris > MAX_TRIS_WAVE:
-        why = (f"{meta.n_tris} triangles: dense scenes past "
-               f"{MAX_TRIS_WAVE} run path_li over the dense trace kernels "
-               "(ops/trace.py _dense_kernel/_any_kernel), not ported yet "
-               "(ROADMAP Queue 2 item 3)")
-    elif meta.has_sigma_tex:
-        why = ("sigma textures run on the XLA path_li chain (ROADMAP Queue 1 "
-               "item 5)")
-    else:
-        why = ("scene outside the dense-wave gate; its XLA path_li chain is "
-               "ROADMAP Queue 1 item 5")
-    raise NotImplementedError(f"dense path wave not supported: {why}")
 
 
 @dataclass

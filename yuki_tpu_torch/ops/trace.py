@@ -1,5 +1,5 @@
-"""Plain ray-triangle pieces shared by the wave and the slot stream (port
-of the plain parts of ``yuki_tpu/ops/trace.py``).
+"""Ray-triangle tests and the dense scenes' trace sweeps: port of
+``yuki_tpu/ops/trace.py``.
 
 ``watertight`` is the pbrt watertight test (shapes/triangle.rs:49-130) on
 [N] ray tensors against one triangle, with ``yuki_tpu``'s op order kept
@@ -13,14 +13,36 @@ divide-free form the slot-stream walks use (``ops/trace.py:41-117``): the
 per-ray shear is hoisted out of the triangle loop, a hit is carried as a
 scaled (ts, det) with det > 0 and t = ts / det, and hits are compared by
 cross-multiplication.
+
+Kernels (a CUDA tensor launches the hand-written kernel in
+``csrc/trace_dense.cu`` or raises; a CPU tensor runs the plain PyTorch
+version beside it; each launch adds one to ``LAUNCHES``):
+
+  dense_trace  replaces ``_dense_kernel`` (trace.py:176): closest hit of
+               every ray against every triangle; plain: ``dense_trace_plain``
+  any_trace    replaces ``_any_kernel`` (:221): occlusion, skipping each
+               lane's light id; plain: ``any_trace_plain``
+
+``_dense_skip_kernel`` (:249), the closest sweep with a per-lane skip
+light, serves yuki_tpu's combined closest + shadow waves only, which
+``path_li`` does not make; it is not ported yet.
 """
 
 from __future__ import annotations
 
 import torch
 
+from . import _build
+
 # The largest float32 (yuki_tpu writes 3.4028235e38, which rounds to it).
 F32_MAX = 3.4028234663852886e38
+
+LAUNCHES = {"dense_closest": 0, "dense_any": 0}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
 
 
 def pack_triangles(p0: torch.Tensor, p1: torch.Tensor,
@@ -75,12 +97,14 @@ def _edges(pre, ox, oy, oz, cols):
     return e0, e1, e2, miss_sign, (e0 * p0tz + e1 * p1tz + e2 * p2tz) * inv_dz
 
 
-def watertight(ox, oy, oz, dx, dy, dz, t_cur, cols):
+def watertight(ox, oy, oz, dx, dy, dz, t_cur, cols, pre=None):
     """Watertight test of one triangle (``cols``: its nine corner
     coordinates) against [N] rays.  Returns (hit, t, b0, b1) with
-    t = F32_MAX on a miss."""
-    e0, e1, e2, miss_sign, t_scaled = _edges(ray_shear(dx, dy, dz), ox, oy,
-                                             oz, cols)
+    t = F32_MAX on a miss.  ``pre``: the rays' ``ray_shear``, computed
+    here when None."""
+    if pre is None:
+        pre = ray_shear(dx, dy, dz)
+    e0, e1, e2, miss_sign, t_scaled = _edges(pre, ox, oy, oz, cols)
     det = e0 + e1 + e2
     miss_det = det == 0.0
     det_safe = torch.where(miss_det, torch.ones_like(det), det)
@@ -124,3 +148,112 @@ def scaled_min8(ts, det, prim):
         det = torch.where(take_b, det_b, det_a)
         prim = torch.where(take_b, pr_b, pr_a)
     return ts[0], det[0], prim[0]
+
+
+# --------------------------------------------------------------------
+# Dense sweeps (kernels 4 and 6) and their plain versions
+# --------------------------------------------------------------------
+
+
+def _ray_planes(o, d):
+    return (o[:, 0], o[:, 1], o[:, 2], d[:, 0], d[:, 1], d[:, 2])
+
+
+def dense_trace_plain(tris_packed, o, d, t_max):
+    """Plain version of the closest sweep (``_dense_kernel``): triangles in
+    ascending order, each taken when it hits within the running t and
+    ti < t, so the lowest index wins an exact tie.  Returns (t, prim i32,
+    b0, b1), t = t_max and prim -1 on a miss."""
+    ox, oy, oz, dx, dy, dz = _ray_planes(o, d)
+    pre = ray_shear(dx, dy, dz)
+    t = t_max.clone()
+    prim = torch.full_like(t_max, -1, dtype=torch.int32)
+    b0, b1 = torch.zeros_like(t_max), torch.zeros_like(t_max)
+    for i, row in enumerate(tris_packed[:, :9].unbind(0)):
+        hit, ti, bi0, bi1 = watertight(ox, oy, oz, dx, dy, dz, t,
+                                       row.unbind(0), pre)
+        closer = hit & (ti < t)
+        t = torch.where(closer, ti, t)
+        prim = torch.where(closer, i, prim)
+        b0 = torch.where(closer, bi0, b0)
+        b1 = torch.where(closer, bi1, b1)
+    return t, prim, b0, b1
+
+
+def any_trace_plain(tris_packed, tri_light, o, d, t_max, skip_light,
+                    stats=None):
+    """Plain version of the occlusion sweep (``_any_kernel``): [N] bool, a
+    hit within (0, t_max] by a triangle whose light id differs from the
+    lane's ``skip_light``.  ``stats`` receives "tests": per lane with
+    t_max > 0, the triangles up to its first occluder (all if none)."""
+    ox, oy, oz, dx, dy, dz = _ray_planes(o, d)
+    pre = ray_shear(dx, dy, dz)
+    occ = torch.zeros_like(t_max, dtype=torch.bool)
+    n_tris = tris_packed.shape[0]
+    first = torch.full_like(t_max, n_tris, dtype=torch.int64)
+    for i, (row, light) in enumerate(zip(tris_packed[:, :9].unbind(0),
+                                         tri_light.unbind(0))):
+        hit = watertight(ox, oy, oz, dx, dy, dz, t_max, row.unbind(0), pre)[0]
+        blocked = hit & (light != skip_light)
+        first = torch.where(blocked & ~occ, i + 1, first)
+        occ = occ | blocked
+    if stats is not None:
+        stats["tests"] = stats.get("tests", 0) + int(
+            first[t_max > 0.0].sum())
+    return occ
+
+
+def _check_dense(tris_packed, o, d, t_max, dev):
+    n = o.shape[0]
+    f32 = torch.float32
+    _build.check(tris_packed, "tris_packed", f32, (tris_packed.shape[0], 12),
+                 dev)
+    _build.check(o, "o", f32, (n, 3), dev)
+    _build.check(d, "d", f32, (n, 3), dev)
+    _build.check(t_max, "t_max", f32, (n,), dev)
+    return n
+
+
+def dense_trace(tris_packed, o, d, t_max):
+    """Closest hit of rays o, d [N,3], t_max [N] against every triangle of
+    ``tris_packed`` [T,12] (``pack_triangles``).  Returns (t, prim i32, b0,
+    b1) [N]."""
+    if not _build.dispatch(o):
+        return dense_trace_plain(tris_packed, o, d, t_max)
+    dev = o.device
+    n = _check_dense(tris_packed, o, d, t_max, dev)
+    t = torch.empty_like(t_max)
+    prim = torch.empty((n,), dtype=torch.int32, device=dev)
+    b0, b1 = torch.empty_like(t_max), torch.empty_like(t_max)
+    if n:
+        err = _build.library().yk_dense_closest(
+            dev.index, _build.ptr(tris_packed), tris_packed.shape[0],
+            _build.ptr(o), _build.ptr(d), _build.ptr(t_max), n, _build.ptr(t),
+            _build.ptr(prim), _build.ptr(b0), _build.ptr(b1),
+            _build.stream(dev))
+        _build.launch_check(err, "dense_closest")
+        LAUNCHES["dense_closest"] += 1
+    return t, prim, b0, b1
+
+
+def any_trace(tris_packed, tri_light, o, d, t_max, skip_light):
+    """Occlusion [N] bool of rays o, d, t_max against every triangle; a
+    triangle whose area-light id (``tri_light`` [T] i32) equals the lane's
+    ``skip_light`` [N] i32 is ignored."""
+    if not _build.dispatch(o):
+        return any_trace_plain(tris_packed, tri_light, o, d, t_max, skip_light)
+    dev = o.device
+    n = _check_dense(tris_packed, o, d, t_max, dev)
+    _build.check(tri_light, "tri_light", torch.int32, (tris_packed.shape[0],),
+                 dev)
+    _build.check(skip_light, "skip_light", torch.int32, (n,), dev)
+    occ = torch.empty((n,), dtype=torch.bool, device=dev)
+    if n:
+        err = _build.library().yk_dense_any(
+            dev.index, _build.ptr(tris_packed), _build.ptr(tri_light),
+            tris_packed.shape[0], _build.ptr(o), _build.ptr(d),
+            _build.ptr(t_max), _build.ptr(skip_light), n, _build.ptr(occ),
+            _build.stream(dev))
+        _build.launch_check(err, "dense_any")
+        LAUNCHES["dense_any"] += 1
+    return occ

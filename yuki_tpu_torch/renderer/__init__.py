@@ -3,8 +3,10 @@
 wave loop of its manager thread (:383-436) as ``render_frame``.
 
 Only the path tracer is ported.  Scenes that pass
-``path_fused.wave_supported`` take the fused wave (:107-121); treelet
-scenes take camera rays + ``integrators.path_li`` (:122-128); anything
+``path_fused.wave_supported`` take the fused wave (:107-121) unless
+``path_fused.PATH_FUSED_MODE`` is "off"; every other scene takes camera
+rays + ``integrators.path_li`` (:122-128), over the dense queries or the
+treelet dispatch, where ``check_path_li_supported`` accepts it; anything
 else raises ``NotImplementedError`` naming what is missing rather than
 running another path.  The threaded ``Renderer`` facade (launch /
 check_status / kill, progress and ETA) comes later (ROADMAP Queue 1
@@ -61,7 +63,8 @@ def make_wave_renderer(scene, camera: Camera, sampler, integrator,
         py = (origins[:, 1, None, None] + iy[None]).reshape(-1)
         return px.contiguous(), py.contiguous()
 
-    if path_fused.wave_supported(meta, sampler):
+    if (path_fused.PATH_FUSED_MODE != "off"
+            and path_fused.wave_supported(meta, sampler)):
         tables = path_fused.make_tables(scene, camera, integrator)
 
         def render_one(origins, sample_index: int, seed: int):
@@ -69,7 +72,7 @@ def make_wave_renderer(scene, camera: Camera, sampler, integrator,
             li, rcount = path_fused.path_li_wave(tables, px, py,
                                                  sample_index, seed)
             return li, rcount.to(torch.float32).sum()
-    elif meta.traversal == "treelet":
+    else:
         check_path_li_supported(meta, sampler)
         tables = shade_fused.make_shade_tables(scene, integrator)
 
@@ -84,8 +87,6 @@ def make_wave_renderer(scene, camera: Camera, sampler, integrator,
             res = path_li(scene, meta, integrator, sampler, ctx,
                           o.contiguous(), d.contiguous(), tables, dim=2)
             return res.li, res.ray_count.to(torch.float32).sum()
-    else:
-        path_fused.check_wave_supported(meta, sampler)  # raises, says why
 
     def call(origins, sample_index: int, seed: int):
         origins = torch.as_tensor(origins, device=dev).to(torch.int32)

@@ -1,5 +1,9 @@
 """Scene queries for the path integrator: port of ``yuki_tpu/traverse.py``'s
-``SceneHit``, ``intersect`` and ``any_intersect`` for treelet scenes.
+``SceneHit``, ``intersect``, ``any_intersect``, ``intersect_dense`` and
+``any_intersect_dense``.
+
+Dense scenes (<= DENSE_TRI_THRESHOLD triangles) sweep every triangle with
+``ops/trace.py``'s dense kernels (traverse.py:76-149, :443-444, :685-688).
 
 Treelet-scene queries go through ``yuki_tpu``'s adaptive dispatch
 (traverse.py:445-646 and :689-844), with rays in their natural order
@@ -8,35 +12,33 @@ ported):
 
 1. The batch is padded to a multiple of 128 with parked rays (``_pad128``).
 2. The interval probe (``ops/trace_rows.row_words_interval``) gives each
-   128-ray row's conservative chunk demand (``_rows_demand``).  A wave
-   within the rows engine's capacity is coherent.  The row-union kernels
-   are not ported yet: a coherent wave takes the exact two-level treelet
-   walk (``ops/trace_treelets.py``), which is yuki_tpu's own fallback
-   engine.
+   128-ray row's conservative union words, and from them the rows engine's
+   pair demand (``_rows_demand``).  A wave within the rows engine's
+   capacity is coherent: it takes the row-union walk (``rows_closest_w``,
+   ``rows_any_w``) on those words.
 3. A divergent wave takes the slot stream (``ops/trace_stream.py``): per-ray
    candidate lists from the two-level cull (``ops/trace_cull.py``) from
    CROSS_2L_MIN_CHUNKS chunks up, else from crossing words; the slot walk;
    the per-ray merge.
-4. Rays whose list was cut at C_MAIN re-run through the wide pass at
+4. Rays that either engine flags overflow re-run through the wide pass at
    C_WIDE (occlusion: only those not yet occluded, since occlusion is
    monotone in the candidate set), with the slot budget of the overflow
    tier their count selects.
 5. A blown budget (slot demand, more than OV_CAP overflow rays, or a wide
-   re-run that overflows again) sends the whole wave to the treelet walk.
+   re-run that overflows again) sends the whole wave to the exact treelet
+   walk (``ops/trace_treelets.py``).
 6. Closest hits get their barycentrics from the winning triangle
    (``_recompute_bary``).
 
 Every engine is exact, so the branches agree on prim and occlusion; the
-slot stream's t is one IEEE divide of a scaled hit, the walk's a multiply
-by a reciprocal, so t may differ by an ulp between them.  ``COUNTS``
-records calls per branch, overflow rays, wide re-runs, fallbacks and host
-reads (``counts()``).
+row and slot engines' t is one IEEE divide of a scaled hit, the walk's a
+multiply by a reciprocal, so t may differ by an ulp between them.
+``COUNTS`` records calls per branch, overflow rays, wide re-runs,
+fallbacks and host reads (``counts()``).
 
 Then the spheres, brute-force: a sphere wins a closest hit only when
 strictly closer than the triangle hit (traverse.py:660-669), and any
-sphere hit occludes (:843).  Dense scenes (<= DENSE_TRI_THRESHOLD
-triangles) outside the fused wave need ``ops/trace.py``'s dense kernels,
-not ported yet (ROADMAP Queue 2 item 3): their queries raise.
+sphere hit occludes (:843).
 """
 
 from __future__ import annotations
@@ -47,22 +49,22 @@ import torch
 
 from .intersect import ray_spheres
 from .ops import trace_stream as ts
-from .ops.trace import F32_MAX
+from .ops.trace import F32_MAX, any_trace, dense_trace, pack_triangles
 from .ops.trace_cull import candidate_lists_fused
-from .ops.trace_rows import row_words_interval
+from .ops.trace_rows import (QUAD, row_words_interval, rows_any_w,
+                             rows_closest_w)
 from .ops.trace_treelets import treelet_any, treelet_closest
 
-__all__ = ["F32_MAX", "SceneHit", "any_intersect", "counts", "intersect",
-           "reset_counts"]
+__all__ = ["F32_MAX", "SceneHit", "any_intersect", "any_intersect_dense",
+           "counts", "intersect", "intersect_dense", "reset_counts"]
 
 # Rows-engine capacity of the dispatch probe (traverse.py:319-320).
 _ROWS_C = 160
 _ROWS_MULT = 24
-_ROWS_QUAD = 4  # yuki_tpu/ops/trace_rows.py QUAD
 
 COUNTS = {
-    "closest_slot": 0, "closest_coherent_walk": 0,
-    "any_slot": 0, "any_coherent_walk": 0,
+    "closest_slot": 0, "closest_rows": 0,
+    "any_slot": 0, "any_rows": 0,
     "overflow_rays": 0, "wide_reruns": 0, "fallbacks": 0,
 }
 
@@ -89,13 +91,19 @@ class SceneHit(NamedTuple):
     b1: torch.Tensor
 
 
-def _require_treelet(meta) -> None:
-    if meta.traversal != "treelet":
-        raise NotImplementedError(
-            f"scene queries for traversal {meta.traversal!r} need the dense "
-            "trace kernels (ops/trace.py _dense_kernel/_any_kernel), not "
-            "ported yet (ROADMAP Queue 2 item 3)"
-        )
+def intersect_dense(scene, o, d, t_max):
+    """Closest hit of a dense scene by the sweep over all its triangles.
+    Returns (t, prim i32, b0, b1)."""
+    tris = scene.tris
+    return dense_trace(pack_triangles(tris.p0, tris.p1, tris.p2), o, d, t_max)
+
+
+def any_intersect_dense(scene, o, d, t_max, skip_light):
+    """Occlusion [N] bool of a dense scene by the sweep over all its
+    triangles; those of the lane's ``skip_light`` are ignored."""
+    tris = scene.tris
+    return any_trace(pack_triangles(tris.p0, tris.p1, tris.p2),
+                     tris.area_light, o, d, t_max, skip_light)
 
 
 def _rows_demand(row_words):
@@ -103,7 +111,7 @@ def _rows_demand(row_words):
     popcount clamped to [1, _ROWS_C], aligned to QUAD, summed."""
     pc = ts.popcount32(row_words).sum(dim=-1)
     pc = torch.clamp(pc, 1, _ROWS_C)
-    return (-(-pc // _ROWS_QUAD) * _ROWS_QUAD).sum()
+    return (-(-pc // QUAD) * QUAD).sum()
 
 
 def _compact_indices(mask):
@@ -134,10 +142,10 @@ def _pad128(scene, o, d, t_max, *extras):
     return out
 
 
-def _coherent(ch, o, d, t_max) -> bool:
-    rows = o.shape[0] // ts.LANES
-    demand = _rows_demand(row_words_interval(ch, o, d, t_max))
-    return ts.host_int(demand) <= rows * _ROWS_MULT
+def _coherent(row_words) -> bool:
+    """The dispatch's branch: the rows engine's demand within its budget."""
+    return ts.host_int(_rows_demand(row_words)) <= (
+        row_words.shape[0] * _ROWS_MULT)
 
 
 def _wide_cap(n_ov: int) -> int:
@@ -151,19 +159,23 @@ def _wide_cap(n_ov: int) -> int:
 def _closest_dispatch(scene, meta, o, d, t_max):
     """Triangle closest hit by the adaptive dispatch over padded rays."""
     ch, tl = scene.chunks, scene.treelets
-    if _coherent(ch, o, d, t_max):
-        COUNTS["closest_coherent_walk"] += 1
-        return treelet_closest(tl, o, d, t_max)
-    COUNTS["closest_slot"] += 1
-    budget = dict(mult=meta.slot_mult_tight, mult_wide=meta.slot_mult)
-    if ch.n_treelets >= ts.CROSS_2L_MIN_CHUNKS:
-        lists, ov = candidate_lists_fused(ch, o, d, t_max, ts.C_MAIN)
-        t, prim, ov, ok = ts.stream_closest_l(ch, lists, ov, o, d, t_max,
-                                              C=ts.C_MAIN, **budget)
+    row_words = row_words_interval(ch, o, d, t_max)
+    if _coherent(row_words):
+        COUNTS["closest_rows"] += 1
+        t, prim, ov = rows_closest_w(ch, row_words, o, d, t_max, C=_ROWS_C,
+                                     mult=_ROWS_MULT)
+        ok = True
     else:
-        t, prim, ov, ok = ts.stream_closest_w(
-            ch, ts.cross_words(ch, o, d, t_max), o, d, t_max, C=ts.C_MAIN,
-            **budget)
+        COUNTS["closest_slot"] += 1
+        budget = dict(mult=meta.slot_mult_tight, mult_wide=meta.slot_mult)
+        if ch.n_treelets >= ts.CROSS_2L_MIN_CHUNKS:
+            lists, ov = candidate_lists_fused(ch, o, d, t_max, ts.C_MAIN)
+            t, prim, ov, ok = ts.stream_closest_l(
+                ch, lists, ov, o, d, t_max, C=ts.C_MAIN, **budget)
+        else:
+            t, prim, ov, ok = ts.stream_closest_w(
+                ch, ts.cross_words(ch, o, d, t_max), o, d, t_max,
+                C=ts.C_MAIN, **budget)
     if ok:
         idx, n_ov = _compact_indices(ov)
         COUNTS["overflow_rays"] += n_ov
@@ -188,20 +200,24 @@ def _closest_dispatch(scene, meta, o, d, t_max):
 def _any_dispatch(scene, meta, o, d, t_max, skip):
     """Triangle occlusion by the adaptive dispatch over padded rays."""
     ch, tl = scene.chunks, scene.treelets
-    if _coherent(ch, o, d, t_max):
-        COUNTS["any_coherent_walk"] += 1
-        return treelet_any(tl, o, d, t_max, skip)
-    COUNTS["any_slot"] += 1
-    budget = dict(mult=max(3, meta.slot_mult_tight - 1),
-                  mult_wide=max(4, meta.slot_mult - 2))
-    if ch.n_treelets >= ts.CROSS_2L_MIN_CHUNKS:
-        lists, ov = candidate_lists_fused(ch, o, d, t_max, ts.C_MAIN)
-        occ, ov, ok = ts.stream_any_l(ch, lists, ov, o, d, t_max, skip,
-                                      C=ts.C_MAIN, **budget)
+    row_words = row_words_interval(ch, o, d, t_max)
+    if _coherent(row_words):
+        COUNTS["any_rows"] += 1
+        occ, ov = rows_any_w(ch, row_words, o, d, t_max, skip, C=_ROWS_C,
+                             mult=_ROWS_MULT)
+        ok = True
     else:
-        occ, ov, ok = ts.stream_any_w(ch, ts.cross_words(ch, o, d, t_max),
-                                      o, d, t_max, skip, C=ts.C_MAIN,
-                                      **budget)
+        COUNTS["any_slot"] += 1
+        budget = dict(mult=max(3, meta.slot_mult_tight - 1),
+                      mult_wide=max(4, meta.slot_mult - 2))
+        if ch.n_treelets >= ts.CROSS_2L_MIN_CHUNKS:
+            lists, ov = candidate_lists_fused(ch, o, d, t_max, ts.C_MAIN)
+            occ, ov, ok = ts.stream_any_l(ch, lists, ov, o, d, t_max, skip,
+                                          C=ts.C_MAIN, **budget)
+        else:
+            occ, ov, ok = ts.stream_any_w(
+                ch, ts.cross_words(ch, o, d, t_max), o, d, t_max, skip,
+                C=ts.C_MAIN, **budget)
     if ok:
         # An occluded verdict is final even from a cut list: only the
         # unoccluded overflow rays re-run (traverse.py:771-777).
@@ -223,12 +239,23 @@ def _any_dispatch(scene, meta, o, d, t_max, skip):
     return occ
 
 
-def intersect(scene, meta, o, d, t_max) -> SceneHit:
-    """Full scene closest hit: the treelet dispatch, then the spheres."""
-    _require_treelet(meta)
-    n = o.shape[0]
-    t, prim, b0, b1 = (x[:n] for x in _closest_dispatch(
-        scene, meta, *_pad128(scene, o, d, t_max)))
+def intersect(scene, meta, o, d, t_max, skip_light=None) -> SceneHit:
+    """Full scene closest hit: the dense sweep or the treelet dispatch,
+    then the spheres.  ``skip_light`` (a per-lane light to ignore, for
+    yuki_tpu's combined closest + shadow waves) needs ``_dense_skip_kernel``
+    and the rows kernel's ``with_skip`` variant, not ported yet (ROADMAP
+    Queue 2 item 3): passing it raises."""
+    if skip_light is not None:
+        raise NotImplementedError(
+            "intersect with skip_light (combined closest + shadow waves) "
+            "needs ops/trace.py _dense_skip_kernel and the rows kernels' "
+            "with_skip variant, not ported yet (ROADMAP Queue 2 item 3)")
+    if meta.traversal == "dense":
+        t, prim, b0, b1 = intersect_dense(scene, o, d, t_max)
+    else:
+        n = o.shape[0]
+        t, prim, b0, b1 = (x[:n] for x in _closest_dispatch(
+            scene, meta, *_pad128(scene, o, d, t_max)))
     sh = ray_spheres(o, d, t_max, scene.spheres)
     sphere_wins = sh.hit & (sh.t < t)
     return SceneHit(
@@ -245,8 +272,10 @@ def any_intersect(scene, meta, o, d, t_max, skip_light) -> torch.Tensor:
     """Occlusion: triangles whose area-light id equals the lane's
     ``skip_light`` [N] i32 are ignored (the reference skips the sampled
     light, bvh.rs:287-293); any sphere hit occludes.  Returns [N] bool."""
-    _require_treelet(meta)
-    n = o.shape[0]
-    occ = _any_dispatch(scene, meta,
-                        *_pad128(scene, o, d, t_max, skip_light))[:n]
+    if meta.traversal == "dense":
+        occ = any_intersect_dense(scene, o, d, t_max, skip_light)
+    else:
+        n = o.shape[0]
+        occ = _any_dispatch(scene, meta,
+                            *_pad128(scene, o, d, t_max, skip_light))[:n]
     return occ | ray_spheres(o, d, t_max, scene.spheres).hit
