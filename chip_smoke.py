@@ -33,12 +33,25 @@ beside this file.  It imports no JAX.  Phases:
      held against the fused wave's frame (depth 2: rtol 2e-6; depth 5:
      the chaos-aware bounds and ray counts within 1%); then the Cornell
      golden through the path_li route;
+  4c. the stratified variants of raygen_trace and bounce against their
+     plain versions on the Cornell wave with StratifiedSampler(4, 4)'s
+     planes;
+  4d. the one-kernel wave: wave_kernel against the two-kernel CUDA wave,
+     bit for bit, on the Cornell wave with UniformSampler(16) and
+     StratifiedSampler(4, 4), and against its plain version; the 1080p d5
+     16 spp Cornell frame by both forms and both samplers (the one-kernel
+     uniform frame is that kernel's main path: launches counted), equal
+     bit for bit; the Cornell golden through wave_kernel;
+  4e. StratifiedSampler(2, 2) on the 1080p Cornell film (4 spp) through
+     the wave and through path_li, at depth 2 (rtol 2e-6) and depth 5
+     (the chaos-aware bounds);
   5. the colonnade's host build (124,478 triangles): BVH, treelets,
      chunks and slot budgets, each timed;
   6. the treelet path's kernels against their plain versions on one
      2048-tile wave of the 1080p colonnade (524,288 camera rays, seed 1),
      with inputs packed by the main path's own code: treelet_closest on
-     the camera rays, shade on their hits, treelet_any on the bounce-0
+     the camera rays, shade on their hits (and its stratified variant
+     with StratifiedSampler(2, 2)'s planes), treelet_any on the bounce-0
      shadow rays, resolve, then treelet_closest on the bounce-1 rays and
      treelet_any on their shadow rays; the walks' plain versions run on
      stated slices of whole 1024-ray blocks (on bounce 1, blocks holding
@@ -58,14 +71,24 @@ beside this file.  It imports no JAX.  Phases:
      rays (forced through the rows engine), with the bounds from the
      plain versions' tallies; then the dispatch on those coherent waves
      against the treelet walk under phase 8's rules;
+  8b. the bundle walks against their plain versions on the same wave's
+     bounce-1 rays (closest) and bounce-0 shadow rays (occlusion), with
+     the walker's own lists and budget verdict; then the dispatch with
+     WALKER_CLOSEST / WALKER_ANY against the dispatch without them on the
+     bounce-1 rays and their shadow rays (phase 8's rules), and each
+     walker query's time per call and device breakdown;
   9. the colonnade golden: 64x48, depth 3, 1 spp, seed 1 against
-     tests/goldens/torch_colonnade_64x48_path3_1spp_seed1.npz;
+     tests/goldens/torch_colonnade_64x48_path3_1spp_seed1.npz, with the
+     divergent waves on the slot stream and on the bundle walker;
  10. the treelet main path: render_frame on the colonnade at 1920x1080,
      depth 5, UniformSampler 1 spp, 16-pixel tiles, 2048-tile waves, seed
      1 (bench.py:273-276), counting launches and the dispatch's branches
      (the treelet walk launches only on counted fallbacks), then the same
      frame under torch.profiler for where the device time goes and the
-     device's idle share.
+     device's idle share; once on the slot stream and once with both
+     walker flags (the walker kernels' main path);
+ 11. the same colonnade frame with StratifiedSampler(2, 2), 4 spp,
+     through path_li, timed.
 
 Prints one JSON line describing the kernels, the card's name and power
 limit, then as its last line {"ok": true, "device": {...}}.  Any failed
@@ -110,6 +133,9 @@ KERNELS = {  # name: (source, the TPU kernel it replaces)
     "rows_any": ("trace_rows.cu", "yuki_tpu/ops/trace_rows.py:299"),
     "dense_closest": ("trace_dense.cu", "yuki_tpu/ops/trace.py:176"),
     "dense_any": ("trace_dense.cu", "yuki_tpu/ops/trace.py:221"),
+    "walker_closest": ("trace_walker.cu", "yuki_tpu/ops/trace_walker.py:204"),
+    "walker_any": ("trace_walker.cu", "yuki_tpu/ops/trace_walker.py:269"),
+    "wave": ("path_fused.cu", "yuki_tpu/ops/path_fused.py:788"),
 }
 
 # Bounds: the least time the card could take for a kernel's work, the
@@ -185,10 +211,11 @@ def nbytes(*tensors):
 
 def _kernel_modules():
     from yuki_tpu_torch.ops import (path_fused, shade_fused, trace, trace_cull,
-                                    trace_rows, trace_stream, trace_treelets)
+                                    trace_rows, trace_stream, trace_treelets,
+                                    trace_walker)
 
     return (path_fused, shade_fused, trace_treelets, trace_cull, trace_stream,
-            trace_rows, trace)
+            trace_rows, trace, trace_walker)
 
 
 def reset_all_launches():
@@ -235,8 +262,9 @@ def phase_device(torch):
     return card
 
 
-def phase_kernels(torch, np, dev):
-    """Kernel vs plain version at main-path shapes."""
+def _cornell_wave(torch, dev):
+    """The dense wave's tables for the 1080p Cornell film at depth DEPTH
+    and the pixels of its first WAVE_TILES-tile wave: (tb, px, py)."""
     from yuki_tpu_torch.camera import Camera
     from yuki_tpu_torch.film import FilmSettings, film_tiles
     from yuki_tpu_torch.integrators import PathParams
@@ -254,8 +282,16 @@ def phase_kernels(torch, np, dev):
                             indexing="ij")
     px = (origins[:, 0, None, None] + ix[None]).reshape(-1).contiguous()
     py = (origins[:, 1, None, None] + iy[None]).reshape(-1).contiguous()
+    check(px.shape[0] == WAVE_TILES * td * td, f"wave has {px.shape[0]} rays")
+    return tb, px, py
+
+
+def phase_kernels(torch, np, dev):
+    """Kernel vs plain version at main-path shapes."""
+    from yuki_tpu_torch.ops import path_fused as tpf
+
+    tb, px, py = _cornell_wave(torch, dev)
     n = px.shape[0]
-    check(n == WAVE_TILES * td * td, f"wave has {n} rays")
     si, seed = 0, 1
     st = tpf._ST
     result = {}
@@ -387,12 +423,12 @@ def phase_main_path(torch, np, dev, card):
                        samples_per_launch=SPP, seed=1)
     torch.cuda.synchronize()
     counts = all_launches()
-    launches = {k: counts[k] for k in tpf.LAUNCHES}
+    launches = {k: counts[k] for k in ("raygen_trace", "bounce")}
     for name, count in counts.items():
         if name in launches:
             check(count > 0, f"main path: kernel {name} never launched")
         else:
-            check(count == 0, f"main path: treelet kernel {name} launched")
+            check(count == 0, f"main path: kernel {name} launched")
     img = res.film.image()
     check(img.shape == (RES[1], RES[0], 3), f"main path: shape {img.shape}")
     check(np.isfinite(img).all(), "main path: non-finite pixels")
@@ -599,6 +635,269 @@ def phase_dense_path_li(torch, np, dev, card):
     return launches
 
 
+def sampler_name(sam):
+    """UniformSampler(n) or StratifiedSampler(x, y)."""
+    if hasattr(sam, "pixel_samples"):
+        return f"UniformSampler({sam.pixel_samples})"
+    return f"StratifiedSampler({sam.pixel_samples_x}, {sam.pixel_samples_y})"
+
+
+def _check_wave_state(torch, st_k, st_p, what, exact, close, rtol, atol):
+    """Kernel state planes against the plain version's: ``exact`` planes
+    equal, ``close`` ones within rtol/atol.  Returns the largest gap."""
+    from yuki_tpu_torch.ops import path_fused as tpf
+
+    for k in exact:
+        check(torch.equal(st_k[tpf._ST[k]], st_p[tpf._ST[k]]),
+              f"{what}: {k} differs")
+    err = 0.0
+    for k in close:
+        a, b = st_k[tpf._ST[k]], st_p[tpf._ST[k]]
+        check(torch.allclose(a, b, rtol=rtol, atol=atol),
+              f"{what}: {k} outside rtol {rtol:g} / atol {atol:g} (max "
+              f"{float((a - b).abs().max()):.3g})")
+        err = max(err, float((a - b).abs().max()))
+    return err
+
+
+def phase_strat_kernels(torch, np, dev, card):
+    """The stratified variants of raygen_trace and bounce against their
+    plain versions on the Cornell wave, with StratifiedSampler(4, 4)'s
+    planes computed by the sampler (the rules of phase 2)."""
+    from yuki_tpu_torch.ops import path_fused as tpf
+    from yuki_tpu_torch.sampling import StratifiedSampler
+
+    tb, px, py = _cornell_wave(torch, dev)
+    n, si, seed = px.shape[0], 5, 1
+    sam = StratifiedSampler(4, 4)
+    spl = tpf.strat_planes(sam, px, py, si, seed, tb.n_lights, DEPTH)
+    st_k, ph_k = tpf.raygen_trace(px, py, si, seed, tb, spl[:2])
+    st_p, ph_p = tpf.raygen_trace_plain(px, py, si, seed, tb, spl[:2])
+    st_u, _ = tpf.raygen_trace(px, py, si, seed, tb)
+    torch.cuda.synchronize()
+    check(torch.equal(ph_k, ph_p), "strat raygen: sampler hash differs")
+    check(not torch.equal(st_k[tpf._ST["dx"]], st_u[tpf._ST["dx"]]),
+          "strat raygen: the planes changed nothing")
+    err = _check_wave_state(torch, st_k, st_p, "strat raygen",
+                            ("prim", "sph", "hitf"),
+                            ("ox", "oy", "oz", "dx", "dy", "dz", "t", "b0",
+                             "b1"), 1e-6, 1e-7)
+    ms_k = cuda_ms(torch, lambda: tpf.raygen_trace(px, py, si, seed, tb,
+                                                   spl[:2]), 10)
+    ms_p = cuda_ms(torch, lambda: tpf.raygen_trace_plain(px, py, si, seed, tb,
+                                                         spl[:2]), 3)
+    # Bounds as phase 2's, with the planes read once more.
+    b_ms, b_by = bound(
+        nbytes(px, py, spl[:2], st_k, ph_k) + nbytes(tb.ms, tb.tri, tb.sp),
+        n * (OPS_CAMERA + tb.n_tris * OPS_WATERTIGHT
+             + tb.n_spheres * OPS_SPHERE))
+    print(f"raygen_trace strat [{n} rays, {sampler_name(sam)}]: kernel "
+          f"{ms_k:.4f} ms, plain {ms_p:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
+          f"max_abs_err {err:.3g}; prim, sph, hitf and the hash equal "
+          f"[{card}]")
+    s_in = st_k
+    for b in range(DEPTH):
+        planes = tpf._bounce_planes(spl, tb, b)
+        out_k = tpf.bounce(s_in, ph_k, b, tb, planes)
+        out_p = tpf.bounce_plain(s_in, ph_k, b, tb, planes)
+        torch.cuda.synchronize()
+        err = _check_wave_state(torch, out_k, out_p, f"strat bounce {b}",
+                                ("alive", "spec", "rc"), FLOATS, 2e-6, 1e-7)
+        same = float((out_k[tpf._ST["prim"]]
+                      == out_p[tpf._ST["prim"]]).float().mean())
+        check(same >= 0.999, f"strat bounce {b}: next-hit ids agree on "
+              f"{same:.5f}")
+        if b in (0, 3):
+            ms_k = cuda_ms(torch, lambda: tpf.bounce(s_in, ph_k, b, tb,
+                                                     planes), 10)
+            ms_p = cuda_ms(torch, lambda: tpf.bounce_plain(s_in, ph_k, b, tb,
+                                                           planes), 3)
+            traced = int(out_k[tpf._ST["alive"]].sum()) if b < DEPTH - 1 \
+                else 0
+            b_ms, b_by = bound(
+                nbytes(s_in, ph_k, planes, out_k)
+                + nbytes(tb.ms, tb.tri, tb.trs, tb.mat, tb.lt, tb.sp),
+                traced * (tb.n_tris * OPS_WATERTIGHT
+                          + tb.n_spheres * OPS_SPHERE))
+            print(f"bounce {b} strat [{n} rays, "
+                  f"{int(s_in[tpf._ST['alive']].sum())} alive]: kernel "
+                  f"{ms_k:.4f} ms, plain {ms_p:.4f} ms, bound {b_ms:.4f} ms "
+                  f"({b_by}), max_abs_err {err:.3g}, next-hit ids agree "
+                  f"{same:.6f} [{card}]")
+        s_in = out_k
+
+
+def phase_wave1k(torch, np, dev, card):
+    """The one-kernel wave: wave_kernel against the two-kernel CUDA wave,
+    bit for bit, on the Cornell wave with UniformSampler(16) and
+    StratifiedSampler(4, 4), and against its plain version; then the
+    1080p d5 16 spp Cornell frame by both forms and both samplers (the
+    one-kernel uniform frame is this kernel's main path: launches
+    counted), and the Cornell golden through wave_kernel."""
+    from yuki_tpu_torch.film import FilmSettings
+    from yuki_tpu_torch.integrators import PathParams
+    from yuki_tpu_torch.ops import path_fused as tpf
+    from yuki_tpu_torch.renderer import render_frame
+    from yuki_tpu_torch.sampling import StratifiedSampler, UniformSampler
+    from yuki_tpu_torch.scene.cornell import cornell
+
+    tb, px, py = _cornell_wave(torch, dev)
+    n, seed = px.shape[0], 1
+    result = {}
+    samplers = (UniformSampler(SPP), StratifiedSampler(4, 4))
+    for sam in samplers:
+        si = 3
+        spl = tpf.strat_planes(sam, px, py, si, seed, tb.n_lights, DEPTH)
+
+        def one():
+            return tpf.wave(px, py, si, seed, tb, spl)
+
+        def two():
+            st, ph = tpf.raygen_trace(px, py, si, seed, tb,
+                                      None if spl is None else spl[:2])
+            for b in range(DEPTH):
+                st = tpf.bounce(st, ph, b, tb, tpf._bounce_planes(spl, tb, b))
+            return st[[tpf._ST[k] for k in ("rx", "ry", "rz", "rc")]]
+
+        got, ref = one(), two()
+        torch.cuda.synchronize()
+        check(torch.equal(got.view(torch.int32), ref.view(torch.int32)),
+              f"wave kernel vs the two-kernel wave ({sampler_name(sam)}): bits differ on "
+              f"{int((got != ref).any(dim=0).sum())} lanes")
+        ms_1 = cuda_ms(torch, one, 10)
+        ms_2 = cuda_ms(torch, two, 10)
+        rays = int(got[3].sum())
+        line = (f"wave kernel [{n} rays, depth {DEPTH}, {sampler_name(sam)}]: {ms_1:.4f} ms "
+                f"= {rays / ms_1 / 1e3:.2f} Mrays/s; two-kernel wave "
+                f"{ms_2:.4f} ms = {rays / ms_2 / 1e3:.2f} Mrays/s; rgb and "
+                f"ray count equal bit for bit ({rays} rays)")
+        if isinstance(sam, UniformSampler):
+            plain = tpf.wave_plain(px, py, si, seed, tb, spl)
+            torch.cuda.synchronize()
+            g, r = got[:3].t().cpu().numpy(), plain[:3].t().cpu().numpy()
+            n_bad, limit, mean_rel = deep_parity(np, r, g)
+            rays_p = int(plain[3].sum())
+            check(abs(rays - rays_p) <= max(16, 0.01 * rays_p),
+                  f"wave kernel vs plain: rays {rays} vs {rays_p}")
+            ms_p = cuda_ms(torch, lambda: tpf.wave_plain(px, py, si, seed, tb,
+                                                         spl), 1)
+            # Bytes: pixels in, [4, N] out, the tables once; operations:
+            # each closest-hit ray's full sweep (the shading and the
+            # shadow sweeps, which exit early, are not counted).
+            b_ms, b_by = bound(
+                nbytes(px, py, got) + nbytes(tb.ms, tb.tri, tb.trs, tb.mat,
+                                             tb.lt, tb.sp),
+                rays * (tb.n_tris * OPS_WATERTIGHT
+                        + tb.n_spheres * OPS_SPHERE))
+            err = float(np.abs(g - r).max())
+            result["wave"] = dict(max_abs_err=err, ms=ms_1, plain_ms=ms_p,
+                                  bound_ms=b_ms, bound_by=b_by)
+            line += (f"; plain {ms_p:.4f} ms (rays {rays_p}, divergent lanes "
+                     f"{n_bad} of limit {limit}, mean rel diff {mean_rel:.3g})"
+                     f", bound {b_ms:.4f} ms ({b_by})")
+        print(line + f" [{card}]")
+
+    scene, cam, _ = cornell(device=dev)
+    fs = FilmSettings(res=RES, tile_dim=16)
+    frames, launches = {}, {}
+    for sam in samplers:
+        for onek in (False, True):
+            tpf.PATH_FUSED_ONEKERNEL = onek
+            try:
+                torch.cuda.synchronize()
+                reset_all_launches()
+                frames[onek] = render_frame(
+                    scene, cam, fs, sam, PathParams(max_depth=DEPTH),
+                    wave_tiles=WAVE_TILES, samples_per_launch=SPP, seed=1)
+                torch.cuda.synchronize()
+                counts = all_launches()
+            finally:
+                tpf.PATH_FUSED_ONEKERNEL = False
+            used = ("wave",) if onek else ("raygen_trace", "bounce")
+            for name, count in counts.items():
+                check((count > 0) == (name in used),
+                      f"cornell frame ({sampler_name(sam)}, one kernel {onek}): {name} "
+                      f"launched {count} times")
+            if onek and isinstance(sam, UniformSampler):
+                launches["wave"] = counts["wave"]
+            frame_launches = {**(frame_launches if onek else {}),
+                              **{k: counts[k] for k in used}}
+        a, b = frames[True], frames[False]
+        img = a.film.image()
+        check(np.isfinite(img).all() and float(img.mean()) > 0.0,
+              f"one-kernel frame ({sampler_name(sam)}): non-finite or black")
+        check(np.array_equal(img, b.film.image()) and
+              a.ray_count == b.ray_count,
+              f"one-kernel frame ({sampler_name(sam)}) differs from the two-kernel frame")
+        print(f"cornell {RES[0]}x{RES[1]} d{DEPTH} {sam.samples_per_pixel}spp "
+              f"{WAVE_TILES}-tile waves, {sampler_name(sam)}: launches "
+              f"{frame_launches}; one kernel {a.ray_count} "
+              f"rays in {a.elapsed_s:.4f} s = "
+              f"{a.ray_count / a.elapsed_s / 1e6:.2f} Mrays/s; two kernels "
+              f"{b.elapsed_s:.4f} s = {b.ray_count / b.elapsed_s / 1e6:.2f} "
+              f"Mrays/s; images equal bit for bit, image mean "
+              f"{float(img.mean()):.5f} [{card}]")
+    tpf.PATH_FUSED_ONEKERNEL = True
+    try:
+        phase_golden(torch, np, dev, "the one-kernel wave")
+    finally:
+        tpf.PATH_FUSED_ONEKERNEL = False
+    return result, launches
+
+
+def phase_strat_frames(torch, np, dev, card):
+    """StratifiedSampler(2, 2) on the 1080p Cornell film (4 spp) through
+    the wave and through path_li (PATH_FUSED_MODE "off"), at depth 2
+    (rtol 2e-6, equal ray counts) and DEPTH (the chaos-aware bounds)."""
+    from yuki_tpu_torch.film import FilmSettings
+    from yuki_tpu_torch.integrators import PathParams
+    from yuki_tpu_torch.ops import path_fused as tpf
+    from yuki_tpu_torch.renderer import render_frame
+    from yuki_tpu_torch.sampling import StratifiedSampler
+    from yuki_tpu_torch.scene.cornell import cornell
+
+    scene, cam, _ = cornell(device=dev)
+    fs = FilmSettings(res=RES, tile_dim=16)
+    sam = StratifiedSampler(2, 2)
+
+    def frame(depth):
+        return render_frame(scene, cam, fs, sam, PathParams(max_depth=depth),
+                            wave_tiles=WAVE_TILES, samples_per_launch=4,
+                            seed=1)
+
+    for depth in (2, DEPTH):
+        wave = frame(depth)
+        tpf.PATH_FUSED_MODE = "off"
+        try:
+            li = frame(depth)
+        finally:
+            tpf.PATH_FUSED_MODE = "auto"
+        got, ref = li.film.image(), wave.film.image()
+        check(np.isfinite(got).all() and float(got.mean()) > 0.0,
+              f"stratified path_li d{depth}: non-finite or black image")
+        if depth <= 2:
+            check(li.ray_count == wave.ray_count,
+                  f"stratified d{depth}: rays {li.ray_count} vs the wave's "
+                  f"{wave.ray_count}")
+            err = float(np.abs(got - ref).max())
+            check(np.allclose(got, ref, rtol=2e-6, atol=1e-7),
+                  f"stratified d{depth}: path_li outside rtol 2e-6 of the "
+                  f"wave (max abs {err:.3g})")
+            how = f"max abs diff {err:.3g} (rtol 2e-6 held)"
+        else:
+            check(abs(li.ray_count - wave.ray_count)
+                  <= max(16, 0.01 * wave.ray_count),
+                  f"stratified d{depth}: rays {li.ray_count} vs "
+                  f"{wave.ray_count}")
+            n_bad, limit, mean_rel = deep_parity(np, ref, got, spp=4)
+            how = (f"divergent px {n_bad} (limit {limit}), mean rel diff "
+                   f"{mean_rel:.3g}")
+        print(f"stratified cornell {RES[0]}x{RES[1]} d{depth} 4spp ({sampler_name(sam)}): "
+              f"the wave {wave.ray_count} rays in {wave.elapsed_s:.4f} s, "
+              f"path_li {li.ray_count} rays in {li.elapsed_s:.4f} s; "
+              f"against the wave: {how} [{card}]")
+
+
 def phase_colonnade_build(torch, np, dev):
     """The colonnade's host build, with SceneBuilder.build's stage times."""
     from yuki_tpu_torch.scene.testscenes import colonnade
@@ -770,6 +1069,35 @@ def phase_colonnade_kernels(torch, np, dev, scene, cam):
           f"{b_ms:.4f} ms ({b_by}), max_abs_err {err:.3g}")
     result["shade"] = dict(max_abs_err=err, ms=ms_k, plain_ms=ms_p,
                            bound_ms=b_ms, bound_by=b_by)
+
+    # The shade kernel's stratified variant: StratifiedSampler(2, 2)'s
+    # 2L+3 values of bounce 0 as planes, computed by the sampler.
+    from yuki_tpu_torch.ops.path_fused import bounce_draws
+    from yuki_tpu_torch.sampling import StratifiedSampler
+
+    spl = torch.stack(bounce_draws(StratifiedSampler(2, 2), ctx, dim0,
+                                   n_lights)).contiguous()
+    out_k = tsf.shade_planes(tables, rh, prim, ph, None, dim0, 0, spl)
+    out_p = tsf.shade_planes_plain(tables, rh, prim, ph, None, dim0, 0, spl)
+    torch.cuda.synchronize()
+    for p in flags:
+        check(torch.equal(out_k[p], out_p[p]),
+              f"strat shade: flag plane {p} differs")
+    check(torch.allclose(out_k, out_p, rtol=2e-6, atol=1e-7),
+          "strat shade: planes outside rtol 2e-6 / atol 1e-7 (max "
+          f"{float((out_k - out_p).abs().max()):.3g})")
+    err = float((out_k - out_p).abs().max())
+    ms_k = cuda_ms(torch, lambda: tsf.shade_planes(tables, rh, prim, ph, None,
+                                                   dim0, 0, spl), 10)
+    ms_p = cuda_ms(torch, lambda: tsf.shade_planes_plain(
+        tables, rh, prim, ph, None, dim0, 0, spl), 3)
+    b_ms, b_by = bound(
+        n * 4 * (15 + 2 + spl.shape[0] + 14 + 11 * n_lights)
+        + hit_rows * tables.trs.shape[1] * 4
+        + nbytes(tables.mat, tables.lt, tables.sp), 0)
+    print(f"shade strat [{n} rays, StratifiedSampler(2, 2)'s {spl.shape[0]} "
+          f"planes]: kernel {ms_k:.4f} ms, plain {ms_p:.4f} ms, bound "
+          f"{b_ms:.4f} ms ({b_by}), max_abs_err {err:.3g}")
 
     # treelet_any on the bounce-0 shadow rays (light-major, 2N), plain on
     # the first blocks of each light's rays.
@@ -1160,29 +1488,179 @@ def phase_rows_kernels(torch, scene, wave0, card):
     return result
 
 
-def phase_colonnade_golden(torch, np, scene, cam):
+def _walker_flags(on):
+    from yuki_tpu_torch import traverse
+
+    traverse.WALKER_CLOSEST = traverse.WALKER_ANY = on
+
+
+def phase_walker(torch, scene, rays, wave0, card):
+    """The bundle walks against their plain versions on the wave's
+    bounce-1 rays (closest) and its bounce-0 shadow rays (occlusion),
+    with the lists the walker makes from the crossing words (C_WALK) and
+    its budget verdict at the dispatch's tiers; bounds from the plain
+    walks' tallies (24 operations a box recheck, 40 a scaled test, 39 for
+    occlusion; bytes: rays in, results out, the lists, the rows of every
+    chunk the lists name once).  Then the dispatch with both walker flags
+    against the dispatch without them on the bounce-1 rays and their
+    shadow rays, under phase 8's rules, and each walker query's time per
+    call and device breakdown."""
+    from yuki_tpu_torch import traverse
+    from yuki_tpu_torch.ops import trace_stream as ts
+    from yuki_tpu_torch.ops import trace_walker as tw
+
+    o2, d2, t2, no2, nd2, nt2, sk2 = rays
+    _, _, _, no, nd, nt, sk = wave0
+    data, ch = scene.data, scene.data.chunks
+    k = ch.leaf_size
+    result = {}
+    for name, (ro, rd, rt, rs, what, mults) in (
+            ("walker_closest", (o2, d2, t2, None, "bounce-1 rays",
+                                traverse.WALKER_MULT)),
+            ("walker_any", (no, nd, nt, sk.to(torch.float32),
+                            "bounce-0 shadow rays",
+                            traverse.WALKER_MULT_ANY))):
+        m = ro.shape[0]
+        lists, ov = tw.walker_lists(ts.cross_words(ch, ro, rd, rt), tw.C_WALK)
+        ok = bool(tw.budget_ok(lists, *mults))
+        if name == "walker_closest":
+            def kern():
+                return tw.walker_closest_walk(ch, lists, ro, rd, rt)
+
+            def plain(stats=None):
+                return tw.walker_closest_plain(ch, lists, ro, rd, rt, stats)
+        else:
+            def kern():
+                return tw.walker_any_walk(ch, lists, ro, rd, rt, rs)
+
+            def plain(stats=None):
+                return tw.walker_any_plain(ch, lists, ro, rd, rt, rs, stats)
+        got = kern()
+        stats = {}
+        ref = plain(stats)
+        torch.cuda.synchronize()
+        if name == "walker_closest":
+            for g, r, f in zip(got, ref, ("t", "prim")):
+                check(torch.equal(g, r), f"{name} on the {what}: {f} differs "
+                      "from the plain version")
+            found = f"{int((got[1] >= 0).sum())} hits"
+            out_b, ops = 8, OPS_SCALED
+        else:
+            check(torch.equal(got, ref), f"{name} on the {what}: occlusion "
+                  "differs from the plain version")
+            found = f"{int(got.sum())} occluded"
+            out_b, ops = 4, OPS_SCALED - 1
+        ms_k = cuda_ms(torch, kern, 10)
+        ms_p = cuda_ms(torch, plain, 1)
+        chunks = int(torch.unique(lists[lists >= 0]).numel())
+        pairs = int((lists >= 0).sum())
+        b_ms, b_by = bound(m * (28 + (4 if rs is not None else 0) + out_b)
+                           + lists.numel() * 4 + chunks * k * 48,
+                           stats["boxes"] * OPS_SLAB + stats["tests"] * ops)
+        print(f"{name} [{m} {what}, {lists.shape[0]} bundles, {pairs} "
+              f"(bundle, chunk) pairs, {int(ov.sum())} overflow rays, budget "
+              f"at tiers {mults}: ok {ok}, {chunks} chunks listed, {found}]: "
+              f"kernel {ms_k:.4f} ms, plain {ms_p:.4f} ms, bound {b_ms:.4f} ms "
+              f"({b_by}; {stats['boxes']} rechecks, {stats['tests']} triangle "
+              f"tests): equal bit for bit [{card}]")
+        result[name] = dict(max_abs_err=0.0, ms=ms_k, plain_ms=ms_p,
+                            bound_ms=b_ms, bound_by=b_by)
+
+    # The dispatch with the walker against the dispatch without it.
+    out = {}
+    for on in (False, True):
+        _walker_flags(on)
+        try:
+            traverse.reset_counts()
+            hit = traverse._closest_dispatch(data, scene.meta, o2, d2, t2)
+            occ = traverse._any_dispatch(data, scene.meta, no2, nd2, nt2, sk2)
+            torch.cuda.synchronize()
+            out[on] = (hit, occ, traverse.counts())
+        finally:
+            _walker_flags(False)
+    (t_s, p_s, b0_s, b1_s), occ_s, c_s = out[False]
+    (t_w, p_w, b0_w, b1_w), occ_w, c_w = out[True]
+    check(c_w["closest_walker"] == 1 and c_w["any_walker"] == 1
+          and not c_w["fallbacks"],
+          f"walker dispatch: the bounce-1 waves did not take the walker: {c_w}")
+    ulp = (t_s.view(torch.int32) - t_w.view(torch.int32)).abs()
+    same = p_s == p_w
+    ties = ~same & (ulp <= 1)
+    n_diff, n_ties = int((~same).sum()), int(ties.sum())
+    check(n_diff == n_ties, f"walker dispatch vs slot stream: "
+          f"{n_diff - n_ties} prim differences that are not ties")
+    max_ulp = int(ulp[same].max())
+    check(max_ulp <= 1, f"walker dispatch vs slot stream: t {max_ulp} ulps "
+          "apart")
+    check(torch.equal(b0_s[same], b0_w[same])
+          and torch.equal(b1_s[same], b1_w[same]),
+          "walker dispatch vs slot stream: b0/b1 differ where prim is equal")
+    n_occ = int((occ_s != occ_w).sum())
+    check(n_occ == 0, f"walker dispatch vs slot stream: {n_occ} occlusion "
+          "verdicts differ")
+    print(f"dispatch with the walker vs the slot stream [{o2.shape[0]} "
+          f"bounce-1 rays, {int((p_w >= 0).sum())} hits; {no2.shape[0]} "
+          f"shadow rays, {int(occ_w.sum())} occluded]: prim differs at "
+          f"{n_ties} ties (t within 1 ulp), largest t gap {max_ulp} ulp where "
+          f"prim is equal ({int((same & (ulp == 1)).sum())} rays at 1 ulp), "
+          f"b0/b1 equal there, occlusion equal; walker {c_w['overflow_rays']} "
+          f"overflow rays, {c_w['wide_reruns']} wide re-runs; slot stream "
+          f"{c_s['overflow_rays']} overflow rays, {c_s['wide_reruns']} wide "
+          f"re-runs [{card}]")
+    _walker_flags(True)
+    try:
+        profile_queries(torch, card, (
+            ("closest with the walker, bounce-1 rays",
+             lambda: traverse._closest_dispatch(data, scene.meta, o2, d2,
+                                                t2)),
+            ("occlusion with the walker, shadow rays",
+             lambda: traverse._any_dispatch(data, scene.meta, no2, nd2, nt2,
+                                            sk2))))
+    finally:
+        _walker_flags(False)
+    return result
+
+
+def phase_colonnade_golden(torch, np, scene, cam, walker=False):
+    """The colonnade golden, with the dispatch's divergent branch on the
+    slot stream or (``walker``) on the bundle walker; returns the
+    divergent pixel count."""
+    from yuki_tpu_torch import traverse
     from yuki_tpu_torch.film import FilmSettings
     from yuki_tpu_torch.integrators import PathParams
     from yuki_tpu_torch.renderer import render_frame
     from yuki_tpu_torch.sampling import UniformSampler
 
-    res = render_frame(scene, cam, FilmSettings(res=(64, 48), tile_dim=16),
-                       UniformSampler(1), PathParams(3), wave_tiles=12,
-                       seed=1)
+    _walker_flags(walker)
+    try:
+        traverse.reset_counts()
+        res = render_frame(scene, cam,
+                           FilmSettings(res=(64, 48), tile_dim=16),
+                           UniformSampler(1), PathParams(3), wave_tiles=12,
+                           seed=1)
+        c = traverse.counts()
+    finally:
+        _walker_flags(False)
+    check(c["closest_walker"] + c["any_walker"] > 0 if walker else
+          c["closest_walker"] + c["any_walker"] == 0,
+          f"colonnade golden (walker {walker}): dispatch {c}")
     img = res.film.image()
     gold = np.load(COL_GOLDEN)["img"]
     check(img.shape == gold.shape, f"colonnade golden: shape {img.shape}")
     check(np.isfinite(img).all(), "colonnade golden: non-finite pixels")
     n_bad, limit, mean_rel = deep_parity(np, gold, img)
     rmse = float(np.sqrt(np.mean((img - gold) ** 2)))
-    print(f"golden colonnade 64x48 d3 1spp seed 1: divergent px {n_bad} "
-          f"(limit {limit}), mean rel diff {mean_rel:.3g}, rmse {rmse:.4g}")
+    engine = "the bundle walker" if walker else "the slot stream"
+    print(f"golden colonnade 64x48 d3 1spp seed 1 (divergent waves on "
+          f"{engine}): divergent px {n_bad} (limit {limit}), mean rel diff "
+          f"{mean_rel:.3g}, rmse {rmse:.4g}; dispatch {c}")
+    return n_bad
 
 
 KERNEL_FAMILIES = ("cull", "cross_words", "slot_closest", "slot_any",
                    "rows_closest", "rows_any", "treelet_closest",
                    "treelet_any", "shade", "resolve", "dense_closest",
-                   "dense_any")
+                   "dense_any", "walker_closest", "walker_any")
 GLUE_FAMILIES = (("glue: sort", ("sort",)),
                  ("glue: scatter/gather/index", ("scatter", "gather",
                                                  "index")),
@@ -1217,7 +1695,12 @@ def device_breakdown(torch, prof):
     return groups, sorted(glue, reverse=True)[:8]
 
 
-def phase_colonnade_main_path(torch, np, scene, cam, card):
+def phase_colonnade_main_path(torch, np, scene, cam, card, walker=False):
+    """The treelet main path: one colonnade frame with its launches and
+    the dispatch's branch counts, then the same frame under
+    torch.profiler.  With ``walker`` the dispatch's divergent branch takes
+    the bundle walker (WALKER_CLOSEST / WALKER_ANY), and that frame is the
+    walker kernels' main path."""
     from yuki_tpu_torch import traverse
     from yuki_tpu_torch.film import FilmSettings
     from yuki_tpu_torch.integrators import PathParams
@@ -1226,75 +1709,119 @@ def phase_colonnade_main_path(torch, np, scene, cam, card):
     from yuki_tpu_torch.ops import trace_rows as trw
     from yuki_tpu_torch.ops import trace_stream as ts
     from yuki_tpu_torch.ops import trace_treelets as ttt
+    from yuki_tpu_torch.ops import trace_walker as tw
     from yuki_tpu_torch.renderer import render_frame
     from yuki_tpu_torch.sampling import UniformSampler
 
     fs = FilmSettings(res=RES, tile_dim=16)
+    engine = "walker" if walker else "slot stream"
 
     def frame():
         return render_frame(scene, cam, fs, UniformSampler(1),
                             PathParams(max_depth=DEPTH),
                             wave_tiles=COL_WAVE_TILES, seed=1)
 
-    torch.cuda.synchronize()
-    reset_all_launches()
-    res = frame()
-    torch.cuda.synchronize()
-    counts = all_launches()
-    branches = traverse.counts()
-    launches = {k: counts[k] for k in (*ttt.LAUNCHES, *tsf.LAUNCHES,
-                                       *tcu.LAUNCHES, *ts.LAUNCHES,
-                                       *trw.LAUNCHES)}
-    walks = sum(counts[k] for k in ttt.LAUNCHES)
-    check(walks == branches["fallbacks"], f"colonnade main path: {walks} "
-          f"treelet walks for {branches['fallbacks']} fallbacks")
-    for name, count in counts.items():
-        if name in ttt.LAUNCHES:
-            continue
-        if name in launches:
-            check(count > 0, f"colonnade main path: {name} never launched")
-        else:
-            check(count == 0, f"colonnade main path: dense kernel {name} "
-                  "launched")
-    img = res.film.image()
-    check(img.shape == (RES[1], RES[0], 3),
-          f"colonnade main path: shape {img.shape}")
-    check(np.isfinite(img).all(), "colonnade main path: non-finite pixels")
-    check(float(img.mean()) > 0.0, "colonnade main path: black image")
-    mrays = res.ray_count / res.elapsed_s / 1e6
-    print(f"main path colonnade {RES[0]}x{RES[1]} d{DEPTH} 1spp "
-          f"{COL_WAVE_TILES}-tile waves: {res.ray_count} closest-hit rays in "
-          f"{res.elapsed_s:.3f} s = {mrays:.2f} Mrays/s, "
-          f"{1.0 / res.elapsed_s:.3f} spp/s, {res.elapsed_s:.3f} s/frame, "
-          f"launches {launches}, dispatch {branches}, image mean "
-          f"{float(img.mean()):.5f} [{card}]")
-
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.monotonic()
-        frame()
+    _walker_flags(walker)
+    try:
         torch.cuda.synchronize()
-        wall = time.monotonic() - t0
+        reset_all_launches()
+        res = frame()
+        torch.cuda.synchronize()
+        counts = all_launches()
+        branches = traverse.counts()
+        # The slot walks and the crossing words also serve the wide
+        # re-run, which the walker's overflow rays take.
+        used = ((*tw.LAUNCHES, *tsf.LAUNCHES, *trw.LAUNCHES) if walker else
+                (*tsf.LAUNCHES, *tcu.LAUNCHES, *ts.LAUNCHES, *trw.LAUNCHES))
+        optional = (*ttt.LAUNCHES, *ts.LAUNCHES) if walker else ttt.LAUNCHES
+        launches = {k: counts[k] for k in (*ttt.LAUNCHES, *used)}
+        walks = sum(counts[k] for k in ttt.LAUNCHES)
+        check(walks == branches["fallbacks"], f"colonnade main path "
+              f"({engine}): {walks} treelet walks for "
+              f"{branches['fallbacks']} fallbacks")
+        for name, count in counts.items():
+            if name in optional:
+                continue
+            if name in used:
+                check(count > 0, f"colonnade main path ({engine}): {name} "
+                      "never launched")
+            else:
+                check(count == 0, f"colonnade main path ({engine}): {name} "
+                      "launched")
+        img = res.film.image()
+        check(img.shape == (RES[1], RES[0], 3),
+              f"colonnade main path: shape {img.shape}")
+        check(np.isfinite(img).all(), "colonnade main path: non-finite pixels")
+        check(float(img.mean()) > 0.0, "colonnade main path: black image")
+        mrays = res.ray_count / res.elapsed_s / 1e6
+        print(f"main path colonnade {RES[0]}x{RES[1]} d{DEPTH} 1spp "
+              f"{COL_WAVE_TILES}-tile waves, divergent waves on the {engine}:"
+              f" {res.ray_count} closest-hit rays in {res.elapsed_s:.3f} s = "
+              f"{mrays:.2f} Mrays/s, {1.0 / res.elapsed_s:.3f} spp/s, "
+              f"{res.elapsed_s:.3f} s/frame, launches {launches}, dispatch "
+              f"{branches}, image mean {float(img.mean()):.5f} [{card}]")
+
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.monotonic()
+            frame()
+            torch.cuda.synchronize()
+            wall = time.monotonic() - t0
+    finally:
+        _walker_flags(False)
     groups, top_ops = device_breakdown(torch, prof)
     busy = sum(v[0] for v in groups.values())
     if busy > 0.0:
         parts = ", ".join(
             f"{k} {ms:.3f} ms / {cnt} kernels = {ms / max(cnt, 1):.3f} ms each"
-            for k, (ms, cnt) in groups.items())
-        print(f"colonnade frame under torch.profiler: wall {wall * 1e3:.3f} "
-              f"ms, device busy {busy:.3f} ms ({100 * busy / wall / 1e3:.1f}%"
-              f"; idle share {100 * (1 - busy / wall / 1e3):.1f}% of this "
-              f"frame, {100 * (1 - busy / res.elapsed_s / 1e3):.1f}% of the "
+            for k, (ms, cnt) in groups.items() if cnt)
+        print(f"colonnade frame ({engine}) under torch.profiler: wall "
+              f"{wall * 1e3:.3f} ms, device busy {busy:.3f} ms "
+              f"({100 * busy / wall / 1e3:.1f}%; idle share "
+              f"{100 * (1 - busy / wall / 1e3):.1f}% of this frame, "
+              f"{100 * (1 - busy / res.elapsed_s / 1e3):.1f}% of the "
               f"unprofiled frame's {res.elapsed_s * 1e3:.3f} ms): {parts} "
               f"[{card}]")
-        print("torch operators by device time: " + "; ".join(
+        print(f"torch operators by device time ({engine}): " + "; ".join(
             f"{name} {ms:.3f} ms / {cnt} calls" for ms, cnt, name in top_ops))
     else:
         print("colonnade frame under torch.profiler: no device time recorded "
               "(device breakdown not measured)")
-    return launches
+    return {k: launches[k] for k in (tw.LAUNCHES if walker else launches)}
+
+
+def phase_colonnade_strat(torch, np, scene, cam, card):
+    """One 1080p colonnade frame at depth DEPTH with StratifiedSampler(2,
+    2) (4 spp) through path_li, timed: the shade kernel reads each
+    bounce's values as planes."""
+    from yuki_tpu_torch import traverse
+    from yuki_tpu_torch.film import FilmSettings
+    from yuki_tpu_torch.integrators import PathParams
+    from yuki_tpu_torch.ops import shade_fused as tsf
+    from yuki_tpu_torch.renderer import render_frame
+    from yuki_tpu_torch.sampling import StratifiedSampler
+
+    torch.cuda.synchronize()
+    reset_all_launches()
+    res = render_frame(scene, cam, FilmSettings(res=RES, tile_dim=16),
+                       StratifiedSampler(2, 2), PathParams(max_depth=DEPTH),
+                       wave_tiles=COL_WAVE_TILES, seed=1)
+    torch.cuda.synchronize()
+    counts = all_launches()
+    check(counts["shade"] > 0 and counts["resolve"] > 0,
+          "stratified colonnade frame: shade/resolve never launched")
+    img = res.film.image()
+    check(np.isfinite(img).all() and float(img.mean()) > 0.0,
+          "stratified colonnade frame: non-finite or black image")
+    print(f"colonnade {RES[0]}x{RES[1]} d{DEPTH} 4spp StratifiedSampler(2, 2)"
+          f" {COL_WAVE_TILES}-tile waves through path_li: {res.ray_count} "
+          f"closest-hit rays in {res.elapsed_s:.3f} s = "
+          f"{res.ray_count / res.elapsed_s / 1e6:.2f} Mrays/s, "
+          f"{res.elapsed_s / 4:.3f} s per sample, launches "
+          f"{ {k: counts[k] for k in tsf.LAUNCHES} }, dispatch "
+          f"{traverse.counts()}, image mean {float(img.mean()):.5f} [{card}]")
 
 
 def main():
@@ -1325,18 +1852,26 @@ def main():
         launches = phase_main_path(torch, np, dev, card)
         kernels.update(phase_dense_kernels(torch, np, dev, card))
         launches.update(phase_dense_path_li(torch, np, dev, card))
+        phase_strat_kernels(torch, np, dev, card)
+        wave_kernels, wave_launches = phase_wave1k(torch, np, dev, card)
+        kernels.update(wave_kernels)
+        launches.update(wave_launches)
+        phase_strat_frames(torch, np, dev, card)
         scene, cam = phase_colonnade_build(torch, np, dev)
         col_kernels, rays, wave0 = phase_colonnade_kernels(torch, np, dev,
                                                            scene, cam)
         kernels.update(col_kernels)
         kernels.update(phase_stream_kernels(torch, np, scene, rays, card))
         phase_dispatch_vs_walk(torch, scene, rays, card)
-        del rays
         kernels.update(phase_rows_kernels(torch, scene, wave0, card))
-        del wave0
-        phase_colonnade_golden(torch, np, scene, cam)
-        launches.update(phase_colonnade_main_path(torch, np, scene, cam,
-                                                  card))
+        kernels.update(phase_walker(torch, scene, rays, wave0, card))
+        del rays, wave0
+        for walker in (False, True):
+            phase_colonnade_golden(torch, np, scene, cam, walker)
+        for walker in (False, True):
+            launches.update(phase_colonnade_main_path(torch, np, scene, cam,
+                                                      card, walker))
+        phase_colonnade_strat(torch, np, scene, cam, card)
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1

@@ -140,7 +140,7 @@ def test_wave_kernel_matches_plain(cuda, name, clamp):
     tb, px, py = _setup(name, cuda, clamp)
     tpf.reset_launches()
     li_k, rc_k = tpf.path_li_wave(tb, px, py, 0, 3)
-    assert tpf.LAUNCHES == {"raygen_trace": 1, "bounce": DEPTH}
+    assert tpf.LAUNCHES == {"raygen_trace": 1, "bounce": DEPTH, "wave": 0}
     st, ph = tpf.raygen_trace_plain(px, py, 0, 3, tb)
     for b in range(DEPTH):
         st = tpf.bounce_plain(st, ph, b, tb)

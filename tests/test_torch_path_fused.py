@@ -310,16 +310,19 @@ def test_render_frame_wave_split_and_spl_bitwise():
 
 
 def test_gate_rejects_loudly():
-    from yuki_tpu import sampling as jsampling
     from yuki_tpu_torch import transforms as tf
+    from yuki_tpu_torch.sampling import StratifiedSampler
     from yuki_tpu_torch.scene.data import SceneBuilder
 
     scene, cam = tp.port_scene("cornell")
     camera = Camera.create(cam, *tp.RES)
     assert tpf.wave_supported(scene.meta, UniformSampler(1))
-    with pytest.raises(NotImplementedError, match="Stratified"):
-        make_wave_renderer(scene, camera, jsampling.StratifiedSampler(2, 2),
-                           PathParams(5), tp.TD, tp.TILES)
+    # The stratified sampler is accepted: the wave reads its planes.
+    assert tpf.wave_supported(scene.meta, StratifiedSampler(2, 2))
+    px, rays = make_wave_renderer(scene, camera, StratifiedSampler(2, 2),
+                                  PathParams(2), tp.TD, tp.TILES)(
+        tp.ORIGINS[:1], 0, 0)
+    assert px.shape == (1, tp.TD, tp.TD, 3) and torch.isfinite(px).all()
     with pytest.raises(NotImplementedError, match="PathParams"):
         make_wave_renderer(scene, camera, UniformSampler(1), "whitted",
                            tp.TD, tp.TILES)
@@ -357,7 +360,7 @@ def test_cpu_path_counts_no_launches():
     tpf.reset_launches()
     px, py = _pixels(2)
     tpf.path_li_wave(tb, torch.as_tensor(px), torch.as_tensor(py), 0, 0)
-    assert tpf.LAUNCHES == {"raygen_trace": 0, "bounce": 0}
+    assert tpf.LAUNCHES == {"raygen_trace": 0, "bounce": 0, "wave": 0}
 
 
 def test_import_hygiene():

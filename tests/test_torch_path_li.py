@@ -33,6 +33,18 @@ def test_path_li_matches_jax_reduced_colonnade(depth):
     tp.assert_parity(ref, rays_ref, got, rays_got, depth)
 
 
+@pytest.mark.parametrize("depth", [1, 3])
+def test_path_li_stratified_matches_jax_reduced_colonnade(depth):
+    """StratifiedSampler(2, 2) through path_li: each bounce's 2L+3 values
+    computed by the sampler and read by the shade kernel as planes, as
+    yuki_tpu's shade_fused hoists them."""
+    ref, rays_ref, got, rays_got = tp.render_path_li_both("reduced", depth,
+                                                          strat=(2, 2))
+    assert np.isfinite(got).all() and got.mean() > 0
+    assert rays_got == rays_ref
+    tp.assert_parity(ref, rays_ref, got, rays_got, depth)
+
+
 def test_cpu_path_counts_no_launches():
     scene, cam = tp.port_scene("reduced")
     for m in (tpf, tsf, ttt):
@@ -41,7 +53,7 @@ def test_cpu_path_counts_no_launches():
                                 UniformSampler(1), PathParams(2), tp.TD, 2)
     px, rays = render(tp.ORIGINS[:2], 0, 1)
     assert px.shape == (2, tp.TD, tp.TD, 3) and float(rays) > 0
-    assert tpf.LAUNCHES == {"raygen_trace": 0, "bounce": 0}
+    assert tpf.LAUNCHES == {"raygen_trace": 0, "bounce": 0, "wave": 0}
     assert tsf.LAUNCHES == {"shade": 0, "resolve": 0}
     assert ttt.LAUNCHES == {"treelet_closest": 0, "treelet_any": 0}
 
@@ -62,7 +74,7 @@ def _soup_scene(n_tris, sphere_tex=False):
 
 
 def test_gates_raise():
-    from yuki_tpu.sampling import StratifiedSampler
+    from yuki_tpu_torch.sampling import StratifiedSampler
 
     camera = Camera.create(tp.port_scene("reduced")[1], *tp.RES)
 
@@ -81,6 +93,9 @@ def test_gates_raise():
     assert textured_sphere.meta.traversal == "treelet"
     with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
         mwr(textured_sphere)
+    # The stratified sampler is accepted: path_li hands the shade kernel
+    # its values as planes.
     reduced, _ = tp.port_scene("reduced")
-    with pytest.raises(NotImplementedError, match="Stratified"):
-        mwr(reduced, StratifiedSampler(2, 2))
+    px, rays = mwr(reduced, StratifiedSampler(2, 2))(tp.ORIGINS[:1], 0, 1)
+    assert px.shape == (1, tp.TD, tp.TD, 3) and torch.isfinite(px).all()
+    assert float(rays) >= tp.TD * tp.TD

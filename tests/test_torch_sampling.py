@@ -145,3 +145,70 @@ def test_film_tiles_and_image_equal():
         ft.add_tiles(torch.as_tensor(ids), torch.as_tensor(px))
     np.testing.assert_array_equal(ft.samples.numpy(), np.asarray(fj.samples))
     np.testing.assert_array_equal(ft.image(), fj.image())
+
+
+@pytest.mark.parametrize("l", [1, 2, 4, 6, 9, 16, 25])
+def test_permutation_element_bit_exact(l):
+    """Kensler's permutation against yuki_tpu's for power-of-two and other
+    lengths (rejection rounds), keys past 2^31 and i + p wrapping at 2^32.
+    Indices lie in [0, l), as sample indices do: the rejection loop walks
+    the cycle of a bijection of [0, w] and returns below l only from an
+    index below l.  A power-of-two l accepts any index in one round."""
+    rng = np.random.default_rng(l)
+    i = rng.integers(0, l, 2048, dtype=np.int64)
+    if l & (l - 1) == 0:
+        i[::2] = rng.integers(0, 2 ** 32, 1024, dtype=np.int64)
+    p = rng.integers(0, 2 ** 32, 2048, dtype=np.int64)
+    p[:4] = [2 ** 31, 2 ** 32 - 1, 2 ** 32 - 2, 0]
+    assert (p >= 2 ** 31).sum() > 900
+    ref = np.asarray(js.permutation_element(
+        jnp.asarray(i.astype(np.uint32)), l, jnp.asarray(p.astype(np.uint32))))
+    got = ts.permutation_element(torch.as_tensor(i), l,
+                                 torch.as_tensor(p)).numpy()
+    np.testing.assert_array_equal(got, _u32(ref))
+    assert got.min() >= 0 and got.max() < l
+
+
+@pytest.mark.parametrize("jitter", [True, False])
+@pytest.mark.parametrize("xy", [(1, 1), (2, 2), (3, 3), (4, 2)])
+def test_stratified_sampler_bit_exact(xy, jitter):
+    """get_1d and get_2d over dims 0-30 against yuki_tpu's, run op by op
+    (under jit XLA turns the divide by a constant spp into a multiply by
+    its reciprocal, an ulp off the sampler's own IEEE divide; jax's eager
+    ops, like the port, divide), at the last sample of the pixel and a
+    seed past 2^31 with jitter, the first sample otherwise."""
+    import jax
+
+    jsam = js.StratifiedSampler(*xy, jitter=jitter)
+    tsam = ts.StratifiedSampler(*xy, jitter=jitter)
+    assert tsam.samples_per_pixel == xy[0] * xy[1]
+    si, seed = (tsam.samples_per_pixel - 1, 2 ** 31 + 7) if jitter else (0, 1)
+    jctx = js.SampleCtx(px=jnp.asarray(PX.astype(np.uint32)),
+                        py=jnp.asarray(PY.astype(np.uint32)),
+                        sample_index=jnp.uint32(si), seed=jnp.uint32(seed))
+    tctx = ts.SampleCtx(px=torch.as_tensor(PX), py=torch.as_tensor(PY),
+                        sample_index=si, seed=seed)
+    for dim in range(31):
+        with jax.disable_jit():
+            r1 = np.asarray(jsam.get_1d(jctx, dim))
+            r2 = np.asarray(jsam.get_2d(jctx, dim))
+        g1 = tsam.get_1d(tctx, dim).numpy()
+        np.testing.assert_array_equal(g1.view(np.uint32), r1.view(np.uint32))
+        g2 = tsam.get_2d(tctx, dim).numpy()
+        assert g2.shape == r2.shape
+        np.testing.assert_array_equal(g2.view(np.uint32), r2.view(np.uint32))
+
+
+@pytest.mark.parametrize("make", ["uniform", "stratified"])
+def test_force_single_sample(make):
+    if make == "uniform":
+        jsam, tsam = js.UniformSampler(16), ts.UniformSampler(16)
+    else:
+        jsam = js.StratifiedSampler(4, 2, symmetric_dimensions=False,
+                                    jitter=False)
+        tsam = ts.StratifiedSampler(4, 2, symmetric_dimensions=False,
+                                    jitter=False)
+    ref, got = js.force_single_sample(jsam), ts.force_single_sample(tsam)
+    assert type(got).__name__ == type(ref).__name__
+    assert got.samples_per_pixel == ref.samples_per_pixel == 1
+    assert vars(got) == vars(ref)

@@ -160,12 +160,12 @@ def test_resolve_fused_matches_jax(n_lights, clamp, bounce):
 
 
 def test_gate():
-    from yuki_tpu.sampling import StratifiedSampler
-    from yuki_tpu_torch.sampling import UniformSampler
+    from yuki_tpu_torch.sampling import StratifiedSampler, UniformSampler
 
     tscene, _ = tp.port_scene("reduced")
     assert tsf.fused_shade_supported(tscene.meta, UniformSampler(1))
-    assert not tsf.fused_shade_supported(tscene.meta, StratifiedSampler(2, 2))
+    assert tsf.fused_shade_supported(tscene.meta, StratifiedSampler(2, 2))
+    assert not tsf.fused_shade_supported(tscene.meta, "whitted")
     textured_sphere = dataclasses.replace(tscene.meta,
                                           sphere_mats_untextured=False)
     assert not tsf.fused_shade_supported(textured_sphere, UniformSampler(1))

@@ -206,17 +206,19 @@ def soup_scenes(n_tris, seed):
     return tuple(out)
 
 
-def chunk_soup(n_tris, seed, leaf_size):
+def chunk_soup(n_tris, seed, leaf_size, light=None):
     """A soup's flat chunk cut (supers == chunks, as the scene builder cuts
     chunks) built by either package: (JAX scene, JAX chunks, port scene,
-    port chunks)."""
+    port chunks).  ``light``: [n_tris] i32 area-light ids for the chunk
+    rows in place of the scene's (all -1)."""
     from yuki_tpu.treelets import build_treelets as jax_build_treelets
     from yuki_tpu_torch.treelets import build_treelets
 
     jsc, tsc = soup_scenes(n_tris, seed)
     tri = np.stack([np.asarray(jsc.data.tris.p0), np.asarray(jsc.data.tris.p1),
                     np.asarray(jsc.data.tris.p2)], axis=1)
-    light = np.asarray(jsc.data.tris.area_light)
+    if light is None:
+        light = np.asarray(jsc.data.tris.area_light)
     jch = jax_build_treelets(jsc.bvh_host, tri, light, leaf_size=leaf_size,
                              super_size=leaf_size)
     tch = build_treelets(tsc.bvh_host, tri, light, leaf_size=leaf_size,
@@ -450,18 +452,22 @@ def _grid_pallas_call(kernel, out_shape=(), *, grid_spec=None, **_):
 @contextlib.contextmanager
 def eager_grid_pallas():
     """Run yuki_tpu's grid kernels (trace_stream._closest_kernel,
-    _any_kernel, trace_rows._rows_closest_kernel, _rows_any_kernel) step by
-    step and op by op, as eager_pallas runs the plane kernels:
-    pl.pallas_call walks the grid in Python, and pl.when,
-    jax.lax.fori_loop, jax.lax.while_loop and jax.lax.map (trace_rows'
-    segments) become Python control flow over concrete values.  Call the
-    stream functions with one slot-budget tier (mult_wide None), so that
-    no lax.cond is staged."""
+    _any_kernel, trace_rows._rows_closest_kernel, _rows_any_kernel,
+    trace_walker._walker_closest_kernel, _walker_any_kernel) step by step
+    and op by op, as eager_pallas runs the plane kernels: pl.pallas_call
+    walks the grid in Python, and pl.when, jax.lax.fori_loop,
+    jax.lax.while_loop, jax.lax.map (the rows' and the walker's segments)
+    and jax.lax.cond (the walker's budget tiers) become Python control
+    flow over concrete values.  The slot-stream tests call the stream
+    functions with one slot-budget tier (mult_wide None)."""
     import jax
     from jax.experimental import pallas as pl
 
     def when(cond):
         return lambda fn: fn() if bool(cond) else None
+
+    def cond(pred, true_fn, false_fn, *operands):
+        return (true_fn if bool(pred) else false_fn)(*operands)
 
     def fori_loop(lo, hi, body, val):
         for i in range(int(lo), int(hi)):
@@ -479,16 +485,16 @@ def eager_grid_pallas():
         return jax.tree_util.tree_map(lambda *v: jnp.stack(v), *outs)
 
     saved = (pl.pallas_call, pl.when, pl.program_id, jax.lax.fori_loop,
-             jax.lax.while_loop, jax.lax.map)
+             jax.lax.while_loop, jax.lax.map, jax.lax.cond)
     pl.pallas_call, pl.when = _grid_pallas_call, when
     pl.program_id = lambda axis: _GRID_AT[axis]
     jax.lax.fori_loop, jax.lax.while_loop = fori_loop, while_loop
-    jax.lax.map = lax_map
+    jax.lax.map, jax.lax.cond = lax_map, cond
     try:
         yield
     finally:
         (pl.pallas_call, pl.when, pl.program_id, jax.lax.fori_loop,
-         jax.lax.while_loop, jax.lax.map) = saved
+         jax.lax.while_loop, jax.lax.map, jax.lax.cond) = saved
 
 
 # --- chaos-aware render bounds (tests/test_path_fused.py:58-81) ----------
@@ -554,31 +560,42 @@ def jax_dense_kernels():
         jtr._backend_tpu, jtrace.dense_trace, jtrace.any_trace = saved
 
 
-def render_path_li_both(name, depth, seed=7):
+def samplers(strat=None, spp=1):
+    """(JAX sampler, port sampler): UniformSampler(spp), or
+    StratifiedSampler(*strat) on both sides."""
+    from yuki_tpu import sampling as js
+    from yuki_tpu_torch import sampling as ts
+
+    if strat is None:
+        return js.UniformSampler(spp), ts.UniformSampler(spp)
+    return js.StratifiedSampler(*strat), ts.StratifiedSampler(*strat)
+
+
+def render_path_li_both(name, depth, seed=7, strat=None):
     """One 12-tile wave of a scene's 64x48 film through JAX's
     make_wave_renderer with the fused shade kernels in Pallas interpret
     mode and the fused wave off (on the CPU JAX traverses a treelet scene
     with intersect_bvh, a dense one with its dense Pallas kernels in
     interpret mode: jax_dense_kernels) and through the port's
     make_wave_renderer on the CPU with the fused wave off (path_li over
-    the plain dispatch or dense sweeps, shade and resolve).  Returns (ref,
+    the plain dispatch or dense sweeps, shade and resolve), with
+    UniformSampler(1) or StratifiedSampler(*strat).  Returns (ref,
     rays_ref, got, rays_got)."""
     from yuki_tpu import integrators as jintg
     from yuki_tpu.camera import Camera as JCamera
     from yuki_tpu.ops import path_fused as jpf
     from yuki_tpu.renderer import make_wave_renderer as jax_mwr
-    from yuki_tpu.sampling import UniformSampler as JUniform
     from yuki_tpu_torch.camera import Camera
     from yuki_tpu_torch.integrators import PathParams
     from yuki_tpu_torch.ops import path_fused as tpf
     from yuki_tpu_torch.renderer import make_wave_renderer
-    from yuki_tpu_torch.sampling import UniformSampler
 
+    jsam, tsam = samplers(strat)
     jscene, jcam = jax_scene(name)
     old = jintg.FUSED_SHADE_MODE, jpf.PATH_FUSED_MODE
     jintg.FUSED_SHADE_MODE, jpf.PATH_FUSED_MODE = "interpret", "off"
     try:
-        render = jax_mwr(jscene, JCamera.create(jcam, *RES), JUniform(1),
+        render = jax_mwr(jscene, JCamera.create(jcam, *RES), jsam,
                          jintg.PathParams(max_depth=depth), TD, TILES)
         with jax_dense_kernels():
             px, rays = render(jnp.asarray(ORIGINS), jnp.int32(0),
@@ -591,8 +608,8 @@ def render_path_li_both(name, depth, seed=7):
     tpf.PATH_FUSED_MODE = "off"
     try:
         render = make_wave_renderer(tscene, Camera.create(tcam, *RES),
-                                    UniformSampler(1),
-                                    PathParams(max_depth=depth), TD, TILES)
+                                    tsam, PathParams(max_depth=depth), TD,
+                                    TILES)
         px, rays = render(ORIGINS, 0, seed)
     finally:
         tpf.PATH_FUSED_MODE = old
@@ -630,11 +647,12 @@ def colonnade_golden_jax():
     return np.asarray(res.li).reshape(h, w, 3)
 
 
-def render_both(depth, spp=1, clamp=None, spl=1, seed=7):
+def render_both(depth, spp=1, clamp=None, spl=1, seed=7, strat=None):
     """One 12-tile wave of the 64x48 Cornell film through JAX's
     make_wave_renderer in Pallas interpret mode (the fused wave's
     kernels, run by the interpreter) and through the port's
-    make_wave_renderer on the CPU (the plain versions).  Returns
+    make_wave_renderer on the CPU (the plain versions), with
+    UniformSampler(spp) or StratifiedSampler(*strat).  Returns
     (ref, rays_ref, got, rays_got) as numpy pixels and float ray counts."""
     import jax.numpy as jnp
 
@@ -642,20 +660,19 @@ def render_both(depth, spp=1, clamp=None, spl=1, seed=7):
     from yuki_tpu.integrators import PathParams as JPathParams
     from yuki_tpu.ops import path_fused as jpf
     from yuki_tpu.renderer import make_wave_renderer as jax_mwr
-    from yuki_tpu.sampling import UniformSampler as JUniform
     from yuki_tpu_torch.camera import Camera
     from yuki_tpu_torch.integrators import PathParams
     from yuki_tpu_torch.renderer import make_wave_renderer
-    from yuki_tpu_torch.sampling import UniformSampler
 
+    jsam, tsam = samplers(strat, spp)
     jscene, jcam = jax_scene("cornell")
     old = jpf.PATH_FUSED_MODE
     jpf.PATH_FUSED_MODE = "interpret"
     try:
         # Anti-vacuity: the comparison must run the JAX fused wave.
-        assert jpf.use_wave_fused(jscene.meta, JUniform(spp))
+        assert jpf.use_wave_fused(jscene.meta, jsam)
         render = jax_mwr(
-            jscene, JCamera.create(jcam, *RES), JUniform(spp),
+            jscene, JCamera.create(jcam, *RES), jsam,
             JPathParams(max_depth=depth, indirect_clamp=clamp), TD, TILES,
             samples_per_launch=spl,
         )
@@ -667,7 +684,7 @@ def render_both(depth, spp=1, clamp=None, spl=1, seed=7):
 
     tscene, tcam = port_scene("cornell")
     render = make_wave_renderer(
-        tscene, Camera.create(tcam, *RES), UniformSampler(spp),
+        tscene, Camera.create(tcam, *RES), tsam,
         PathParams(max_depth=depth, indirect_clamp=clamp), TD, TILES,
         samples_per_launch=spl,
     )

@@ -6,12 +6,13 @@ for the dense scenes it accepts.  ``path_li`` is the path tracer for
 every other scene, dense (the dense trace sweeps) or treelet (the
 adaptive dispatch): its fused-shade branch (:234-314), bounce by bounce a
 closest-hit query, the shade kernel, one light-major occlusion query for
-every light's shadow rays, and the resolve kernel.  yuki_tpu's XLA
-shading chain (:316-377: make_surface, gather_materials, _nee,
-bsdf_sample), which runs where the fused gate fails, is not ported yet:
-``path_li`` raises there (ROADMAP Queue 1 item 5: ``surface.py``,
-``bsdf.py``, ``lights.py``).  Whitted and
-the debug integrators come later (Queue 1 item 10).
+every light's shadow rays, and the resolve kernel.  Both samplers run
+there; a StratifiedSampler's values of each bounce are computed first
+and read by the shade kernel as planes.  yuki_tpu's XLA shading chain
+(:316-377: make_surface, gather_materials, _nee, bsdf_sample), which runs
+where the fused gate fails, is not ported yet: ``path_li`` raises there
+(ROADMAP Queue 1 item 5: ``surface.py``, ``bsdf.py``, ``lights.py``).
+Whitted and the debug integrators come later (Queue 1 item 10).
 """
 
 from __future__ import annotations
@@ -43,10 +44,10 @@ def check_path_li_supported(meta, sampler) -> None:
             meta, sampler):
         raise NotImplementedError(
             "path_li outside the fused-shade gate (a lightless scene, a "
-            "textured sphere, or a sampler other than UniformSampler) runs "
-            "yuki_tpu's XLA shading chain, not ported yet (ROADMAP Queue 1 "
-            "item 5: surface.py, bsdf.py, lights.py; StratifiedSampler: "
-            "item 2)"
+            "textured sphere, or a sampler other than UniformSampler and "
+            "StratifiedSampler) runs yuki_tpu's XLA shading chain, not "
+            "ported yet (ROADMAP Queue 1 item 5: surface.py, bsdf.py, "
+            "lights.py)"
         )
 
 
@@ -72,6 +73,8 @@ def path_li(scene, meta, params: PathParams, sampler, ctx, o, d,
     here when None."""
     from .. import traverse
     from ..ops import shade_fused
+    from ..ops.path_fused import bounce_draws
+    from ..sampling import StratifiedSampler
 
     check_path_li_supported(meta, sampler)
     data = scene.data
@@ -88,8 +91,11 @@ def path_li(scene, meta, params: PathParams, sampler, ctx, o, d,
     alive = torch.ones(n, dtype=torch.bool, device=dev)
     specular_bounce = torch.zeros(n, dtype=torch.bool, device=dev)
     ray_count = torch.zeros(n, dtype=torch.int32, device=dev)
+    strat = isinstance(sampler, StratifiedSampler)
     for bounce in range(params.max_depth):
         dim0 = dim + bounce * dims_per_bounce
+        spl = (torch.stack(bounce_draws(sampler, ctx, dim0, n_lights))
+               if strat else None)
         ray_count = ray_count + alive.to(torch.int32)
         t_max = torch.where(alive, traverse.F32_MAX, 0.0).to(torch.float32)
         hit = traverse.intersect(data, meta, o, d, t_max)
@@ -97,7 +103,8 @@ def path_li(scene, meta, params: PathParams, sampler, ctx, o, d,
         alive = alive & hit.hit
         (o2, d2, beta2, alive2, spec2, no, nd, nt, ns_skip, nw, nc,
          ne) = shade_fused.shade_fused(tables, hit, o, d, beta, alive,
-                                       specular_bounce, ph, dim0, bounce)
+                                       specular_bounce, ph, dim0, bounce,
+                                       spl)
         occ = traverse.any_intersect(data, meta, no, nd, nt, ns_skip)
         radiance = shade_fused.resolve_fused(tables, radiance, beta, alive,
                                              missed, ne, occ, nw, nc, bounce)

@@ -5,17 +5,18 @@ at once in parallel processes, and links the objects into one shared
 library with a plain C interface, loaded through ``ctypes`` (no PyTorch
 headers, so the build takes seconds):
 
-  path_fused.cu      the dense wave: raygen_trace, bounce
+  path_fused.cu      the dense wave: raygen_trace, bounce, the one-kernel wave
   shade_fused.cu     the treelet path's shade and resolve kernels
   trace_treelets.cu  the two-level treelet walks (closest, any)
   trace_stream.cu    the crossing words and the slot walks (closest, any)
   trace_cull.cu      the two-level cull
   trace_rows.cu      the row-union walks of coherent waves (closest, any)
   trace_dense.cu     the dense scenes' trace sweeps (closest, any)
+  trace_walker.cu    the bundle walks of divergent waves (closest, any)
 
 ``path_fused.cuh`` holds the device maths they share, ``trace_stream.cuh``
 the slab and scaled watertight tests and the chunk walk of the stream,
-cull and row kernels.  The library lands
+cull, row and walker kernels.  The library lands
 in ``build/yuki_tpu_torch/`` at the repository root, named by a hash of
 the sources and flags, so an edited source is rebuilt and an unchanged
 one is reused; a file lock keeps concurrent processes from building it
@@ -40,7 +41,8 @@ from ..native import BUILD_DIR, locked_build
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 UNITS = ("path_fused.cu", "shade_fused.cu", "trace_treelets.cu",
-         "trace_stream.cu", "trace_cull.cu", "trace_rows.cu", "trace_dense.cu")
+         "trace_stream.cu", "trace_cull.cu", "trace_rows.cu", "trace_dense.cu",
+         "trace_walker.cu")
 SOURCES = UNITS + ("path_fused.cuh", "trace_stream.cuh")
 
 # -fmad=false: contracting a*b - c*d into an FMA changes the watertight
@@ -78,17 +80,25 @@ def _digest() -> str:
 
 def _declare(lib: ctypes.CDLL) -> None:
     p, i, u, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
-    lib.yk_raygen_trace.argtypes = [i, p, p, i, u, u, p, p, i, p, i, p, p, p]
+    # device, px, py, n, sample_index, seed, ms, tri, n_tris, sp, n_spheres,
+    # spl, st, ph, stream
+    lib.yk_raygen_trace.argtypes = [i, p, p, i, u, u, p, p, i, p, i, p, p, p, p]
     lib.yk_bounce.argtypes = [
         i, p, p, p, i, i, i, i,  # device, st_in, ph, st_out, n, dim0, bounce, max_depth
         p, p, i, p, p, p, i,  # ms, tri, n_tris, trs, mat, lt, n_lights
         p, i, p, i, p, i, i,  # sp, n_spheres, td, n_td, tex, pool_pad, flags
-        p,  # stream
+        p, p,  # spl, stream
+    ]
+    lib.yk_wave.argtypes = [
+        i, p, p, i, u, u, i,  # device, px, py, n, sample_index, seed, max_depth
+        p, p, i, p, p, p, i,  # ms, tri, n_tris, trs, mat, lt, n_lights
+        p, i, p, i, p, i, i,  # sp, n_spheres, td, n_td, tex, pool_pad, flags
+        p, p, p,  # spl, out, stream
     ]
     lib.yk_shade.argtypes = [
         i, p, p, p, p, i, i, i,  # device, rh, prim, ph, texp, n, dim0, bounce
         p, p, p, i, p, i,  # trs, mat, lt, n_lights, sp, n_spheres
-        f, f, f, f, i, p, p,  # centre xyz, diag, flags, out, stream
+        f, f, f, f, i, p, p, p,  # centre xyz, diag, flags, spl, out, stream
     ]
     lib.yk_resolve.argtypes = [i, p, p, i, i, i, i, p, p]
     lib.yk_treelet_closest.argtypes = [
@@ -122,6 +132,10 @@ def _declare(lib: ctypes.CDLL) -> None:
         i, p, i, p, p, p, i,  # device, tris, n_tris, o, d, tmax, n
         p, p, p, p, p,  # t, prim, b0, b1, stream
     ]
+    for name in ("yk_walker_closest", "yk_walker_any"):
+        # device, chunk boxes, rows, leaf_size, lists, C, n_bundles, o, d,
+        # tmax, then t + prim (closest) or skip + occ (any), stream
+        getattr(lib, name).argtypes = [i, p, p, i, p, i, i, p, p, p, p, p, p]
     lib.yk_dense_any.argtypes = [
         i, p, p, i, p, p, p, p, i,  # device, tris, light, n_tris, o, d, tmax, skip, n
         p, p,  # occ, stream
@@ -130,7 +144,8 @@ def _declare(lib: ctypes.CDLL) -> None:
                  "yk_treelet_closest", "yk_treelet_any", "yk_cross_words",
                  "yk_cull", "yk_slot_closest", "yk_slot_any",
                  "yk_rows_closest", "yk_rows_any", "yk_dense_closest",
-                 "yk_dense_any"):
+                 "yk_dense_any", "yk_walker_closest", "yk_walker_any",
+                 "yk_wave"):
         getattr(lib, name).restype = i
     lib.yk_error_string.argtypes = [i]
     lib.yk_error_string.restype = ctypes.c_char_p

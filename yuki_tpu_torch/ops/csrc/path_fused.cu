@@ -1,5 +1,5 @@
 // Dense path-tracing wave kernels for Hopper (sm_90a): the CUDA port of
-// yuki_tpu/ops/path_fused.py's two Pallas kernels.
+// yuki_tpu/ops/path_fused.py's three Pallas kernels.
 //
 //   yk_raygen_trace  replaces _raygen_trace_kernel (path_fused.py:517, body
 //                    _raygen_values :451): pixel hash + jitter, camera ray,
@@ -8,6 +8,16 @@
 //                    _bounce_values :543 + shade_fused._shade_body :360):
 //                    one whole bounce, including the NEE occlusion sweeps and
 //                    the next ray's closest hit.
+//   yk_wave          replaces _wave_kernel (path_fused.py:788): raygen and
+//                    every bounce of one sample in one launch, the path
+//                    state in registers, writing only radiance and the ray
+//                    count.
+//
+// The bodies are two device functions, raygen_lane and bounce_lane, which
+// all three kernels call, so the one-kernel wave gives the two-kernel
+// wave's bits.  Each takes a StratifiedSampler's values as planes computed
+// beforehand (the TPU kernels' `strat` variants) where the caller passes
+// them, else the uniform sampler's hash.
 //
 // Design.  One thread per ray.  The TPU kernels ran 1024-ray blocks of
 // (8,128) planes and replaced every per-lane table read with MXU one-hot
@@ -135,12 +145,9 @@ __device__ __forceinline__ int trunc_i32(float x) {
   return (int)x;
 }
 
-struct BounceArgs {
-  const float* __restrict__ st_in;
-  const int* __restrict__ ph;
-  float* __restrict__ st_out;
-  int n;
-  int dim0, bounce, max_depth;
+// The wave's tables and statics, shared by every bounce (path_fused.py's
+// WaveTables).
+struct Tables {
   const float* __restrict__ ms;
   Scene sc;
   const float* __restrict__ trs;  // [T, 32]
@@ -152,9 +159,10 @@ struct BounceArgs {
   const uint8_t* __restrict__ tex;  // [pool_pad, 3]
   int pool_pad;
   int flags;
+  int max_depth;
 };
 
-__device__ __forceinline__ int tex_index(const BounceArgs& a, float tex0_f, float uv_s, float uv_t) {
+__device__ __forceinline__ int tex_index(const Tables& a, float tex0_f, float uv_s, float uv_t) {
   int row = (tex0_f >= 0.0f && tex0_f < (float)a.n_td) ? (int)tex0_f : 0;
   const float* r = a.td + 4 * row;
   float w_f = __ldg(r + 0), h_f = __ldg(r + 1), off_hi = __ldg(r + 2), off_lo = __ldg(r + 3);
@@ -172,21 +180,69 @@ __device__ __forceinline__ int tex_index(const BounceArgs& a, float tex0_f, floa
   return min(max(idx, 0), a.pool_pad - 1);
 }
 
-// ---- kernels -------------------------------------------------------------
+// One path's state between bounces: the values of the [24, N] _ST planes.
+// Flags stay floats (1 or 0), as in the planes, so that the state in
+// registers and the state through memory are the same bits.
+struct PathState {
+  V3 o, d, beta, rad;
+  float alive, spec, rc;
+  Hit hit;
+};
 
-__global__ void __launch_bounds__(THREADS)
-    raygen_trace_kernel(const int* __restrict__ px_in, const int* __restrict__ py_in, int n, uint32_t sample_index,
-                        uint32_t seed, const float* __restrict__ ms, Scene sc, float* __restrict__ st,
-                        int* __restrict__ ph_out) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  int px = px_in[i], py = py_in[i];
+__device__ __forceinline__ PathState load_state(const float* s, size_t N) {
+  PathState p;
+  p.o = {s[ST_OX * N], s[ST_OY * N], s[ST_OZ * N]};
+  p.d = {s[ST_DX * N], s[ST_DY * N], s[ST_DZ * N]};
+  p.beta = {s[ST_BX * N], s[ST_BY * N], s[ST_BZ * N]};
+  p.rad = {s[ST_RX * N], s[ST_RY * N], s[ST_RZ * N]};
+  p.alive = s[ST_ALIVE * N];
+  p.spec = s[ST_SPEC * N];
+  p.rc = s[ST_RC * N];
+  p.hit = {s[ST_T * N], s[ST_B0 * N], s[ST_B1 * N], s[ST_PRIM * N], s[ST_SPH * N], s[ST_HITF * N]};
+  return p;
+}
+
+__device__ __forceinline__ void store_state(float* s, size_t N, const PathState& p) {
+  s[ST_OX * N] = p.o.x;
+  s[ST_OY * N] = p.o.y;
+  s[ST_OZ * N] = p.o.z;
+  s[ST_DX * N] = p.d.x;
+  s[ST_DY * N] = p.d.y;
+  s[ST_DZ * N] = p.d.z;
+  s[ST_BX * N] = p.beta.x;
+  s[ST_BY * N] = p.beta.y;
+  s[ST_BZ * N] = p.beta.z;
+  s[ST_RX * N] = p.rad.x;
+  s[ST_RY * N] = p.rad.y;
+  s[ST_RZ * N] = p.rad.z;
+  s[ST_ALIVE * N] = p.alive;
+  s[ST_SPEC * N] = p.spec;
+  s[ST_RC * N] = p.rc;
+  s[ST_T * N] = p.hit.t;
+  s[ST_B0 * N] = p.hit.b0;
+  s[ST_B1 * N] = p.hit.b1;
+  s[ST_PRIM * N] = p.hit.prim;
+  s[ST_SPH * N] = p.hit.sph;
+  s[ST_HITF * N] = p.hit.hitf;
+  s[ST_PAD0 * N] = 0.0f;
+  s[ST_PAD1 * N] = 0.0f;
+  s[ST_PAD2 * N] = 0.0f;
+}
+
+// ---- the two bodies: raygen and one bounce --------------------------------
+
+// Pixel hash + jitter, camera ray, closest hit (_raygen_values,
+// path_fused.py:451).  The jitter is the hash's dimensions 0-1, or, where
+// spl is set, the stratified values spl[0] and spl[stride].
+__device__ __forceinline__ PathState raygen_lane(int px, int py, uint32_t sample_index, uint32_t seed,
+                                                 const float* __restrict__ ms, const Scene& sc,
+                                                 const float* __restrict__ spl, size_t stride, uint32_t& ph) {
   uint32_t h = pcg(0x9E3779B9u ^ seed);
   uint32_t key = ((uint32_t)px << 16) | (uint32_t)py;
-  uint32_t ph = pcg(pcg(h ^ key) ^ sample_index);
+  ph = pcg(pcg(h ^ key) ^ sample_index);
 
-  float jx = dim_f32(ph, 0u);
-  float jy = dim_f32(ph, 1u);
+  float jx = spl ? __ldg(spl) : dim_f32(ph, 0u);
+  float jy = spl ? __ldg(spl + stride) : dim_f32(ph, 1u);
   float x = (float)px + jx;
   float y = (float)py + jy;
 
@@ -212,35 +268,16 @@ __global__ void __launch_bounds__(THREADS)
 #undef R2C
 #undef C2W
 
-  Hit hit = trace_scene(sc, o, d, YK_F32_MAX);
-
-  float* s = st + i;
-  const size_t N = (size_t)n;
-  s[ST_OX * N] = o.x;
-  s[ST_OY * N] = o.y;
-  s[ST_OZ * N] = o.z;
-  s[ST_DX * N] = d.x;
-  s[ST_DY * N] = d.y;
-  s[ST_DZ * N] = d.z;
-  s[ST_BX * N] = 1.0f;
-  s[ST_BY * N] = 1.0f;
-  s[ST_BZ * N] = 1.0f;
-  s[ST_RX * N] = 0.0f;
-  s[ST_RY * N] = 0.0f;
-  s[ST_RZ * N] = 0.0f;
-  s[ST_ALIVE * N] = 1.0f;
-  s[ST_SPEC * N] = 0.0f;
-  s[ST_RC * N] = 1.0f;
-  s[ST_T * N] = hit.t;
-  s[ST_B0 * N] = hit.b0;
-  s[ST_B1 * N] = hit.b1;
-  s[ST_PRIM * N] = hit.prim;
-  s[ST_SPH * N] = hit.sph;
-  s[ST_HITF * N] = hit.hitf;
-  s[ST_PAD0 * N] = 0.0f;
-  s[ST_PAD1 * N] = 0.0f;
-  s[ST_PAD2 * N] = 0.0f;
-  ph_out[i] = (int)ph;
+  PathState p;
+  p.o = o;
+  p.d = d;
+  p.beta = {1.0f, 1.0f, 1.0f};
+  p.rad = zero3();
+  p.alive = 1.0f;
+  p.spec = 0.0f;
+  p.rc = 1.0f;
+  p.hit = trace_scene(sc, o, d, YK_F32_MAX);
+  return p;
 }
 
 // The bounce's NEE sink: occlusion sweep per worthwhile light, folded into
@@ -257,29 +294,24 @@ struct BounceNee {
   }
 };
 
-__global__ void __launch_bounds__(THREADS) bounce_kernel(BounceArgs a) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= a.n) return;
-  const size_t N = (size_t)a.n;
-  const float* s = a.st_in + i;
-  const uint32_t ph = (uint32_t)a.ph[i];
+// One bounce (_bounce_values + the next ray's trace, path_fused.py:543-786):
+// shade, NEE occlusion, resolve, next closest hit.
+__device__ __forceinline__ PathState bounce_lane(const Tables& a, const PathState& s, const Draws& urand,
+                                                 int bounce) {
   const bool has_clamp = (a.flags & FLAG_CLAMP) != 0;
   const bool has_tex = (a.flags & FLAG_TEX) != 0;
 
   ShadeIn in;
-  in.o = {s[ST_OX * N], s[ST_OY * N], s[ST_OZ * N]};
-  in.d = {s[ST_DX * N], s[ST_DY * N], s[ST_DZ * N]};
-  in.beta = {s[ST_BX * N], s[ST_BY * N], s[ST_BZ * N]};
-  V3 rad = {s[ST_RX * N], s[ST_RY * N], s[ST_RZ * N]};
-  bool alive_in = s[ST_ALIVE * N] > 0.0f;
-  in.spec = s[ST_SPEC * N];
-  float rc = s[ST_RC * N];
-  in.t_hit = s[ST_T * N];
-  in.b0 = s[ST_B0 * N];
-  in.b1 = s[ST_B1 * N];
-  float prim = s[ST_PRIM * N];
-  float sph = s[ST_SPH * N];
-  bool hitf = s[ST_HITF * N] > 0.0f;
+  in.o = s.o;
+  in.d = s.d;
+  in.beta = s.beta;
+  V3 rad = s.rad;
+  bool alive_in = s.alive > 0.0f;
+  in.spec = s.spec;
+  in.t_hit = s.hit.t;
+  in.b0 = s.hit.b0;
+  in.b1 = s.hit.b1;
+  bool hitf = s.hit.hitf > 0.0f;
 
   bool missed = alive_in && !hitf;
   in.alive = alive_in && hitf;
@@ -296,7 +328,7 @@ __global__ void __launch_bounds__(THREADS) bounce_kernel(BounceArgs a) {
   tb.has_sigma = (a.flags & FLAG_SIGMA) != 0;
 
   // Table rows; the u8 texel replaces kd where the material binds one.
-  Rows r = select_rows(tb, prim, sph);
+  Rows r = select_rows(tb, s.hit.prim, s.hit.sph);
   Material mt = material_row(r.mrow);
   if (has_tex) {
     float tex0 = __ldg(r.mrow + 9);
@@ -312,7 +344,7 @@ __global__ void __launch_bounds__(THREADS) bounce_kernel(BounceArgs a) {
   }
 
   BounceNee nee{a.sc, a.trs, zero3()};
-  ShadeOut so = shade_lane(tb, in, r, mt, ph, (uint32_t)a.dim0, a.bounce, nee);
+  ShadeOut so = shade_lane(tb, in, r, mt, urand, bounce, nee);
   V3 br = nee.br;
   const V3 beta = in.beta;
 
@@ -321,80 +353,87 @@ __global__ void __launch_bounds__(THREADS) bounce_kernel(BounceArgs a) {
     rad = {rad.x + beta.x * __ldg(a.ms + MS_BG), rad.y + beta.y * __ldg(a.ms + MS_BG + 1),
            rad.z + beta.z * __ldg(a.ms + MS_BG + 2)};
   }
-  if (has_clamp && a.bounce > 0) {
+  if (has_clamp && bounce > 0) {
     float cv = __ldg(a.ms + MS_CLAMP);
     br = {jmin(br.x, cv), jmin(br.y, cv), jmin(br.z, cv)};
   }
   if (in.alive) rad = {rad.x + beta.x * br.x, rad.y + beta.y * br.y, rad.z + beta.z * br.z};
 
-  bool not_last = a.bounce < a.max_depth - 1;
-  float rc2 = rc + (so.alive2 ? 1.0f : 0.0f) * (not_last ? 1.0f : 0.0f);
-
+  bool not_last = bounce < a.max_depth - 1;
+  PathState out;
+  out.o = so.o2;
+  out.d = so.d2;
+  out.beta = so.beta2;
+  out.rad = rad;
+  out.alive = so.alive2 ? 1.0f : 0.0f;
+  out.spec = so.spec2 ? 1.0f : 0.0f;
+  out.rc = s.rc + (so.alive2 ? 1.0f : 0.0f) * (not_last ? 1.0f : 0.0f);
   // Next ray's closest hit; a dead lane traces with t_max = 0, which
-  // leaves (t, prim, b0, b1, sph, hitf) = (0, -1, 0, 0, -1, 0).
-  Hit nh = {0.0f, 0.0f, 0.0f, -1.0f, -1.0f, 0.0f};
-  if (not_last && so.alive2) nh = trace_scene(a.sc, so.o2, so.d2, YK_F32_MAX);
+  // leaves (t, b0, b1, prim, sph, hitf) = (0, 0, 0, -1, -1, 0).
+  out.hit = {0.0f, 0.0f, 0.0f, -1.0f, -1.0f, 0.0f};
+  if (not_last && so.alive2) out.hit = trace_scene(a.sc, so.o2, so.d2, YK_F32_MAX);
+  return out;
+}
 
-  float* out = a.st_out + i;
-  out[ST_OX * N] = so.o2.x;
-  out[ST_OY * N] = so.o2.y;
-  out[ST_OZ * N] = so.o2.z;
-  out[ST_DX * N] = so.d2.x;
-  out[ST_DY * N] = so.d2.y;
-  out[ST_DZ * N] = so.d2.z;
-  out[ST_BX * N] = so.beta2.x;
-  out[ST_BY * N] = so.beta2.y;
-  out[ST_BZ * N] = so.beta2.z;
-  out[ST_RX * N] = rad.x;
-  out[ST_RY * N] = rad.y;
-  out[ST_RZ * N] = rad.z;
-  out[ST_ALIVE * N] = so.alive2 ? 1.0f : 0.0f;
-  out[ST_SPEC * N] = so.spec2 ? 1.0f : 0.0f;
-  out[ST_RC * N] = rc2;
-  out[ST_T * N] = nh.t;
-  out[ST_B0 * N] = nh.b0;
-  out[ST_B1 * N] = nh.b1;
-  out[ST_PRIM * N] = nh.prim;
-  out[ST_SPH * N] = nh.sph;
-  out[ST_HITF * N] = nh.hitf;
-  out[ST_PAD0 * N] = 0.0f;
-  out[ST_PAD1 * N] = 0.0f;
-  out[ST_PAD2 * N] = 0.0f;
+// ---- kernels -------------------------------------------------------------
+
+__global__ void __launch_bounds__(THREADS)
+    raygen_trace_kernel(const int* __restrict__ px_in, const int* __restrict__ py_in, int n, uint32_t sample_index,
+                        uint32_t seed, const float* __restrict__ ms, Scene sc, const float* __restrict__ spl,
+                        float* __restrict__ st, int* __restrict__ ph_out) {
+  int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  uint32_t ph;
+  const PathState p = raygen_lane(px_in[i], py_in[i], sample_index, seed, ms, sc, spl ? spl + i : nullptr,
+                                  (size_t)n, ph);
+  store_state(st + i, (size_t)n, p);
+  ph_out[i] = (int)ph;
+}
+
+__global__ void __launch_bounds__(THREADS)
+    bounce_kernel(Tables a, const float* __restrict__ st_in, const int* __restrict__ ph, float* __restrict__ st_out,
+                  int n, int dim0, int bounce, const float* __restrict__ spl) {
+  int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const size_t N = (size_t)n;
+  const Draws urand{(uint32_t)ph[i], (uint32_t)dim0, spl ? spl + i : nullptr, N};
+  store_state(st_out + i, N, bounce_lane(a, load_state(st_in + i, N), urand, bounce));
+}
+
+// The whole path of one sample (_wave_kernel, path_fused.py:788): raygen,
+// then every bounce with the state in registers, writing only radiance rgb
+// and the ray count as [4, N].  Bounce b's values are the hash from
+// dimension 2 + b * (2L+3), or the stratified planes from that row of spl.
+// A lane that is dead after a bounce leaves the loop: every later bounce
+// would leave its radiance and count as they are (in.alive = alive && hit
+// never revives it).
+__global__ void __launch_bounds__(THREADS)
+    wave_kernel(Tables a, const int* __restrict__ px_in, const int* __restrict__ py_in, int n, uint32_t sample_index,
+                uint32_t seed, const float* __restrict__ spl, float* __restrict__ out) {
+  int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const size_t N = (size_t)n;
+  const float* lane_spl = spl ? spl + i : nullptr;
+  uint32_t ph;
+  PathState p = raygen_lane(px_in[i], py_in[i], sample_index, seed, a.ms, a.sc, lane_spl, N, ph);
+  const int dims_per_bounce = 2 * a.n_lights + 3;
+  for (int b = 0; b < a.max_depth && p.alive > 0.0f; ++b) {
+    const int dim0 = 2 + b * dims_per_bounce;
+    const Draws urand{ph, (uint32_t)dim0, lane_spl ? lane_spl + (size_t)dim0 * N : nullptr, N};
+    p = bounce_lane(a, p, urand, b);
+  }
+  out[i] = p.rad.x;
+  out[N + i] = p.rad.y;
+  out[2 * N + i] = p.rad.z;
+  out[3 * N + i] = p.rc;
 }
 
 inline int blocks_for(int n) { return (n + THREADS - 1) / THREADS; }
 
-}  // namespace
-
-// ---- plain C interface, loaded with ctypes ---------------------------------
-// Each entry point makes `device` current, launches on `stream` (PyTorch's
-// current stream) and returns cudaGetLastError() as an int.
-
-extern "C" int yk_raygen_trace(int device, const int* px, const int* py, int n, unsigned int sample_index,
-                               unsigned int seed, const float* ms, const float* tri, int n_tris, const float* sp,
-                               int n_spheres, float* st, int* ph, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  Scene sc = {tri, n_tris, sp, n_spheres};
-  raygen_trace_kernel<<<blocks_for(n), THREADS, 0, (cudaStream_t)stream>>>(px, py, n, sample_index, seed, ms, sc,
-                                                                           st, ph);
-  return (int)cudaGetLastError();
-}
-
-extern "C" int yk_bounce(int device, const float* st_in, const int* ph, float* st_out, int n, int dim0, int bounce,
-                         int max_depth, const float* ms, const float* tri, int n_tris, const float* trs,
-                         const float* mat, const float* lt, int n_lights, const float* sp, int n_spheres,
-                         const float* td, int n_td, const unsigned char* tex, int pool_pad, int flags, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  BounceArgs a;
-  a.st_in = st_in;
-  a.ph = ph;
-  a.st_out = st_out;
-  a.n = n;
-  a.dim0 = dim0;
-  a.bounce = bounce;
-  a.max_depth = max_depth;
+Tables make_tables(const float* ms, const float* tri, int n_tris, const float* trs, const float* mat,
+                   const float* lt, int n_lights, const float* sp, int n_spheres, const float* td, int n_td,
+                   const unsigned char* tex, int pool_pad, int flags, int max_depth) {
+  Tables a;
   a.ms = ms;
   a.sc = {tri, n_tris, sp, n_spheres};
   a.trs = trs;
@@ -406,7 +445,52 @@ extern "C" int yk_bounce(int device, const float* st_in, const int* ph, float* s
   a.tex = tex;
   a.pool_pad = pool_pad;
   a.flags = flags;
-  bounce_kernel<<<blocks_for(n), THREADS, 0, (cudaStream_t)stream>>>(a);
+  a.max_depth = max_depth;
+  return a;
+}
+
+}  // namespace
+
+// ---- plain C interface, loaded with ctypes ---------------------------------
+// Each entry point makes `device` current, launches on `stream` (PyTorch's
+// current stream) and returns cudaGetLastError() as an int.  spl is a
+// StratifiedSampler's planes ([2, n] for raygen, the bounce's [2L+3, n],
+// the wave's [2 + max_depth * (2L+3), n]) or null for the uniform sampler.
+
+extern "C" int yk_raygen_trace(int device, const int* px, const int* py, int n, unsigned int sample_index,
+                               unsigned int seed, const float* ms, const float* tri, int n_tris, const float* sp,
+                               int n_spheres, const float* spl, float* st, int* ph, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  Scene sc = {tri, n_tris, sp, n_spheres};
+  raygen_trace_kernel<<<blocks_for(n), THREADS, 0, (cudaStream_t)stream>>>(px, py, n, sample_index, seed, ms, sc,
+                                                                           spl, st, ph);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int yk_bounce(int device, const float* st_in, const int* ph, float* st_out, int n, int dim0, int bounce,
+                         int max_depth, const float* ms, const float* tri, int n_tris, const float* trs,
+                         const float* mat, const float* lt, int n_lights, const float* sp, int n_spheres,
+                         const float* td, int n_td, const unsigned char* tex, int pool_pad, int flags,
+                         const float* spl, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  const Tables a = make_tables(ms, tri, n_tris, trs, mat, lt, n_lights, sp, n_spheres, td, n_td, tex, pool_pad,
+                               flags, max_depth);
+  bounce_kernel<<<blocks_for(n), THREADS, 0, (cudaStream_t)stream>>>(a, st_in, ph, st_out, n, dim0, bounce, spl);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int yk_wave(int device, const int* px, const int* py, int n, unsigned int sample_index,
+                       unsigned int seed, int max_depth, const float* ms, const float* tri, int n_tris,
+                       const float* trs, const float* mat, const float* lt, int n_lights, const float* sp,
+                       int n_spheres, const float* td, int n_td, const unsigned char* tex, int pool_pad, int flags,
+                       const float* spl, float* out, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  const Tables a = make_tables(ms, tri, n_tris, trs, mat, lt, n_lights, sp, n_spheres, td, n_td, tex, pool_pad,
+                               flags, max_depth);
+  wave_kernel<<<blocks_for(n), THREADS, 0, (cudaStream_t)stream>>>(a, px, py, n, sample_index, seed, spl, out);
   return (int)cudaGetLastError();
 }
 

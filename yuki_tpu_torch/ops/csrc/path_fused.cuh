@@ -410,6 +410,20 @@ struct ShadeOut {
   bool alive2, spec2;
 };
 
+// A lane's sample values of one bounce, k = 0 .. 2L+2 (2 per light, 2 for
+// the BSDF sample, 1 for roulette): the uniform sampler's hash of dimension
+// dim0 + k, or, where spl is set, a stratified sampler's value computed
+// beforehand (yuki_tpu path_fused.py:1023-1051, shade_fused.py:1157-1180):
+// spl points at the lane's value k = 0, the next ones `stride` floats apart.
+struct Draws {
+  uint32_t ph, dim0;
+  const float* __restrict__ spl;
+  size_t stride;
+  __device__ __forceinline__ float operator()(int k) const {
+    return spl ? __ldg(spl + (size_t)k * stride) : dim_f32(ph, dim0 + (uint32_t)k);
+  }
+};
+
 // The shading chain for one lane: surface, material tail, emission, NEE
 // setup for every light, bsdf_sample, beta, Russian roulette.  The sink
 // receives the emission term (beta * emitted on first and specular hits)
@@ -418,8 +432,7 @@ struct ShadeOut {
 // o_s/d_s are unparked (the sink parks lanes that are not worth a ray).
 template <class Sink>
 __device__ inline ShadeOut shade_lane(const ShadeTables& tb, const ShadeIn& in, const Rows& r,
-                                      const Material& mt, uint32_t ph, uint32_t dim0, int bounce,
-                                      Sink& sink) {
+                                      const Material& mt, const Draws& urand, int bounce, Sink& sink) {
   const V3 o = in.o, d = in.d;
   const float b0 = in.b0, b1 = in.b1, t_hit = in.t_hit;
   const V3 beta = in.beta;
@@ -535,8 +548,8 @@ __device__ inline ShadeOut shade_lane(const ShadeTables& tb, const ShadeIn& in, 
     const float* lr = tb.lt + 32 * li;
 #define LT(k) __ldg(lr + (k))
     int ltype = (int)LT(0);
-    float u0 = dim_f32(ph, dim0 + (uint32_t)(2 * li));
-    float u1 = dim_f32(ph, dim0 + (uint32_t)(2 * li + 1));
+    float u0 = urand(2 * li);
+    float u1 = urand(2 * li + 1);
     V3 l_i = {LT(4), LT(5), LT(6)};
     V3 li_v, l_dir, target;
     float pdf = 1.0f;
@@ -606,8 +619,8 @@ __device__ inline ShadeOut shade_lane(const ShadeTables& tb, const ShadeIn& in, 
   }
 
   // ---- bsdf_sample (shade_fused.py:666-778) ----------------------------
-  float u0 = dim_f32(ph, dim0 + (uint32_t)(2 * n_lights));
-  float u1 = dim_f32(ph, dim0 + (uint32_t)(2 * n_lights + 1));
+  float u0 = urand(2 * n_lights);
+  float u1 = urand(2 * n_lights + 1);
   V3 wi_l = zero3(), f_s = zero3();
   float pdf = 0.0f;
   if (mtype == MAT_MATTE) {
@@ -691,7 +704,7 @@ __device__ inline ShadeOut shade_lane(const ShadeTables& tb, const ShadeIn& in, 
   // Russian roulette after bounce 3.
   if (bounce > 3) {
     float q = jmax(F(0.05), 1.0f - beta2.y);
-    float r_rr = dim_f32(ph, dim0 + (uint32_t)(2 * n_lights + 2));
+    float r_rr = urand(2 * n_lights + 2);
     alive2 = alive2 && !(r_rr < q);
     float inv_keep = 1.0f / jmax(1.0f - q, F(1e-30));
     beta2 = scale(beta2, inv_keep);

@@ -10,7 +10,10 @@
 //               clamp past bounce 0, and the radiance update.
 //
 // Design.  One thread per ray (128-thread blocks; lanes are independent, so
-// the TPU's 1024-ray blocks carry no meaning here).  The shade kernel reads
+// the TPU's 1024-ray blocks carry no meaning here).  The sample values are
+// the uniform sampler's hash, or a StratifiedSampler's 2L+3 planes of the
+// bounce, computed beforehand by the sampler (the TPU kernel's `strat`
+// variant, shade_fused.py:1157-1180).  The shade kernel reads
 // the ray/hit/carry planes (_RH layout, plane-major so loads coalesce) and
 // does the row gathers itself with __ldg: the triangle shading row
 // trs[max(prim, 0)] and the material row with the sphere override; where
@@ -94,7 +97,7 @@ struct ShadeSink {
 __global__ void __launch_bounds__(THREADS)
     shade_kernel(const float* __restrict__ rh, const int* __restrict__ prim, const int* __restrict__ ph_in,
                  const float* __restrict__ texp, int n, int dim0, int bounce, ShadeTables tb, int flags,
-                 float* __restrict__ out) {
+                 const float* __restrict__ spl, float* __restrict__ out) {
   int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   const size_t N = (size_t)n;
@@ -117,7 +120,8 @@ __global__ void __launch_bounds__(THREADS)
   }
 
   ShadeSink sink{out + i, N, tb.center};
-  ShadeOut so = shade_lane(tb, in, r, mt, (uint32_t)ph_in[i], (uint32_t)dim0, bounce, sink);
+  const Draws urand{(uint32_t)ph_in[i], (uint32_t)dim0, spl ? spl + i : nullptr, N};
+  ShadeOut so = shade_lane(tb, in, r, mt, urand, bounce, sink);
   sink.put(OUT_O2, so.o2.x);
   sink.put(OUT_O2 + 1, so.o2.y);
   sink.put(OUT_O2 + 2, so.o2.z);
@@ -170,11 +174,12 @@ inline int blocks_for(int n) { return (n + THREADS - 1) / THREADS; }
 // ---- plain C interface, loaded with ctypes ---------------------------------
 
 // (cx, cy, cz): the scene centre; diag: the parking distance of distant-light
-// shadow-ray targets.
+// shadow-ray targets; spl: a StratifiedSampler's [2L+3, n] values of the
+// bounce, or null for the uniform sampler's hash.
 extern "C" int yk_shade(int device, const float* rh, const int* prim, const int* ph, const float* texp, int n,
                         int dim0, int bounce, const float* trs, const float* mat, const float* lt, int n_lights,
                         const float* sp, int n_spheres, float cx, float cy, float cz, float diag, int flags,
-                        float* out, void* stream) {
+                        const float* spl, float* out, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   ShadeTables tb;
@@ -188,7 +193,7 @@ extern "C" int yk_shade(int device, const float* rh, const int* prim, const int*
   tb.diag = diag;
   tb.has_sigma = (flags & FLAG_SIGMA) != 0;
   shade_kernel<<<blocks_for(n), THREADS, 0, (cudaStream_t)stream>>>(rh, prim, ph, texp, n, dim0, bounce, tb, flags,
-                                                                    out);
+                                                                    spl, out);
   return (int)cudaGetLastError();
 }
 

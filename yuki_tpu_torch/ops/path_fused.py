@@ -4,7 +4,7 @@ A wave is one sample of every pixel in a set of film tiles.  Its state
 crosses bounces as ``[24, N]`` float32 planes laid out as ``_ST`` (the
 same planes as ``yuki_tpu``'s ``[24, rows, 128]`` carry, flattened), plus
 an ``[N]`` int32 plane ``ph`` holding each lane's sampler hash.  Two
-kernels carry the whole wave:
+kernels carry the whole wave, or, with ``PATH_FUSED_ONEKERNEL``, one:
 
   raygen_trace  sampler pixel hash + jitter, camera ray, closest hit
                 over every triangle and sphere   (replaces
@@ -13,6 +13,16 @@ kernels carry the whole wave:
                 shading body, per-light NEE occlusion, resolve, and the
                 next ray's closest hit   (replaces ``_bounce_kernel``,
                 path_fused.py:709)
+  wave          raygen and every bounce in one launch, the path state in
+                registers, writing only radiance and the ray count
+                (replaces ``_wave_kernel``, path_fused.py:788)
+
+The uniform sampler's values are hashed inside the kernels.  A
+``StratifiedSampler``'s are computed first, by the sampler itself, as
+``[2 + max_depth * (2L+3), N]`` planes (``strat_planes``, yuki_tpu
+path_fused.py:1023-1051: strata depend only on the pixel, sample and
+dimension, never on the path), and each kernel reads its planes in place
+of the hash.
 
 Each wrapper dispatches on where its tensors lie: a CUDA tensor launches
 the hand-written kernel in ``csrc/path_fused.cu`` (or raises); a CPU
@@ -41,7 +51,8 @@ from dataclasses import dataclass
 import torch
 
 from ..integrators import PathParams
-from ..sampling import GOLDEN, MASK32, UniformSampler
+from ..sampling import (GOLDEN, MASK32, SampleCtx, StratifiedSampler,
+                        UniformSampler)
 from ..scene.data import LIGHT_RECT
 from ..vecmath import sqrt as _sqrt
 from . import _build
@@ -56,6 +67,11 @@ TEXPOOL_MAX = 65536  # texel-pool gate (path_fused.py:76)
 # none do, and the renderer takes camera rays + path_li over the dense
 # queries instead (yuki_tpu path_fused.py:864-866, :907-916).
 PATH_FUSED_MODE = "auto"
+
+# True: the wave runs as one launch of the wave kernel instead of raygen
+# plus one bounce launch per depth (yuki_tpu path_fused.py:868-872, whose
+# default this keeps).  The two forms give the same bits.
+PATH_FUSED_ONEKERNEL = False
 
 # State plane indices (f32 [24, N]).
 _ST = dict(
@@ -85,7 +101,7 @@ FLAG_TEX = 4
 
 # Kernel launches since the last reset_launches(); only the kernel
 # branch of each wrapper counts.
-LAUNCHES = {"raygen_trace": 0, "bounce": 0}
+LAUNCHES = {"raygen_trace": 0, "bounce": 0, "wave": 0}
 
 
 def reset_launches() -> None:
@@ -100,10 +116,9 @@ def reset_launches() -> None:
 
 def wave_supported(meta, sampler) -> bool:
     """Static gate, decided from SceneMeta and the sampler only
-    (yuki_tpu path_fused.py:880-904, UniformSampler only: the stratified
-    sampler is not ported yet).  A dense scene it refuses renders through
-    ``integrators.path_li`` where that accepts it."""
-    if not isinstance(sampler, UniformSampler):
+    (yuki_tpu path_fused.py:880-904).  A dense scene it refuses renders
+    through ``integrators.path_li`` where that accepts it."""
+    if not isinstance(sampler, (UniformSampler, StratifiedSampler)):
         return False
     if meta.traversal != "dense" or meta.n_tris > MAX_TRIS_WAVE:
         return False
@@ -343,17 +358,58 @@ def _ph_i32(u: torch.Tensor) -> torch.Tensor:
     return torch.where(u >= 2 ** 31, u - 2 ** 32, u).to(torch.int32)
 
 
+def strat_planes(sampler, px, py, sample_index: int, seed: int,
+                 n_lights: int, max_depth: int):
+    """A StratifiedSampler's values for a whole wave, computed by the
+    sampler: [2 + max_depth * (2L+3), N] f32 planes in yuki_tpu's order
+    (path_fused.py:1036-1049): the pixel jitter (dims 0-1), then per
+    bounce 2 per light, 2 for the BSDF sample and 1 for roulette.  None
+    for the uniform sampler, whose values the kernels hash themselves."""
+    if not isinstance(sampler, StratifiedSampler):
+        return None
+    ctx = SampleCtx(px=px, py=py, sample_index=sample_index, seed=seed)
+    dpb = 2 * n_lights + 3
+    vals = list(sampler.get_2d(ctx, 0).unbind(-1))
+    for b in range(max_depth):
+        d0 = 2 + b * dpb
+        vals += bounce_draws(sampler, ctx, d0, n_lights)
+    return torch.stack(vals).contiguous()
+
+
+def bounce_draws(sampler, ctx, dim0: int, n_lights: int) -> list:
+    """One bounce's 2L+3 stratified values from dimension ``dim0``
+    (yuki_tpu shade_fused.py:1157-1170): [N] tensors in plane order."""
+    vals = []
+    for li in range(n_lights):
+        vals += list(sampler.get_2d(ctx, dim0 + 2 * li).unbind(-1))
+    vals += list(sampler.get_2d(ctx, dim0 + 2 * n_lights).unbind(-1))
+    vals.append(sampler.get_1d(ctx, dim0 + 2 * n_lights + 2))
+    return vals
+
+
+def _bounce_planes(spl, tb: WaveTables, bounce: int):
+    """Bounce ``bounce``'s 2L+3 planes of ``strat_planes``, or None."""
+    if spl is None:
+        return None
+    d0 = 2 + bounce * tb.dims_per_bounce
+    return spl[d0:d0 + tb.dims_per_bounce]
+
+
 def raygen_trace_plain(px, py, sample_index: int, seed: int,
-                       tb: WaveTables):
+                       tb: WaveTables, spl=None):
     """Plain version of the raygen kernel (yuki_tpu ``_raygen_values``):
-    px/py [N] int32 -> (st [24, N] f32, ph [N] int32)."""
+    px/py [N] int32 -> (st [24, N] f32, ph [N] int32).  ``spl``: the
+    stratified jitter planes [>= 2, N] in place of the hash, or None."""
     dev = px.device
     h = pcg(_u32_scalar(GOLDEN ^ (int(seed) & MASK32), dev))
     key = ((px.to(torch.int64) << 16) & MASK32) | (py.to(torch.int64) & MASK32)
     ph = pcg(pcg(h ^ key) ^ _u32_scalar(sample_index, dev))
 
-    jx = dim_f32(ph, 0)
-    jy = dim_f32(ph, 1)
+    if spl is None:
+        jx = dim_f32(ph, 0)
+        jy = dim_f32(ph, 1)
+    else:
+        jx, jy = spl[0], spl[1]
     x = px.to(torch.float32) + jx
     y = py.to(torch.float32) + jy
 
@@ -428,9 +484,10 @@ def _tex_index(tb: WaveTables, tex0_f, uv_s, uv_t):
 
 
 def bounce_plain(st: torch.Tensor, ph: torch.Tensor, bounce: int,
-                 tb: WaveTables) -> torch.Tensor:
+                 tb: WaveTables, spl=None) -> torch.Tensor:
     """Plain version of the bounce kernel (yuki_tpu ``_bounce_values`` +
-    ``_bounce_kernel``'s writes and next-ray trace): state in, state out."""
+    ``_bounce_kernel``'s writes and next-ray trace): state in, state out.
+    ``spl``: this bounce's [2L+3, N] stratified planes, or None."""
     dim0 = 2 + bounce * tb.dims_per_bounce
 
     def s(name):
@@ -495,6 +552,7 @@ def bounce_plain(st: torch.Tensor, ph: torch.Tensor, bounce: int,
         ph_base=_ph_u32(ph),
         n_lights=tb.n_lights, light_types=tb.light_types,
         n_spheres=tb.n_spheres, present=tb.present, has_sigma=tb.has_sigma,
+        urand=None if spl is None else spl.__getitem__,
     )
 
     # NEE occlusion per light.
@@ -574,18 +632,28 @@ def _check_tables(tb: WaveTables, device) -> None:
         raise ValueError("n_tris exceeds the triangle table")
 
 
+def _check_spl(spl, planes: int, n: int, dev):
+    """The stratified planes' pointer for a kernel (None: the hash)."""
+    if spl is None:
+        return None
+    _build.check(spl, "spl", torch.float32, (planes, n), dev)
+    return _build.ptr(spl)
+
+
 def raygen_trace(px: torch.Tensor, py: torch.Tensor, sample_index: int,
-                 seed: int, tb: WaveTables):
+                 seed: int, tb: WaveTables, spl=None):
     """Camera rays of one sample + their closest hits: px/py [N] int32 ->
-    (st [24, N] f32, ph [N] int32).  CUDA tensors launch the raygen
-    kernel; CPU tensors run ``raygen_trace_plain``."""
+    (st [24, N] f32, ph [N] int32).  ``spl``: the stratified jitter planes
+    [2, N], or None for the uniform sampler's hash.  CUDA tensors launch
+    the raygen kernel; CPU tensors run ``raygen_trace_plain``."""
     if not _build.dispatch(px):
-        return raygen_trace_plain(px, py, sample_index, seed, tb)
+        return raygen_trace_plain(px, py, sample_index, seed, tb, spl)
     dev = px.device
     n = px.shape[0]
     _build.check(px, "px", torch.int32, (n,), dev)
     _build.check(py, "py", torch.int32, (n,), dev)
     _check_tables(tb, dev)
+    spl_p = _check_spl(spl, 2, n, dev)
     st = torch.empty((_N_ST, n), dtype=torch.float32, device=dev)
     ph = torch.empty((n,), dtype=torch.int32, device=dev)
     if n == 0:
@@ -596,7 +664,7 @@ def raygen_trace(px: torch.Tensor, py: torch.Tensor, sample_index: int,
         ctypes.c_uint32(int(sample_index) & MASK32),
         ctypes.c_uint32(int(seed) & MASK32),
         _build.ptr(tb.ms), _build.ptr(tb.tri), tb.n_tris, _build.ptr(tb.sp), tb.n_spheres,
-        _build.ptr(st), _build.ptr(ph),
+        spl_p, _build.ptr(st), _build.ptr(ph),
         _build.stream(dev),
     )
     _build.launch_check(err, "raygen_trace")
@@ -605,16 +673,19 @@ def raygen_trace(px: torch.Tensor, py: torch.Tensor, sample_index: int,
 
 
 def bounce(st: torch.Tensor, ph: torch.Tensor, bounce_index: int,
-           tb: WaveTables) -> torch.Tensor:
-    """One path bounce: state [24, N] -> state [24, N].  CUDA tensors
-    launch the bounce kernel; CPU tensors run ``bounce_plain``."""
+           tb: WaveTables, spl=None) -> torch.Tensor:
+    """One path bounce: state [24, N] -> state [24, N].  ``spl``: this
+    bounce's [2L+3, N] stratified planes, or None for the uniform
+    sampler's hash.  CUDA tensors launch the bounce kernel; CPU tensors
+    run ``bounce_plain``."""
     if not _build.dispatch(st):
-        return bounce_plain(st, ph, bounce_index, tb)
+        return bounce_plain(st, ph, bounce_index, tb, spl)
     dev = st.device
     n = st.shape[1]
     _build.check(st, "st", torch.float32, (_N_ST, n), dev)
     _build.check(ph, "ph", torch.int32, (n,), dev)
     _check_tables(tb, dev)
+    spl_p = _check_spl(spl, tb.dims_per_bounce, n, dev)
     if not 0 <= bounce_index < tb.max_depth:
         raise ValueError(f"bounce {bounce_index} outside [0, {tb.max_depth})")
     out = torch.empty_like(st)
@@ -627,26 +698,76 @@ def bounce(st: torch.Tensor, ph: torch.Tensor, bounce_index: int,
         _build.ptr(tb.ms), _build.ptr(tb.tri), tb.n_tris, _build.ptr(tb.trs), _build.ptr(tb.mat),
         _build.ptr(tb.lt), tb.n_lights, _build.ptr(tb.sp), tb.n_spheres,
         _build.ptr(tb.td), tb.td.shape[0], _build.ptr(tb.tex), tb.pool_pad, tb.flags,
-        _build.stream(dev),
+        spl_p, _build.stream(dev),
     )
     _build.launch_check(err, "bounce")
     LAUNCHES["bounce"] += 1
     return out
 
 
+def wave_plain(px, py, sample_index: int, seed: int, tb: WaveTables,
+               spl=None) -> torch.Tensor:
+    """Plain version of the wave kernel: raygen, then every bounce, on
+    the plain versions of the two kernels.  Returns [4, N] f32: radiance
+    rgb and the ray count."""
+    st, ph = raygen_trace_plain(px, py, sample_index, seed, tb, spl)
+    for b in range(tb.max_depth):
+        st = bounce_plain(st, ph, b, tb, _bounce_planes(spl, tb, b))
+    return st[[_ST["rx"], _ST["ry"], _ST["rz"], _ST["rc"]]]
+
+
+def wave(px: torch.Tensor, py: torch.Tensor, sample_index: int, seed: int,
+         tb: WaveTables, spl=None) -> torch.Tensor:
+    """One sample of a wave in one launch: px/py [N] int32 -> [4, N] f32
+    (radiance rgb, ray count).  ``spl``: ``strat_planes`` or None.  CUDA
+    tensors launch the wave kernel; CPU tensors run ``wave_plain``."""
+    if not _build.dispatch(px):
+        return wave_plain(px, py, sample_index, seed, tb, spl)
+    dev = px.device
+    n = px.shape[0]
+    _build.check(px, "px", torch.int32, (n,), dev)
+    _build.check(py, "py", torch.int32, (n,), dev)
+    _check_tables(tb, dev)
+    spl_p = _check_spl(spl, 2 + tb.max_depth * tb.dims_per_bounce, n, dev)
+    out = torch.empty((4, n), dtype=torch.float32, device=dev)
+    if n == 0:
+        return out
+    err = _build.library().yk_wave(
+        dev.index, _build.ptr(px), _build.ptr(py), n,
+        ctypes.c_uint32(int(sample_index) & MASK32),
+        ctypes.c_uint32(int(seed) & MASK32), tb.max_depth,
+        _build.ptr(tb.ms), _build.ptr(tb.tri), tb.n_tris, _build.ptr(tb.trs), _build.ptr(tb.mat),
+        _build.ptr(tb.lt), tb.n_lights, _build.ptr(tb.sp), tb.n_spheres,
+        _build.ptr(tb.td), tb.td.shape[0], _build.ptr(tb.tex), tb.pool_pad, tb.flags,
+        spl_p, _build.ptr(out), _build.stream(dev),
+    )
+    _build.launch_check(err, "wave")
+    LAUNCHES["wave"] += 1
+    return out
+
+
 # --------------------------------------------------------------------
-# The wave: one raygen launch, then one bounce launch per depth
+# The wave: one raygen launch and one bounce launch per depth, or one
+# wave launch
 # --------------------------------------------------------------------
 
 
 def path_li_wave(tb: WaveTables, px: torch.Tensor, py: torch.Tensor,
-                 sample_index: int, seed: int):
+                 sample_index: int, seed: int, sampler=None):
     """One sample of a wave of pixels: px/py [N] int32 -> (li [N,3] f32,
     ray_count [N] int32).  Consumes sampler dims like yuki_tpu's wave:
-    0-1 for the jitter, then 2 + b*(2L+3) per bounce."""
-    st, ph = raygen_trace(px, py, sample_index, seed, tb)
+    0-1 for the jitter, then 2 + b*(2L+3) per bounce.  ``sampler`` None
+    is the uniform sampler; a StratifiedSampler's values are computed
+    first (``strat_planes``)."""
+    spl = strat_planes(sampler, px, py, sample_index, seed, tb.n_lights,
+                       tb.max_depth)
+    if PATH_FUSED_ONEKERNEL:
+        out = wave(px, py, sample_index, seed, tb, spl)
+        return out[:3].t(), out[3].to(torch.int32)
+    st, ph = raygen_trace(px, py, sample_index, seed, tb,
+                          None if spl is None else spl[:2])
     for b in range(tb.max_depth):
-        st = bounce(st, ph, b, tb)
+        st = bounce(st, ph, b, tb, _bounce_planes(spl, tb, b))
     li = torch.stack([st[_ST["rx"]], st[_ST["ry"]], st[_ST["rz"]]], dim=-1)
     return li, st[_ST["rc"]].to(torch.int32)
 

@@ -44,7 +44,7 @@ from dataclasses import dataclass
 import torch
 
 from . import _build
-from ..sampling import MASK32, UniformSampler
+from ..sampling import MASK32, StratifiedSampler, UniformSampler
 from ..vecmath import sqrt as _sqrt
 from ..scene.data import (
     LIGHT_DISTANT,
@@ -331,7 +331,8 @@ def _matte_f(has_sigma, kd, s0, wo_l, wi_l):
 
 
 def shade_body(dim0, bounce, rh, tr, mp, ltab, spm, center, diag, ph_base,
-               *, n_lights, light_types, n_spheres, present, has_sigma):
+               *, n_lights, light_types, n_spheres, present, has_sigma,
+               urand=None):
     """The per-bounce shading chain on [N] tensors (reader-callback form,
     as in yuki_tpu):
       rh(name)   -> ray/hit/carry tensor (ox..dz, t, b0, b1, sph, alive,
@@ -342,12 +343,14 @@ def shade_body(dim0, bounce, rh, tr, mp, ltab, spm, center, diag, ph_base,
       ltab(li,i) -> light-table scalar, spm(s,i) -> sphere-table scalar
       center (3 scalars) / diag: scene bounds for ray parking
     ``dim0`` and ``bounce`` are Python ints; random numbers are the
-    UniformSampler's ``dim_f32(ph_base, dim0 + k)``.
+    UniformSampler's ``dim_f32(ph_base, dim0 + k)``, or ``urand(k)`` where
+    given (a StratifiedSampler's planes, k = 0 .. 2L+2).
     Returns (o2, d2, beta2, alive2, spec2, ne, nee) where nee is a
     per-light list of (o_s, d_s, t_s, worth, contrib)."""
 
-    def urand(k):
-        return dim_f32(ph_base, dim0 + k)
+    if urand is None:
+        def urand(k):
+            return dim_f32(ph_base, dim0 + k)
 
     o = (rh("ox"), rh("oy"), rh("oz"))
     d = (rh("dx"), rh("dy"), rh("dz"))
@@ -911,10 +914,9 @@ def make_shade_tables(scene, params) -> ShadeTables:
 def fused_shade_supported(meta, sampler) -> bool:
     """Static gate (shade_fused.py:1038-1061), from SceneMeta and the
     sampler only: every sphere's material must be untextured (the kernel
-    skips sphere uv).  The UniformSampler only: yuki_tpu's kernel also
-    takes the StratifiedSampler's hoisted sample planes, but that sampler
-    is not ported yet (ROADMAP Queue 1 item 2)."""
-    if not isinstance(sampler, UniformSampler):
+    skips sphere uv).  A StratifiedSampler's values reach the kernel as
+    planes (``shade_fused``'s ``spl``)."""
+    if not isinstance(sampler, (UniformSampler, StratifiedSampler)):
         return False
     return meta.n_spheres == 0 or meta.sphere_mats_untextured
 
@@ -962,10 +964,11 @@ def texture_planes(tb: ShadeTables, prim, sph, b0, b1):
 
 
 def shade_planes_plain(tb: ShadeTables, rh, prim, ph, texp, dim0: int,
-                       bounce: int) -> torch.Tensor:
+                       bounce: int, spl=None) -> torch.Tensor:
     """Plain version of the shade kernel: rh [16,N] (_RH), prim [N] i32,
-    ph [N] i32 (pcg(pixel_hash ^ sample_index)), texp [4,N] or None ->
-    out [16 + 12L, N] (_OUT)."""
+    ph [N] i32 (pcg(pixel_hash ^ sample_index)), texp [4,N] or None,
+    spl [2L+3,N] (a StratifiedSampler's values, in place of the hash) or
+    None -> out [16 + 12L, N] (_OUT)."""
     trow, mrow = _gather_rows(tb, prim, rh[_RH["sph"]])
     mpd = {name: mrow[:, i] for name, i in _MP.items()}
     if texp is not None:
@@ -982,6 +985,7 @@ def shade_planes_plain(tb: ShadeTables, rh, prim, ph, texp, dim0: int,
         ph_base=ph.to(torch.int64) & MASK32,
         n_lights=tb.n_lights, light_types=tb.light_types,
         n_spheres=tb.n_spheres, present=tb.present, has_sigma=tb.has_sigma,
+        urand=None if spl is None else spl.__getitem__,
     )
     zero = torch.zeros_like(o2[0])
     planes = [*o2, *d2v, *beta2, alive2.to(torch.float32),
@@ -992,10 +996,10 @@ def shade_planes_plain(tb: ShadeTables, rh, prim, ph, texp, dim0: int,
 
 
 def shade_planes(tb: ShadeTables, rh, prim, ph, texp, dim0: int,
-                 bounce: int) -> torch.Tensor:
+                 bounce: int, spl=None) -> torch.Tensor:
     """The shade kernel on CUDA tensors, its plain version on CPU ones."""
     if not _build.dispatch(rh):
-        return shade_planes_plain(tb, rh, prim, ph, texp, dim0, bounce)
+        return shade_planes_plain(tb, rh, prim, ph, texp, dim0, bounce, spl)
     dev = rh.device
     n = rh.shape[1]
     f32 = torch.float32
@@ -1004,6 +1008,8 @@ def shade_planes(tb: ShadeTables, rh, prim, ph, texp, dim0: int,
     _build.check(ph, "ph", torch.int32, (n,), dev)
     if tb.has_textures:
         _build.check(texp, "texp", f32, (4, n), dev)
+    if spl is not None:
+        _build.check(spl, "spl", f32, (2 * tb.n_lights + 3, n), dev)
     _build.check(tb.trs, "trs", f32, (tb.trs.shape[0], 32), dev)
     _build.check(tb.mat, "mat", f32, (tb.mat.shape[0], 16), dev)
     _build.check(tb.lt, "lt", f32, (tb.n_lights, 32), dev)
@@ -1015,7 +1021,8 @@ def shade_planes(tb: ShadeTables, rh, prim, ph, texp, dim0: int,
         dev.index, _build.ptr(rh), _build.ptr(prim), _build.ptr(ph),
         _build.ptr(texp) if tb.has_textures else None, n, int(dim0), int(bounce),
         _build.ptr(tb.trs), _build.ptr(tb.mat), _build.ptr(tb.lt), tb.n_lights, _build.ptr(tb.sp),
-        tb.n_spheres, *tb.center_diag, tb.flags, _build.ptr(out),
+        tb.n_spheres, *tb.center_diag, tb.flags,
+        None if spl is None else _build.ptr(spl), _build.ptr(out),
         _build.stream(dev),
     )
     _build.launch_check(err, "shade")
@@ -1037,16 +1044,18 @@ def pack_shade(hit, o, d, beta, alive, specular_bounce):
 
 
 def shade_fused(tb: ShadeTables, hit, o, d, beta, alive, specular_bounce,
-                ph, dim0: int, bounce: int):
+                ph, dim0: int, bounce: int, spl=None):
     """path_li's shading step (shade_fused.py:1064-1292): returns (o2, d2,
     beta2, alive2, spec2, no, nd, nt, ns_skip, nw, nc, ne) with the
     per-light NEE outputs flattened light-major; ``alive`` is the lanes
-    alive and hitting.  Torch does the plane packing and the texture
+    alive and hitting.  ``spl``: a StratifiedSampler's 2L+3 values of the
+    bounce as [2L+3, N] planes (shade_fused.py:1157-1170), None for the
+    uniform sampler.  Torch does the plane packing and the texture
     resolve; the shade kernel does the rest."""
     n = o.shape[0]
     rh, prim = pack_shade(hit, o, d, beta, alive, specular_bounce)
     texp = texture_planes(tb, prim, rh[_RH["sph"]], hit.b0, hit.b1)
-    out = shade_planes(tb, rh, prim, ph, texp, dim0, bounce)
+    out = shade_planes(tb, rh, prim, ph, texp, dim0, bounce, spl)
 
     def vec(i):
         return out[i:i + 3].t().contiguous()

@@ -2,7 +2,8 @@
 ``make_wave_renderer`` (:60-172) and of the synchronous, non-accumulating
 wave loop of its manager thread (:383-436) as ``render_frame``.
 
-Only the path tracer is ported.  Scenes that pass
+Only the path tracer is ported, with both samplers (UniformSampler and
+StratifiedSampler).  Scenes that pass
 ``path_fused.wave_supported`` take the fused wave (:107-121) unless
 ``path_fused.PATH_FUSED_MODE`` is "off"; every other scene takes camera
 rays + ``integrators.path_li`` (:122-128), over the dense queries or the
@@ -70,7 +71,7 @@ def make_wave_renderer(scene, camera: Camera, sampler, integrator,
         def render_one(origins, sample_index: int, seed: int):
             px, py = pixels(origins)
             li, rcount = path_fused.path_li_wave(tables, px, py,
-                                                 sample_index, seed)
+                                                 sample_index, seed, sampler)
             return li, rcount.to(torch.float32).sum()
     else:
         check_path_li_supported(meta, sampler)

@@ -5,12 +5,17 @@ A sample value depends only on ``(seed, pixel, sample_index, dimension)``
 lane can compute any dimension and no ``torch.Generator`` is needed.
 
 torch has no general uint32 arithmetic, so a u32 here is an ``int64``
-tensor holding a value in [0, 2^32): every product of two u32 operands
-used below stays under 2^63, and each result is masked back to 32 bits,
-which makes the hash bit-identical to ``yuki_tpu``'s ``jnp.uint32`` form.
+tensor holding a value in [0, 2^32), and each result is masked back to 32
+bits, which makes the maths bit-identical to ``yuki_tpu``'s ``jnp.uint32``
+form.  The PCG constants are under 2^30, so their products stay under
+2^63; ``permutation_element``'s multipliers are full 32-bit words, whose
+products would not, so ``_mul32`` splits them into 16-bit halves.
 
-``StratifiedSampler`` is not ported yet (ROADMAP Queue 1 item 2); the
-fused wave's gate rejects it.
+Samplers: ``UniformSampler`` and ``StratifiedSampler`` (Kensler's
+``permutation_element`` picks each (pixel, dimension)'s stratum, the
+pbrt-v4 design of yuki/src/sampling/stratified.rs).  The dense wave and
+the fused shade take a stratified sampler's values as planes computed
+here (``ops/path_fused.strat_planes``, ``ops/shade_fused``).
 """
 
 from __future__ import annotations
@@ -50,6 +55,14 @@ def hash_key(*vals) -> torch.Tensor:
     for v in vals:
         h = pcg_hash(h ^ _u32(v, dev))
     return h
+
+
+def _mul32(a: torch.Tensor, b: int) -> torch.Tensor:
+    """(a * b) mod 2^32 for u32 ``a`` (in int64) and a u32 constant ``b``,
+    by 16-bit halves of b so that no product reaches 2^63."""
+    lo = a * (b & 0xFFFF)
+    hi = ((a * (b >> 16)) & 0xFFFF) << 16
+    return (lo + hi) & MASK32
 
 
 def u32_to_unit_float(u: torch.Tensor) -> torch.Tensor:
@@ -100,6 +113,112 @@ class UniformSampler:
             ],
             dim=-1,
         )
+
+
+def _f32(x: float, like: torch.Tensor) -> torch.Tensor:
+    """A float32 scalar tensor beside ``like``: dividing by a tensor keeps
+    the IEEE divide, where a Python divisor becomes a reciprocal multiply
+    on CUDA."""
+    return torch.tensor(x, dtype=torch.float32, device=like.device)
+
+
+@dataclass(frozen=True)
+class StratifiedSampler:
+    """On-the-fly stratified sampling (yuki/src/sampling/stratified.rs):
+    2D dimensions are stratified on a (x, y) grid, 1D on x*y strata; the
+    stratum of (pixel, dim) is ``permutation_element`` keyed on
+    hash(pixel, dim), the jitter the uniform hash of the dimension."""
+
+    pixel_samples_x: int = 1
+    pixel_samples_y: int = 1
+    symmetric_dimensions: bool = True  # UI behaviour: edit x edits y too
+    jitter: bool = True
+
+    @property
+    def samples_per_pixel(self) -> int:
+        return self.pixel_samples_x * self.pixel_samples_y
+
+    def _stratum(self, ctx: SampleCtx, dim: int) -> torch.Tensor:
+        return permutation_element(ctx.sample_index, self.samples_per_pixel,
+                                   hash_key(ctx.pixel_hash(), dim))
+
+    def _delta(self, ctx: SampleCtx, dim: int, like) -> torch.Tensor:
+        if self.jitter:
+            return u32_to_unit_float(_dim_u32(ctx, dim))
+        return _f32(0.5, like)
+
+    def get_1d(self, ctx: SampleCtx, dim: int) -> torch.Tensor:
+        stratum = self._stratum(ctx, dim)
+        x = stratum.to(torch.float32) + self._delta(ctx, dim, stratum)
+        return x / _f32(self.samples_per_pixel, x)
+
+    def get_2d(self, ctx: SampleCtx, dim: int) -> torch.Tensor:
+        stratum = self._stratum(ctx, dim)
+        # The reference divides the stratum by pixel_samples_y for its y
+        # index (stratified.rs:131-133); yuki_tpu keeps that, so does this.
+        x = (stratum % self.pixel_samples_x).to(torch.float32)
+        y = (stratum // self.pixel_samples_y).to(torch.float32)
+        x = x + self._delta(ctx, dim, x)
+        y = y + self._delta(ctx, dim + 1, y)
+        return torch.stack([x / _f32(self.pixel_samples_x, x),
+                            y / _f32(self.pixel_samples_y, y)], dim=-1)
+
+
+Sampler = Union[UniformSampler, StratifiedSampler]
+
+
+def force_single_sample(sampler: Sampler) -> Sampler:
+    """Interactive-preview override (SamplerType::instantiate(force_single_
+    sample), sampling/mod.rs:21-32)."""
+    if isinstance(sampler, UniformSampler):
+        return UniformSampler(pixel_samples=1)
+    return StratifiedSampler(
+        pixel_samples_x=1,
+        pixel_samples_y=1,
+        symmetric_dimensions=sampler.symmetric_dimensions,
+        jitter=sampler.jitter,
+    )
+
+
+def permutation_element(i, l: int, p: torch.Tensor) -> torch.Tensor:
+    """Kensler's hashed permutation of ``i`` (an int or integer tensor) in
+    [0, l) keyed by the u32 tensor ``p`` (``yuki_tpu`` sampling.py:76-129,
+    stratified.rs:147-178).  Rejected lanes re-run the round on their own
+    output until every lane lands in [0, l); an extra round never changes
+    an accepted lane, so the rounds run in batches of four with one host
+    read per batch."""
+    w = l - 1
+    for s in (1, 2, 4, 8, 16):
+        w |= w >> s
+    p = _u32(p)
+    i, p = torch.broadcast_tensors(_u32(i, p.device), p)
+    mult = 1 | (p >> 27)  # under 2^5: the plain product fits
+
+    def round_fn(i):
+        i = i ^ p
+        i = _mul32(i, 0xE170893D)
+        i = i ^ (p >> 16)
+        i = i ^ ((i & w) >> 4)
+        i = i ^ (p >> 8)
+        i = _mul32(i, 0x0929EB3F)
+        i = i ^ (p >> 23)
+        i = i ^ ((i & w) >> 1)
+        i = (i * mult) & MASK32
+        i = _mul32(i, 0x6935FA69)
+        i = i ^ ((i & w) >> 11)
+        i = _mul32(i, 0x74DCB303)
+        i = i ^ ((i & w) >> 2)
+        i = _mul32(i, 0x9E501CC3)
+        i = i ^ ((i & w) >> 2)
+        i = _mul32(i, 0xC860A3DF)
+        i = i & w
+        return i ^ (i >> 5)
+
+    i = round_fn(i)
+    while bool((i >= l).any()):
+        for _ in range(4):
+            i = torch.where(i < l, i, round_fn(i))
+    return ((i + p) & MASK32) % l
 
 
 # --- shared sampling transforms (sampling/mod.rs:62-87) -------------------

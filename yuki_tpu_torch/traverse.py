@@ -19,8 +19,12 @@ ported):
 3. A divergent wave takes the slot stream (``ops/trace_stream.py``): per-ray
    candidate lists from the two-level cull (``ops/trace_cull.py``) from
    CROSS_2L_MIN_CHUNKS chunks up, else from crossing words; the slot walk;
-   the per-ray merge.
-4. Rays that either engine flags overflow re-run through the wide pass at
+   the per-ray merge.  With ``WALKER_CLOSEST`` / ``WALKER_ANY`` set it takes
+   the bundle walker instead (``ops/trace_walker.py``, traverse.py:485-498
+   and :723-735): crossing words of the whole wave, the OR of each 8-ray
+   bundle's words, one walk per bundle, no sort, pack or merge.  Both flags
+   keep yuki_tpu's default, False.
+4. Rays that any engine flags overflow re-run through the wide pass at
    C_WIDE (occlusion: only those not yet occluded, since occlusion is
    monotone in the candidate set), with the slot budget of the overflow
    tier their count selects.
@@ -54,6 +58,7 @@ from .ops.trace_cull import candidate_lists_fused
 from .ops.trace_rows import (QUAD, row_words_interval, rows_any_w,
                              rows_closest_w)
 from .ops.trace_treelets import treelet_any, treelet_closest
+from .ops.trace_walker import walker_any_w, walker_closest_w
 
 __all__ = ["F32_MAX", "SceneHit", "any_intersect", "any_intersect_dense",
            "counts", "intersect", "intersect_dense", "reset_counts"]
@@ -62,9 +67,17 @@ __all__ = ["F32_MAX", "SceneHit", "any_intersect", "any_intersect_dense",
 _ROWS_C = 160
 _ROWS_MULT = 24
 
+# The divergent branch's engine (traverse.py:44-58): True takes the bundle
+# walker instead of the slot stream.  Pair budgets per 8-ray bundle as
+# (tight, wide) tiers.
+WALKER_CLOSEST = False
+WALKER_ANY = False
+WALKER_MULT = (24, 48)
+WALKER_MULT_ANY = (16, 32)
+
 COUNTS = {
-    "closest_slot": 0, "closest_rows": 0,
-    "any_slot": 0, "any_rows": 0,
+    "closest_slot": 0, "closest_rows": 0, "closest_walker": 0,
+    "any_slot": 0, "any_rows": 0, "any_walker": 0,
     "overflow_rays": 0, "wide_reruns": 0, "fallbacks": 0,
 }
 
@@ -165,6 +178,11 @@ def _closest_dispatch(scene, meta, o, d, t_max):
         t, prim, ov = rows_closest_w(ch, row_words, o, d, t_max, C=_ROWS_C,
                                      mult=_ROWS_MULT)
         ok = True
+    elif WALKER_CLOSEST:
+        COUNTS["closest_walker"] += 1
+        t, prim, ov, ok = walker_closest_w(
+            ch, ts.cross_words(ch, o, d, t_max), o, d, t_max,
+            mult=WALKER_MULT[0], mult_wide=WALKER_MULT[1])
     else:
         COUNTS["closest_slot"] += 1
         budget = dict(mult=meta.slot_mult_tight, mult_wide=meta.slot_mult)
@@ -206,6 +224,11 @@ def _any_dispatch(scene, meta, o, d, t_max, skip):
         occ, ov = rows_any_w(ch, row_words, o, d, t_max, skip, C=_ROWS_C,
                              mult=_ROWS_MULT)
         ok = True
+    elif WALKER_ANY:
+        COUNTS["any_walker"] += 1
+        occ, ov, ok = walker_any_w(
+            ch, ts.cross_words(ch, o, d, t_max), o, d, t_max, skip,
+            mult=WALKER_MULT_ANY[0], mult_wide=WALKER_MULT_ANY[1])
     else:
         COUNTS["any_slot"] += 1
         budget = dict(mult=max(3, meta.slot_mult_tight - 1),
