@@ -88,7 +88,30 @@ beside this file.  It imports no JAX.  Phases:
      device's idle share; once on the slot stream and once with both
      walker flags (the walker kernels' main path);
  11. the same colonnade frame with StratifiedSampler(2, 2), 4 spp,
-     through path_li, timed.
+     through path_li, timed;
+ 12. the combined wave on the colonnade: the wave's 524,288 bounce-1
+     closest lanes (skip -2) and their 1,048,576 NEE shadow lanes (the
+     rect light's id or -2, the 0.9999 chord), skip_sort=True, bary_count
+     the closest lanes, on the slot stream, the bundle walker and the
+     fallback, and its coherent form (camera and bounce-0 shadow lanes,
+     sorted by ray_sort_key) on the rows engine: each engine driven once with the counts at 0 (the
+     with_skip kernels' path), then skip -2 against no skip bit for bit,
+     the shadow lanes' hit against any_intersect, the combined call's time
+     against the two separate calls; the with_skip rows, slot and bundle
+     walks against their plain versions bit for bit, each with its time
+     beside the same kernel without skip;
+ 12a. Cornell's combined wave (camera and bounce-0 shadow lanes, 2,097,152)
+     through intersect and the dense skip sweep, against its plain
+     version, dense_trace (skip -2) and any_trace (the shadow lanes);
+ 13. the block-pair walks on the bounce-1 rays and their shadow rays,
+     sorted by ray_sort_key, at yuki_tpu's pair capacity: against their
+     plain versions on 8 whole blocks, and on the whole wave against the
+     treelet walk (t bit for bit, prim apart from counted ties, occlusion
+     exact), with n_pairs, each call's time and the bounds;
+ 13a. the coherence sort: ray_sort_key on the card against the CPU's, the
+     _sorted_call round trip, its cost per call at 524,288 and 1,572,864
+     rays, and the dispatch sorted against skip_sort on the bounce-1 and
+     shadow rays (equal apart from counted ties), timed.
 
 Prints one JSON line describing the kernels, the card's name and power
 limit, then as its last line {"ok": true, "device": {...}}.  Any failed
@@ -101,6 +124,7 @@ import os
 import subprocess
 import sys
 import time
+from types import SimpleNamespace
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 WAVE_TILES = 4096
@@ -136,7 +160,19 @@ KERNELS = {  # name: (source, the TPU kernel it replaces)
     "walker_closest": ("trace_walker.cu", "yuki_tpu/ops/trace_walker.py:204"),
     "walker_any": ("trace_walker.cu", "yuki_tpu/ops/trace_walker.py:269"),
     "wave": ("path_fused.cu", "yuki_tpu/ops/path_fused.py:788"),
+    "dense_closest_skip": ("trace_dense.cu", "yuki_tpu/ops/trace.py:249"),
+    "rows_closest_skip": ("trace_rows.cu", "yuki_tpu/ops/trace_rows.py:246"),
+    "slot_closest_skip": ("trace_stream.cu",
+                          "yuki_tpu/ops/trace_stream.py:812"),
+    "walker_closest_skip": ("trace_walker.cu",
+                            "yuki_tpu/ops/trace_walker.py:204"),
+    "pairs_closest": ("trace_pairs.cu", "yuki_tpu/ops/trace_pairs.py:176"),
+    "pairs_any": ("trace_pairs.cu", "yuki_tpu/ops/trace_pairs.py:219"),
 }
+# The with_skip variants: no main-path frame launches them (no integrator
+# of yuki_tpu makes combined closest + shadow waves); phase 12 drives them.
+SKIP_KERNELS = ("dense_closest_skip", "rows_closest_skip",
+                "slot_closest_skip", "walker_closest_skip")
 
 # Bounds: the least time the card could take for a kernel's work, the
 # larger of bytes over the memory rate and operations over the FP32 rate
@@ -211,11 +247,11 @@ def nbytes(*tensors):
 
 def _kernel_modules():
     from yuki_tpu_torch.ops import (path_fused, shade_fused, trace, trace_cull,
-                                    trace_rows, trace_stream, trace_treelets,
-                                    trace_walker)
+                                    trace_pairs, trace_rows, trace_stream,
+                                    trace_treelets, trace_walker)
 
     return (path_fused, shade_fused, trace_treelets, trace_cull, trace_stream,
-            trace_rows, trace, trace_walker)
+            trace_rows, trace, trace_walker, trace_pairs)
 
 
 def reset_all_launches():
@@ -503,7 +539,7 @@ def phase_dense_kernels(torch, np, dev, card):
     n = o.shape[0]
     t_max = torch.full((n,), F32_MAX, device=dev)
     tris = pack_triangles(data.tris.p0, data.tris.p1, data.tris.p2)
-    hit = traverse.intersect(data, scene.meta, o, d, t_max)
+    hit = traverse.intersect(data, scene.meta, o, d, t_max, skip_sort=True)
     tables = tsf.make_shade_tables(scene, PathParams(DEPTH))
     ones = torch.ones_like(o)
     out = tsf.shade_fused(tables, hit, o, d, ones, hit.hit,
@@ -592,8 +628,8 @@ def phase_dense_path_li(torch, np, dev, card):
         res = frame(DEPTH)
         torch.cuda.synchronize()
         counts = all_launches()
-        launches = {k: counts[k] for k in ttr.LAUNCHES}
-        used = {*ttr.LAUNCHES, *tsf.LAUNCHES}
+        launches = {k: counts[k] for k in ("dense_closest", "dense_any")}
+        used = {*launches, *tsf.LAUNCHES}
         for name, count in counts.items():
             if name in used:
                 check(count > 0, f"dense path_li: {name} never launched")
@@ -1032,7 +1068,8 @@ def phase_colonnade_kernels(torch, np, dev, scene, cam):
                                      wave_ms=ms_full)
 
     # shade on the bounce-0 hits, whole wave both ways.
-    hit = traverse.intersect(scene.data, scene.meta, o, d, t_max)
+    hit = traverse.intersect(scene.data, scene.meta, o, d, t_max,
+                             skip_sort=True)
     tables = tsf.make_shade_tables(scene, PathParams(DEPTH))
     ph = _ph_i32(ctx)
     ones = torch.ones_like(o)
@@ -1129,7 +1166,7 @@ def phase_colonnade_kernels(torch, np, dev, scene, cam):
 
     # resolve at bounce 0, whole wave both ways.
     occ_all = traverse.any_intersect(scene.data, scene.meta, no, nd, nt,
-                                     ns_skip)
+                                     ns_skip, skip_sort=True)
     rs, nee = tsf.pack_resolve(tables, torch.zeros_like(o), ones, hit.hit,
                                ~hit.hit, ne, occ_all, nw, nc)
     got = tsf.resolve_planes(rs, nee, n_lights, 0, False)
@@ -1177,7 +1214,8 @@ def phase_colonnade_kernels(torch, np, dev, scene, cam):
           "on the slice")
 
     # ... and their shadow rays, from the main path's bounce-1 shading.
-    hit2 = traverse.intersect(scene.data, scene.meta, o2, d2, t_max2)
+    hit2 = traverse.intersect(scene.data, scene.meta, o2, d2, t_max2,
+                              skip_sort=True)
     (_, _, _, _, _, no2, nd2, nt2, sk2, nw2, _,
      _) = tsf.shade_fused(tables, hit2, o2, d2, beta2, alive2 & hit2.hit,
                           spec2, ph, dim0 + 2 * n_lights + 3, 1)
@@ -1731,8 +1769,10 @@ def phase_colonnade_main_path(torch, np, scene, cam, card, walker=False):
         branches = traverse.counts()
         # The slot walks and the crossing words also serve the wide
         # re-run, which the walker's overflow rays take.
-        used = ((*tw.LAUNCHES, *tsf.LAUNCHES, *trw.LAUNCHES) if walker else
-                (*tsf.LAUNCHES, *tcu.LAUNCHES, *ts.LAUNCHES, *trw.LAUNCHES))
+        used = tuple(k for k in (
+            (*tw.LAUNCHES, *tsf.LAUNCHES, *trw.LAUNCHES) if walker else
+            (*tsf.LAUNCHES, *tcu.LAUNCHES, *ts.LAUNCHES, *trw.LAUNCHES))
+            if k not in SKIP_KERNELS)
         optional = (*ttt.LAUNCHES, *ts.LAUNCHES) if walker else ttt.LAUNCHES
         launches = {k: counts[k] for k in (*ttt.LAUNCHES, *used)}
         walks = sum(counts[k] for k in ttt.LAUNCHES)
@@ -1789,7 +1829,8 @@ def phase_colonnade_main_path(torch, np, scene, cam, card, walker=False):
     else:
         print("colonnade frame under torch.profiler: no device time recorded "
               "(device breakdown not measured)")
-    return {k: launches[k] for k in (tw.LAUNCHES if walker else launches)}
+    return {k: launches[k] for k in (("walker_closest", "walker_any")
+                                     if walker else launches)}
 
 
 def phase_colonnade_strat(torch, np, scene, cam, card):
@@ -1822,6 +1863,485 @@ def phase_colonnade_strat(torch, np, scene, cam, card):
           f"{res.elapsed_s / 4:.3f} s per sample, launches "
           f"{ {k: counts[k] for k in tsf.LAUNCHES} }, dispatch "
           f"{traverse.counts()}, image mean {float(img.mean()):.5f} [{card}]")
+
+
+def timed_once(torch, fn):
+    """(fn's result, the device time of that one call in ms, CUDA
+    events): for plain versions, which are slow and run once."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def _combine(torch, co, cd, ct, so, sd, st, ss):
+    """A combined wave: closest lanes with skip -2, then shadow lanes."""
+    skip = torch.full((co.shape[0],), -2, dtype=torch.int32,
+                      device=co.device)
+    return [torch.cat(x).contiguous() for x in
+            ((co, so), (cd, sd), (ct, st), (skip, ss))]
+
+
+def _same_hits(torch, a, b):
+    return all(torch.equal(getattr(a, f), getattr(b, f))
+               for f in ("hit", "t", "prim", "sphere", "b0", "b1"))
+
+
+def _engine(name):
+    """Set the dispatch's divergent branch for a with-block: "walker" sets
+    both walker flags, "fallback" gives the slot stream a budget of zero
+    rows (every divergent wave falls back to the treelet walk)."""
+    import contextlib
+
+    from yuki_tpu_torch.ops import trace_stream as ts
+
+    @contextlib.contextmanager
+    def ctx():
+        saved = ts._max_rows
+        if name == "fallback":
+            ts._max_rows = lambda *a: 0
+        _walker_flags(name == "walker")
+        try:
+            yield
+        finally:
+            ts._max_rows = saved
+            _walker_flags(False)
+    return ctx()
+
+
+def phase_combined(torch, scene, rays, wave0, card):
+    """12. The combined wave on the colonnade: the 2048-tile wave's 524,288
+    bounce-1 closest lanes (skip -2) and their 1,048,576 NEE shadow lanes
+    (the rect light's id or -2 for the distant light, the 0.9999 chord),
+    skip_sort=True, bary_count = the closest lanes, on the slot stream,
+    the walker and the fallback (each forced, see _engine).  The rows
+    engine's wave is the coherent form of the same: the camera lanes and
+    their bounce-0 shadow lanes, sorted by ray_sort_key (skip_sort False,
+    yuki_tpu's default), which the probe itself sends to the rows engine
+    (in film order the shadow rows' demand passes the engine's budget of
+    24 pairs a row, and the wave would fall back; both are printed).
+    Each engine is driven once with the counts at 0, then held to the two
+    contracts: skip -2 everywhere is the query
+    without skip, bit for bit, and the shadow lanes' .hit is
+    any_intersect with the same skip; then each with_skip kernel against
+    its plain version on the lanes the dispatch gives it, bit for bit,
+    with its time beside the same kernel without skip on the same lanes,
+    and bounds from the plain tallies (24 operations a recheck, 40 a
+    scaled test)."""
+    from yuki_tpu_torch import traverse
+    from yuki_tpu_torch.ops import trace_cull as tcu
+    from yuki_tpu_torch.ops import trace_rows as trw
+    from yuki_tpu_torch.ops import trace_stream as ts
+    from yuki_tpu_torch.ops import trace_walker as tw
+
+    data, meta, ch = scene.data, scene.meta, scene.data.chunks
+    n = rays[0].shape[0]
+    waves = {"bounce-1": _combine(torch, *rays),
+             "camera": _combine(torch, *wave0)}
+    for w in waves.values():
+        check(w[0].shape[0] == 3 * n, f"combined wave of {w[0].shape[0]}")
+    for order, w in (("film order", waves["camera"]),
+                     ("sorted", _sort_rays(torch, data, *waves["camera"]))):
+        words = trw.row_words_interval(ch, *w[:3])
+        print(f"the rows engine's probe on the combined camera wave, "
+              f"{order}: pair demand {int(traverse._rows_demand(words))} "
+              f"against the budget {words.shape[0] * traverse._ROWS_MULT}")
+    engines = (("rows", "camera", False), ("slot", "bounce-1", True),
+               ("walker", "bounce-1", True), ("fallback", "bounce-1", True))
+    names = ("rows_closest_skip", "slot_closest_skip", "walker_closest_skip")
+    launches = dict.fromkeys(names, 0)
+    for engine, which, skip_sort in engines:
+        o, d, t, sk = waves[which]
+        q = dict(skip_sort=skip_sort)
+        bary = n if skip_sort else None
+        with _engine(engine):
+            torch.cuda.synchronize()
+            reset_all_launches()
+            hit = traverse.intersect(data, meta, o, d, t, sk, bary_count=bary,
+                                     **q)
+            torch.cuda.synchronize()
+            counts, c = all_launches(), traverse.counts()
+            for k in names:
+                launches[k] += counts[k]
+            branch = "closest_" + {"fallback": "slot"}.get(engine, engine)
+            check(c[branch] == 1 and c["fallbacks"] == (engine == "fallback"),
+                  f"combined wave on the {engine} engine: dispatch {c}")
+            plain = traverse.intersect(data, meta, o, d, t, **q)
+            neutral = traverse.intersect(data, meta, o, d, t,
+                                         torch.full_like(sk, -2), **q)
+            occ = traverse.any_intersect(data, meta, o[n:], d[n:], t[n:],
+                                         sk[n:], **q)
+            torch.cuda.synchronize()
+            check(_same_hits(torch, neutral, plain), f"combined wave on the "
+                  f"{engine} engine: skip -2 differs from no skip")
+            n_bad = int((hit.hit[n:] != occ).sum())
+            check(n_bad == 0, f"combined wave on the {engine} engine: "
+                  f"{n_bad} shadow lanes' hit differs from any_intersect")
+            # In natural order no row or bundle mixes closest and shadow
+            # lanes, so the closest lanes' answers cannot change.
+            check(not skip_sort or (
+                torch.equal(hit.prim[:n], plain.prim[:n])
+                and torch.equal(hit.t[:n], plain.t[:n])
+                and torch.equal(hit.b0[:n], plain.b0[:n])),
+                f"combined wave on the {engine} engine: closest lanes "
+                "changed")
+            reps = 1 if engine == "fallback" else 3
+            ms_c = cuda_ms(torch, lambda: traverse.intersect(
+                data, meta, o, d, t, sk, bary_count=bary, **q), reps)
+            ms_s = cuda_ms(torch, lambda: (
+                traverse.intersect(data, meta, o[:n], d[:n], t[:n], **q),
+                traverse.any_intersect(data, meta, o[n:], d[n:], t[n:],
+                                       sk[n:], **q)), reps)
+        print(f"combined {which} wave on the {engine} engine [{3 * n} lanes: "
+              f"{n} closest, {2 * n} shadow, {int(occ.sum())} occluded, "
+              f"{'skip_sort' if skip_sort else 'sorted'}; "
+              f"dispatch {c}]: skip -2 equals no skip bit for bit, shadow "
+              f"hit equals any_intersect; combined call {ms_c:.3f} ms, the "
+              f"two separate calls {ms_s:.3f} ms; launches "
+              f"{ {k: counts[k] for k in names if counts[k]} } [{card}]")
+    for k in names:
+        check(launches[k] > 0, f"combined waves: {k} never launched")
+
+    result = {}
+    k = ch.leaf_size
+    # rows_closest_skip on the sorted coherent wave's probe lists.
+    o, d, t, sk = _sort_rays(torch, data, *waves["camera"])
+    skf = sk.to(torch.float32)
+    lists, _ = trw.kept_lists(trw.row_words_interval(ch, o, d, t),
+                              traverse._ROWS_C, traverse._ROWS_MULT)
+    chunks = int(torch.unique(lists[lists >= 0]).numel())
+    kern = (lambda: trw.rows_closest_walk(ch, lists, o, d, t, skf),
+            lambda: trw.rows_closest_walk(ch, lists, o, d, t))
+    stats = {}
+    ref, ms_p = timed_once(torch, lambda: trw.rows_closest_walk_plain(
+        ch, lists, o, d, t, stats, skip=skf))
+    nbytes_ = o.shape[0] * (32 + 12) + lists.numel() * 4 + chunks * k * 48
+    result["rows_closest_skip"] = _skip_kernel(
+        torch, "rows_closest_skip", kern, ref, ms_p, nbytes_,
+        stats["boxes"] * OPS_SLAB + stats["tests"] * OPS_SCALED,
+        f"{3 * n} sorted camera + bounce-0 shadow lanes, {lists.shape[0]} "
+        "rows, "
+        f"{chunks} chunks listed; {stats['boxes']} rechecks, "
+        f"{stats['tests']} triangle tests", card)
+
+    # slot_closest_skip on the bounce-1 wave's slots.
+    o, d, t, sk = waves["bounce-1"]
+    cl, _ = tcu.candidate_lists_fused(ch, o, d, t, ts.C_MAIN)
+    slots = ts._slots(ch, cl, ts.C_MAIN, meta.slot_mult_tight, meta.slot_mult,
+                      3 * n)
+    check(slots is not None, "slot_closest_skip: the combined wave's slot "
+          "budget blew")
+    _, slot_ray, row_chunk, valid = slots
+    stream = ts._pack_stream(o, d, t, slot_ray, valid, extra=sk)
+    kern = (lambda: ts.slot_closest(ch.rows, k, row_chunk, stream, True),
+            lambda: ts.slot_closest(ch.rows, k, row_chunk, stream))
+    stats = {}
+    ref, ms_p = timed_once(torch, lambda: ts.slot_closest_plain(
+        ch.rows, k, row_chunk, stream, stats, with_skip=True))
+    chunks = int(torch.unique(row_chunk).numel())
+    result["slot_closest_skip"] = _skip_kernel(
+        torch, "slot_closest_skip", kern, ref, ms_p,
+        stream.shape[0] * (32 + 12) + row_chunk.numel() * 4
+        + chunks * k * 48, stats["tests"] * OPS_SCALED,
+        f"{3 * n} bounce-1 + shadow lanes, {row_chunk.numel()} slot rows, "
+        f"{int(valid.sum())} valid slots, {chunks} chunks; {stats['tests']} "
+        "triangle tests", card)
+
+    # walker_closest_skip on the bounce-1 wave's bundle lists.
+    lists, _ = tw.walker_lists(ts.cross_words(ch, o, d, t), tw.C_WALK)
+    skf = sk.to(torch.float32)
+    kern = (lambda: tw.walker_closest_walk(ch, lists, o, d, t, skf),
+            lambda: tw.walker_closest_walk(ch, lists, o, d, t))
+    stats = {}
+    ref, ms_p = timed_once(torch, lambda: tw.walker_closest_plain(
+        ch, lists, o, d, t, stats, skip=skf))
+    chunks = int(torch.unique(lists[lists >= 0]).numel())
+    result["walker_closest_skip"] = _skip_kernel(
+        torch, "walker_closest_skip", kern, ref, ms_p,
+        3 * n * (32 + 8) + lists.numel() * 4 + chunks * k * 48,
+        stats["boxes"] * OPS_SLAB + stats["tests"] * OPS_SCALED,
+        f"{3 * n} bounce-1 + shadow lanes, {lists.shape[0]} bundles, "
+        f"{chunks} chunks listed; {stats['boxes']} rechecks, "
+        f"{stats['tests']} triangle tests", card)
+    return result, launches
+
+
+def _skip_kernel(torch, name, kern, ref, ms_p, nbytes_, ops, what, card):
+    """A with_skip kernel (kern[0]) against its plain version's output
+    ``ref``, bit for bit; its time beside the same kernel without skip on
+    the same lanes (kern[1])."""
+    got = kern[0]()
+    torch.cuda.synchronize()
+    pairs = zip(got, ref) if isinstance(got, tuple) else ((got, ref),)
+    check(all(torch.equal(g, r) for g, r in pairs),
+          f"{name} differs from its plain version")
+    ms_k = cuda_ms(torch, kern[0], 10)
+    ms_n = cuda_ms(torch, kern[1], 10)
+    b_ms, b_by = bound(nbytes_, ops)
+    print(f"{name} [{what}]: kernel {ms_k:.4f} ms (without skip on the same "
+          f"lanes {ms_n:.4f} ms), plain {ms_p:.4f} ms, bound {b_ms:.4f} ms "
+          f"({b_by}): equal bit for bit [{card}]")
+    return dict(max_abs_err=0.0, ms=ms_k, plain_ms=ms_p, bound_ms=b_ms,
+                bound_by=b_by)
+
+
+def phase_dense_combined(torch, dev, card):
+    """12a. Cornell's combined wave through the dense skip sweep: the
+    1080p 4096-tile camera wave's 1,048,576 closest lanes (skip -2) and
+    their bounce-0 shadow lanes (path_li's own shading), driven once
+    through traverse.intersect with the counts at 0; dense_trace_skip
+    against its plain version bit for bit; skip -2 against dense_trace,
+    the shadow lanes' hits against any_trace; its time beside
+    dense_trace's on the same lanes and the two separate sweeps.  Bound:
+    43 operations a test, each lane with t_max > 0 against every
+    triangle."""
+    from yuki_tpu_torch import traverse
+    from yuki_tpu_torch.integrators import PathParams, _ph_i32
+    from yuki_tpu_torch.ops import shade_fused as tsf
+    from yuki_tpu_torch.ops import trace as ttr
+    from yuki_tpu_torch.ops.trace import F32_MAX, pack_triangles
+    from yuki_tpu_torch.scene.cornell import cornell
+
+    scene, cam, _ = cornell(device=dev)
+    data, meta = scene.data, scene.meta
+    ctx, o, d = _camera_wave(torch, dev, cam, WAVE_TILES)
+    n = o.shape[0]
+    t_max = torch.full((n,), F32_MAX, device=dev)
+    hit = traverse.intersect(data, meta, o, d, t_max, skip_sort=True)
+    tables = tsf.make_shade_tables(scene, PathParams(DEPTH))
+    out = tsf.shade_fused(tables, hit, o, d, torch.ones_like(o), hit.hit,
+                          torch.zeros_like(hit.hit), _ph_i32(ctx), 2, 0)
+    co, cd, ct, cs = _combine(torch, o, d, t_max, *out[5:9])
+    tris = pack_triangles(data.tris.p0, data.tris.p1, data.tris.p2)
+    light = data.tris.area_light
+    m, nt = co.shape[0], tris.shape[0]
+    torch.cuda.synchronize()
+    reset_all_launches()
+    hit_c = traverse.intersect(data, meta, co, cd, ct, cs, skip_sort=True,
+                               bary_count=n)
+    torch.cuda.synchronize()
+    launches = {"dense_closest_skip": all_launches()["dense_closest_skip"]}
+    check(launches["dense_closest_skip"] == 1,
+          f"Cornell combined wave: launches {launches}")
+    got = ttr.dense_trace_skip(tris, light, co, cd, ct, cs)
+    ref, ms_p = timed_once(torch, lambda: ttr.dense_trace_skip_plain(
+        tris, light, co, cd, ct, cs))
+    for g, r, f in zip(got, ref, ("t", "prim", "b0", "b1")):
+        check(torch.equal(g, r), f"dense_closest_skip: {f} differs from the "
+              "plain version")
+    neutral = ttr.dense_trace_skip(tris, light, co, cd, ct,
+                                   torch.full_like(cs, -2))
+    plain = ttr.dense_trace(tris, co, cd, ct)
+    occ = ttr.any_trace(tris, light, co[n:], cd[n:], ct[n:], cs[n:])
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(neutral, plain)),
+          "dense_closest_skip: skip -2 differs from dense_trace")
+    check(torch.equal(got[1][n:] >= 0, occ),
+          "dense_closest_skip: shadow hits differ from any_trace")
+    occ_q = traverse.any_intersect(data, meta, co[n:], cd[n:], ct[n:],
+                                   cs[n:], skip_sort=True)
+    check(torch.equal(hit_c.hit[n:], occ_q), "Cornell combined wave: the "
+          "shadow lanes' hit differs from any_intersect")
+    ms_k = cuda_ms(torch, lambda: ttr.dense_trace_skip(tris, light, co, cd,
+                                                       ct, cs), 10)
+    ms_n = cuda_ms(torch, lambda: ttr.dense_trace(tris, co, cd, ct), 10)
+    ms_s = cuda_ms(torch, lambda: (
+        ttr.dense_trace(tris, co[:n], cd[:n], ct[:n]),
+        ttr.any_trace(tris, light, co[n:], cd[n:], ct[n:], cs[n:])), 10)
+    tests = int((ct > 0.0).sum()) * nt
+    b_ms, b_by = bound(m * (28 + 4 + 16) + nt * 52, tests * OPS_WATERTIGHT)
+    print(f"dense_closest_skip [Cornell combined wave: {m} lanes, {n} "
+          f"closest, {m - n} shadow, {int(occ.sum())} occluded, {nt} "
+          f"triangles]: kernel {ms_k:.4f} ms (dense_closest on the same "
+          f"lanes {ms_n:.4f} ms; the separate closest and occlusion sweeps "
+          f"{ms_s:.4f} ms), plain {ms_p:.4f} ms, bound {b_ms:.4f} ms ({b_by}; "
+          f"{tests} triangle tests): equal bit for bit; skip -2 equals "
+          f"dense_trace, shadow hits equal any_trace; launches {launches} "
+          f"[{card}]")
+    return {"dense_closest_skip": dict(max_abs_err=0.0, ms=ms_k,
+                                       plain_ms=ms_p, bound_ms=b_ms,
+                                       bound_by=b_by)}, launches
+
+
+def _sort_rays(torch, data, o, d, *rest):
+    from yuki_tpu_torch import traverse
+
+    order = torch.argsort(traverse.ray_sort_key(data, o, d), stable=True)
+    return [x[order].contiguous() for x in (o, d, *rest)]
+
+
+def phase_pairs(torch, scene, rays, card):
+    """13. The block-pair walks on the wave's bounce-1 rays and their
+    shadow rays, each sorted by ray_sort_key, at yuki_tpu's pair capacity
+    (traverse.py:288-297, max(393216, 2 N)), driven once with the counts
+    at 0; each kernel against its plain version on B1_BLOCKS whole blocks
+    from the middle of the list, bit for bit; the whole wave against the
+    treelet walk: t bit for bit (both take the direct-t test), prim apart
+    from counted ties (equal t), b0/b1 where prim is equal, occlusion
+    exact.  Bounds from the plain versions' tallies on the slice (43
+    operations a test, 24 a box)."""
+    from yuki_tpu_torch.ops import trace_pairs as tpp
+    from yuki_tpu_torch.ops import trace_treelets as ttt
+
+    data, tl = scene.data, scene.data.treelets
+    o2, d2, t2, no2, nd2, nt2, sk2 = rays
+    waves = {"pairs_closest": _sort_rays(torch, data, o2, d2, t2),
+             "pairs_any": _sort_rays(torch, data, no2, nd2, nt2, sk2)}
+    caps = {k: max(393216, 2 * w[0].shape[0]) for k, w in waves.items()}
+    torch.cuda.synchronize()
+    tpp.reset_launches()
+    out_c = tpp.pairs_closest(tl, *waves["pairs_closest"],
+                              max_pairs=caps["pairs_closest"])
+    out_a = tpp.pairs_any(tl, *waves["pairs_any"],
+                          max_pairs=caps["pairs_any"])
+    torch.cuda.synchronize()
+    launches = dict(tpp.LAUNCHES)
+    check(launches == {"pairs_closest": 1, "pairs_any": 1},
+          f"pair walks: launches {launches}")
+    result = {}
+    row_bytes = tl.leaf_size * 48
+    for name, w in waves.items():
+        m = w[0].shape[0]
+        closest = name == "pairs_closest"
+        n_pairs = out_c[4] if closest else out_a[1]
+        check(n_pairs <= caps[name], f"{name}: {n_pairs} pairs past the "
+              f"capacity {caps[name]}")
+        pb, pt, _, nb = tpp.block_candidate_pairs(tl, *w[:3], caps[name])
+        runs = tpp.pair_runs(pb, n_pairs, nb)
+        packed = tpp._pack_rays(*w[:3], nb, None if closest else w[3])
+        walk = tpp.pairs_closest_walk if closest else tpp.pairs_any_walk
+        plain = tpp.pairs_closest_plain if closest else tpp.pairs_any_plain
+        # B1_BLOCKS blocks from the middle of those with live lanes (the
+        # sort gathers the parked lanes into blocks of their own).
+        live = torch.nonzero((w[2] > 0.0).reshape(-1)[:nb * tpp.BLOCK]
+                             .reshape(nb, -1).any(dim=1) if m == nb * tpp.BLOCK
+                             else torch.ones(nb, dtype=torch.bool)).squeeze(1)
+        a = min(int(live[live.numel() // 2]), nb - B1_BLOCKS)
+        b = a + B1_BLOCKS
+        s_runs = (runs[a:b + 1] - runs[a]).contiguous()
+        s_pt = pt[int(runs[a]):int(runs[b])].contiguous()
+        s_packed = packed[a * tpp.BLOCK_ROWS:(b + 1) * tpp.BLOCK_ROWS]
+        s_n = (b - a) * tpp.BLOCK
+        got = walk(tl, s_runs, s_pt, s_packed.contiguous(), s_n)
+        stats = {}
+        ref, ms_p = timed_once(torch, lambda: plain(tl, s_runs, s_pt,
+                                                     s_packed, stats))
+        pairs = ((got, ref),) if not closest else zip(got, ref)
+        check(all(torch.equal(g, r[:s_n]) for g, r in pairs),
+              f"{name} differs from its plain version on blocks {a}-{b - 1}")
+        ms_k = cuda_ms(torch, lambda: walk(tl, s_runs, s_pt, s_packed, s_n),
+                       10)
+        ms_full = cuda_ms(torch, lambda: walk(tl, runs, pt, packed, m), 3)
+        ms_call = cuda_ms(torch, lambda: (
+            tpp.pairs_closest(tl, *w, max_pairs=caps[name]) if closest else
+            tpp.pairs_any(tl, *w, max_pairs=caps[name])), 3)
+        b_ms, b_by = bound(s_n * (28 + (16 if closest else 5))
+                           + s_pt.numel() * 4 + stats["treelets"] * row_bytes,
+                           stats["tests"] * OPS_WATERTIGHT
+                           + stats["boxes"] * OPS_SLAB)
+        if closest:
+            t_w, p_w, b0_w, b1_w = ttt.treelet_closest(tl, *w)
+            t_p, p_p, b0_p, b1_p = out_c[:4]
+            n_t = int((t_p != t_w).sum())
+            same = p_p == p_w
+            ties = int((~same).sum())
+            n_b = int(((b0_p != b0_w) | (b1_p != b1_w))[same].sum())
+            found = (f"{int((p_p >= 0).sum())} hits; against the treelet "
+                     f"walk: t differs on {n_t} rays, prim on {ties} ties, "
+                     f"b0/b1 on {n_b} rays where prim is equal")
+            check(n_t == 0 and n_b == 0, f"{name} against the treelet walk: "
+                  f"{found}")
+        else:
+            occ_w = ttt.treelet_any(tl, *w)
+            n_o = int((out_a[0] != occ_w).sum())
+            found = (f"{int(out_a[0].sum())} occluded; against the treelet "
+                     f"walk: {n_o} verdicts differ")
+            check(n_o == 0, f"{name} against the treelet walk: {found}")
+        print(f"{name} [{m} sorted {'bounce-1' if closest else 'shadow'} "
+              f"rays, {nb} blocks, {n_pairs} pairs (capacity {caps[name]}), "
+              f"{found}]: whole wave: kernel {ms_full:.4f} ms, call with the "
+              f"cull {ms_call:.4f} ms; blocks {a}-{b - 1} ({s_n} rays, "
+              f"{s_pt.numel()} pairs): kernel {ms_k:.4f} ms, plain {ms_p:.4f} "
+              f"ms, bound {b_ms:.4f} ms ({b_by}; {stats['tests']} triangle "
+              f"tests, {stats['boxes']} box tests, {stats['treelets']} "
+              f"treelets): equal bit for bit [{card}]")
+        result[name] = dict(max_abs_err=0.0, ms=ms_k, plain_ms=ms_p,
+                            bound_ms=b_ms, bound_by=b_by, wave_ms=ms_full)
+    return result, launches
+
+
+def phase_sort(torch, scene, rays, card):
+    """13a. The coherence sort on the card: ray_sort_key against the same
+    function on the CPU (held there against yuki_tpu's u32 key), the
+    _sorted_call round trip, the sort's cost per call at 524,288 and
+    1,572,864 rays, and the dispatch with skip_sort False (sorted) against
+    True on the bounce-1 rays and their shadow rays: prim and occlusion
+    equal apart from counted ties (t within an ulp), with the branch
+    counts and the time of each."""
+    from yuki_tpu_torch import traverse
+
+    data, meta = scene.data, scene.meta
+    o2, d2, t2, no2, nd2, nt2, sk2 = rays
+    key = traverse.ray_sort_key(data, o2, d2)
+    bounds = SimpleNamespace(world_lo=data.world_lo.cpu(),
+                             world_hi=data.world_hi.cpu())
+    check(torch.equal(key.cpu(), traverse.ray_sort_key(bounds, o2.cpu(),
+                                                       d2.cpu())),
+          "ray_sort_key on the card differs from the CPU's")
+    idx = torch.arange(o2.shape[0], device=o2.device)
+    back = traverse._sorted_call(data, o2, d2, t2, idx,
+                                 lambda o, d, t, e: (e,))[0]
+    check(torch.equal(back, idx), "_sorted_call does not restore the order")
+    costs = []
+    comb = _combine(torch, o2, d2, t2, no2, nd2, nt2, sk2)
+    for w in ((o2, d2, t2, None), comb):
+        ms = cuda_ms(torch, lambda: traverse._sorted_call(
+            data, *w, lambda o, d, t, e: (t,)), 5)
+        costs.append(f"{w[0].shape[0]} rays {ms:.3f} ms")
+    out = {}
+    for skip_sort in (False, True):
+        traverse.reset_counts()
+        hit = traverse.intersect(data, meta, o2, d2, t2, skip_sort=skip_sort)
+        c1 = traverse.counts()
+        traverse.reset_counts()
+        occ = traverse.any_intersect(data, meta, no2, nd2, nt2, sk2,
+                                     skip_sort=skip_sort)
+        c2 = traverse.counts()
+        ms_c = cuda_ms(torch, lambda: traverse.intersect(
+            data, meta, o2, d2, t2, skip_sort=skip_sort), 3)
+        ms_a = cuda_ms(torch, lambda: traverse.any_intersect(
+            data, meta, no2, nd2, nt2, sk2, skip_sort=skip_sort), 3)
+        out[skip_sort] = hit, occ, c1, c2, ms_c, ms_a
+    (h_s, occ_s, c1_s, c2_s, ms_cs, ms_as) = out[False]
+    (h_n, occ_n, c1_n, c2_n, ms_cn, ms_an) = out[True]
+    ulp = (h_s.t.view(torch.int32) - h_n.t.view(torch.int32)).abs()
+    same = h_s.prim == h_n.prim
+    ties = int((~same).sum())
+    check(int((ulp[~same] > 1).sum()) == 0,
+          "sorted dispatch: prim differs where t is not within an ulp")
+    max_ulp = int(ulp.max())
+    check(max_ulp <= 1, f"sorted dispatch: t {max_ulp} ulps apart")
+    n_occ = int((occ_s != occ_n).sum())
+    check(n_occ == 0, f"sorted dispatch: {n_occ} occlusion verdicts differ")
+
+    def branches(c):
+        return {k: v for k, v in c.items() if v and k != "host_syncs"}
+
+    print(f"coherence sort [{card}]: ray_sort_key equals the CPU's on "
+          f"{o2.shape[0]} rays, _sorted_call restores the order; cost per "
+          f"call (key, stable argsort, gathers, one scatter back): "
+          f"{', '.join(costs)}; dispatch sorted against skip_sort on "
+          f"{o2.shape[0]} bounce-1 rays: prim differs at {ties} ties, t at "
+          f"most {max_ulp} ulp apart, {c1_s['overflow_rays']} / "
+          f"{c1_n['overflow_rays']} overflow rays, branches "
+          f"{branches(c1_s)} / {branches(c1_n)}, {ms_cs:.3f} / {ms_cn:.3f} "
+          f"ms a call; {no2.shape[0]} shadow rays: occlusion equal, "
+          f"branches {branches(c2_s)} / {branches(c2_n)}, {ms_as:.3f} / "
+          f"{ms_an:.3f} ms a call")
 
 
 def main():
@@ -1865,13 +2385,21 @@ def main():
         phase_dispatch_vs_walk(torch, scene, rays, card)
         kernels.update(phase_rows_kernels(torch, scene, wave0, card))
         kernels.update(phase_walker(torch, scene, rays, wave0, card))
-        del rays, wave0
         for walker in (False, True):
             phase_colonnade_golden(torch, np, scene, cam, walker)
         for walker in (False, True):
             launches.update(phase_colonnade_main_path(torch, np, scene, cam,
                                                       card, walker))
         phase_colonnade_strat(torch, np, scene, cam, card)
+        t_new = time.monotonic()
+        for phase in (lambda: phase_combined(torch, scene, rays, wave0, card),
+                      lambda: phase_dense_combined(torch, dev, card),
+                      lambda: phase_pairs(torch, scene, rays, card)):
+            new_kernels, new_launches = phase()
+            kernels.update(new_kernels)
+            launches.update(new_launches)
+        phase_sort(torch, scene, rays, card)
+        print(f"phases 12-13a: {time.monotonic() - t_new:.1f} s")
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1

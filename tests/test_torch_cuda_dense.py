@@ -69,7 +69,8 @@ def test_dense_sweeps_match_plain(cuda, n_tris):
     assert torch.equal(occ, ttr.any_trace_plain(packed, light, o, d, t_max,
                                                 skip))
     assert bool(occ.any()) and not bool(occ.all())
-    assert ttr.LAUNCHES == {"dense_closest": 1, "dense_any": 1}
+    assert ttr.LAUNCHES == {"dense_closest": 1, "dense_closest_skip": 0,
+                                "dense_any": 1}
 
 
 def test_dense_wrappers_validate(cuda):

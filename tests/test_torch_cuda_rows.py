@@ -90,7 +90,8 @@ def test_rows_walks_match_plain(scene, C, mult):
     assert torch.equal(occ, trw.rows_any_walk_plain(ch, lists, o, d, chord,
                                                     skip))
     assert bool(occ.any()) and not bool(occ.all())
-    assert trw.LAUNCHES == {"rows_closest": 1, "rows_any": 1}
+    assert trw.LAUNCHES == {"rows_closest": 1, "rows_closest_skip": 0,
+                                "rows_any": 1}
 
 
 def test_rows_walk_traps():

@@ -54,7 +54,8 @@ def test_walks_match_plain(cuda, scenes, which, C):
     occ = tw.walker_any_walk(ch, lists, o, d, chord, skip)
     assert torch.equal(occ, tw.walker_any_plain(ch, lists, o, d, chord, skip))
     assert bool(occ.any()) and not bool(occ.all())
-    assert tw.LAUNCHES == {"walker_closest": 1, "walker_any": 1}
+    assert tw.LAUNCHES == {"walker_closest": 1, "walker_closest_skip": 0,
+                               "walker_any": 1}
 
 
 def test_walker_ties(cuda):

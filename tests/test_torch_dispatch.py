@@ -223,12 +223,19 @@ def test_coherent_wave_takes_the_walk(soup):
 
 
 def test_build_treelets_default_device(soup):
-    """build_treelets(device=None) resolves to default_device(), like every
-    other entry point of the port."""
+    """device=None means default_device(), the card: without one,
+    build_treelets, like every entry point of the port, raises and names
+    device="cpu" instead of running on the CPU."""
     _, tsc = soup
+    assert default_device() == torch.device("cuda")
     tri = torch.stack([tsc.data.tris.p0, tsc.data.tris.p1,
                        tsc.data.tris.p2], dim=1).numpy()
-    tl = build_treelets(tsc.bvh_host, tri,
-                        tsc.data.tris.area_light.numpy(), leaf_size=64)
-    assert tl.rows.device == default_device()
-    assert tl.super_bounds.device == default_device()
+    light = tsc.data.tris.area_light.numpy()
+    if torch.cuda.is_available():
+        tl = build_treelets(tsc.bvh_host, tri, light, leaf_size=64)
+        assert tl.rows.device.type == tl.super_bounds.device.type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        build_treelets(tsc.bvh_host, tri, light, leaf_size=64)
+    tl = build_treelets(tsc.bvh_host, tri, light, leaf_size=64, device="cpu")
+    assert tl.rows.device.type == tl.super_bounds.device.type == "cpu"

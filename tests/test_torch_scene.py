@@ -123,9 +123,10 @@ def test_bridge_rejects_missing_leaves():
 
 def test_treelet_sized_scene_raises():
     """Scenes past DENSE_TRI_THRESHOLD build as treelet scenes, scenes up
-    to it as dense ones; a dense scene's queries run the dense sweeps, and
-    what still raises is a combined closest + shadow query (skip_light),
-    whose skip sweeps are not ported."""
+    to it as dense ones; a dense scene's queries run the dense sweeps,
+    a combined closest + shadow query (skip_light) included: its skip
+    sweep no longer raises, and skip -1 ignores every triangle that is not
+    an area light."""
     from yuki_tpu_torch import transforms as tf
     from yuki_tpu_torch import traverse
     from yuki_tpu_torch.ops.trace import dense_trace_plain, pack_triangles
@@ -154,9 +155,11 @@ def test_treelet_sized_scene_raises():
     occ = traverse.any_intersect(small.data, small.meta, o, d, t_max,
                                  torch.full((4,), -2, dtype=torch.int32))
     assert occ.all()
-    with pytest.raises(NotImplementedError, match="Queue 2 item 3"):
-        traverse.intersect(small.data, small.meta, o, d, torch.ones(4),
-                           skip_light=torch.zeros(4, dtype=torch.int32))
+    for skip, hits in ((0, True), (-1, False)):
+        got = traverse.intersect(
+            small.data, small.meta, o, d, t_max,
+            skip_light=torch.full((4,), skip, dtype=torch.int32))
+        assert bool(got.hit.all()) == hits and bool(got.hit.any()) == hits
 
 
 def test_tiling_asset_raises(tmp_path):

@@ -51,7 +51,7 @@ def soup():
     jtl = jax_build_treelets(jsc.bvh_host, tri, light, leaf_size=16,
                              super_size=64)
     ttl = build_treelets(tsc.bvh_host, tri, light, leaf_size=16,
-                         super_size=64)
+                         super_size=64, device="cpu")
     return jsc, tsc, jtl, ttl
 
 

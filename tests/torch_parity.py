@@ -185,10 +185,11 @@ def soup(sd, tf, **build):
     return b.build(split_method="sah", max_shapes_in_node=4, **build)
 
 
-def soup_scenes(n_tris, seed):
+def soup_scenes(n_tris, seed, lit=False):
     """(JAX scene, port scene on the CPU) of soup_triangles(n_tris, seed),
     one mesh per triangle, sah with four shapes per leaf (tests/
-    test_stream.py's soup)."""
+    test_stream.py's soup); ``lit``: the second half of the triangles
+    carry area-light id 0, as tests/test_combined.py's soup."""
     from yuki_tpu import transforms as jtf
     from yuki_tpu.scene import data as jdata
     from yuki_tpu_torch import transforms as tf
@@ -199,8 +200,9 @@ def soup_scenes(n_tris, seed):
     for sd, tfm, build in ((jdata, jtf, {}), (tdata, tf, {"device": "cpu"})):
         b = sd.SceneBuilder("soup")
         m = b.add_matte(kd=(0.7, 0.6, 0.5))
-        for t in soup_triangles(n_tris, seed):
-            b.add_mesh(tfm.Transform.identity(), [0, 1, 2], t, material=m)
+        for i, t in enumerate(soup_triangles(n_tris, seed)):
+            b.add_mesh(tfm.Transform.identity(), [0, 1, 2], t, material=m,
+                       area_light=0 if lit and i >= n_tris // 2 else -1)
         out.append(b.build(split_method="sah", max_shapes_in_node=4,
                            **build))
     return tuple(out)
@@ -541,23 +543,26 @@ def assert_parity(ref, rays_ref, got, rays_got, depth, spp=1,
 def jax_dense_kernels():
     """Make yuki_tpu's dense queries (traverse.intersect_dense,
     any_intersect_dense) run its Pallas dense kernels (ops/trace.py
-    dense_trace, any_trace) in interpret mode, as they run on the TPU,
-    instead of its CPU sweep over intersect.ray_triangle, whose t_scaled
-    associates differently (e0 * (p0z * sz) + ... against the kernels'
-    (e0 * p0z + ...) * inv_dz)."""
+    dense_trace, dense_trace_skip, any_trace) in interpret mode, as they
+    run on the TPU, instead of its CPU sweep over intersect.ray_triangle,
+    whose t_scaled associates differently (e0 * (p0z * sz) + ... against
+    the kernels' (e0 * p0z + ...) * inv_dz)."""
     import functools
 
     from yuki_tpu import traverse as jtr
     from yuki_tpu.ops import trace as jtrace
 
-    saved = jtr._backend_tpu, jtrace.dense_trace, jtrace.any_trace
+    names = ("dense_trace", "dense_trace_skip", "any_trace")
+    saved = jtr._backend_tpu, [getattr(jtrace, k) for k in names]
     jtr._backend_tpu = lambda: True
-    jtrace.dense_trace = functools.partial(saved[1], interpret=True)
-    jtrace.any_trace = functools.partial(saved[2], interpret=True)
+    for k, fn in zip(names, saved[1]):
+        setattr(jtrace, k, functools.partial(fn, interpret=True))
     try:
         yield
     finally:
-        jtr._backend_tpu, jtrace.dense_trace, jtrace.any_trace = saved
+        jtr._backend_tpu = saved[0]
+        for k, fn in zip(names, saved[1]):
+            setattr(jtrace, k, fn)
 
 
 def samplers(strat=None, spp=1):

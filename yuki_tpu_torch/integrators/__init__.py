@@ -64,7 +64,8 @@ def path_li(scene, meta, params: PathParams, sampler, ctx, o, d,
             tables=None, dim: int = 2) -> LiResult:
     """Path tracing with NEE every bounce, optional indirect clamp and
     Russian roulette after bounce 3 (path.rs:48-178), for dense and
-    treelet scenes (``traverse.intersect`` / ``any_intersect``).
+    treelet scenes (``traverse.intersect`` / ``any_intersect`` with
+    ``skip_sort=True``, as yuki_tpu's path_li calls them).
 
     Sampler dimensions advance by 2L+3 per bounce (2 per light, 2 for the
     BSDF sample, 1 for roulette, reserved on every bounce).  Dead lanes
@@ -98,14 +99,15 @@ def path_li(scene, meta, params: PathParams, sampler, ctx, o, d,
                if strat else None)
         ray_count = ray_count + alive.to(torch.int32)
         t_max = torch.where(alive, traverse.F32_MAX, 0.0).to(torch.float32)
-        hit = traverse.intersect(data, meta, o, d, t_max)
+        hit = traverse.intersect(data, meta, o, d, t_max, skip_sort=True)
         missed = alive & ~hit.hit
         alive = alive & hit.hit
         (o2, d2, beta2, alive2, spec2, no, nd, nt, ns_skip, nw, nc,
          ne) = shade_fused.shade_fused(tables, hit, o, d, beta, alive,
                                        specular_bounce, ph, dim0, bounce,
                                        spl)
-        occ = traverse.any_intersect(data, meta, no, nd, nt, ns_skip)
+        occ = traverse.any_intersect(data, meta, no, nd, nt, ns_skip,
+                                     skip_sort=True)
         radiance = shade_fused.resolve_fused(tables, radiance, beta, alive,
                                              missed, ne, occ, nw, nc, bounce)
         o, d, beta, alive, specular_bounce = o2, d2, beta2, alive2, spec2

@@ -13,10 +13,12 @@ headers, so the build takes seconds):
   trace_rows.cu      the row-union walks of coherent waves (closest, any)
   trace_dense.cu     the dense scenes' trace sweeps (closest, any)
   trace_walker.cu    the bundle walks of divergent waves (closest, any)
+  trace_pairs.cu     the block-pair treelet walks (closest, any)
 
 ``path_fused.cuh`` holds the device maths they share, ``trace_stream.cuh``
 the slab and scaled watertight tests and the chunk walk of the stream,
-cull, row and walker kernels.  The library lands
+cull, row and walker kernels, ``trace_treelets.cuh`` the lanes, box test
+and row staging of the treelet and pair walks.  The library lands
 in ``build/yuki_tpu_torch/`` at the repository root, named by a hash of
 the sources and flags, so an edited source is rebuilt and an unchanged
 one is reused; a file lock keeps concurrent processes from building it
@@ -42,8 +44,8 @@ from ..native import BUILD_DIR, locked_build
 CSRC = Path(__file__).resolve().parent / "csrc"
 UNITS = ("path_fused.cu", "shade_fused.cu", "trace_treelets.cu",
          "trace_stream.cu", "trace_cull.cu", "trace_rows.cu", "trace_dense.cu",
-         "trace_walker.cu")
-SOURCES = UNITS + ("path_fused.cuh", "trace_stream.cuh")
+         "trace_walker.cu", "trace_pairs.cu")
+SOURCES = UNITS + ("path_fused.cuh", "trace_stream.cuh", "trace_treelets.cuh")
 
 # -fmad=false: contracting a*b - c*d into an FMA changes the watertight
 # test's edge functions (ARCHITECTURE.md, "FMA hazard" in ROADMAP.md).
@@ -117,25 +119,36 @@ def _declare(lib: ctypes.CDLL) -> None:
         i, p, i, p, i, i, i,  # device, word boxes, n_words, chunk boxes, n_chunks, S, C
         p, p, p, i, p, p, p,  # o, d, tmax, n, lists, overflow, stream
     ]
-    for name in ("yk_slot_closest", "yk_slot_any"):
-        # device, rows, leaf_size, row_chunk, n_rows, ray stream, out, stream
-        getattr(lib, name).argtypes = [i, p, i, p, i, p, p, p]
+    # device, rows, leaf_size, row_chunk, n_rows, ray stream, with_skip,
+    # out, stream
+    lib.yk_slot_closest.argtypes = [i, p, i, p, i, p, i, p, p]
+    # device, rows, leaf_size, row_chunk, n_rows, ray stream, occ, stream
+    lib.yk_slot_any.argtypes = [i, p, i, p, i, p, p, p]
     lib.yk_rows_closest.argtypes = [
         i, p, p, i, p, i, i,  # device, chunk boxes, rows, leaf_size, lists, C, n_rows
-        p, p, p, p, p,  # o, d, tmax, out, stream
+        p, p, p, p, p, p,  # o, d, tmax, skip (or null), out, stream
     ]
     lib.yk_rows_any.argtypes = [
         i, p, p, i, p, i, i,  # device, chunk boxes, rows, leaf_size, lists, C, n_rows
         p, p, p, p, p, p,  # o, d, tmax, skip, occ, stream
     ]
     lib.yk_dense_closest.argtypes = [
-        i, p, i, p, p, p, i,  # device, tris, n_tris, o, d, tmax, n
+        i, p, p, i, p, p, p, p, i,  # device, tris, light, n_tris, o, d, tmax, skip, n
         p, p, p, p, p,  # t, prim, b0, b1, stream
     ]
-    for name in ("yk_walker_closest", "yk_walker_any"):
-        # device, chunk boxes, rows, leaf_size, lists, C, n_bundles, o, d,
-        # tmax, then t + prim (closest) or skip + occ (any), stream
-        getattr(lib, name).argtypes = [i, p, p, i, p, i, i, p, p, p, p, p, p]
+    # device, chunk boxes, rows, leaf_size, lists, C, n_bundles, o, d, tmax,
+    # skip (or null), t, prim, stream
+    lib.yk_walker_closest.argtypes = [i, p, p, i, p, i, i, p, p, p, p, p, p,
+                                      p]
+    # device, chunk boxes, rows, leaf_size, lists, C, n_bundles, o, d, tmax,
+    # skip, occ, stream
+    lib.yk_walker_any.argtypes = [i, p, p, i, p, i, i, p, p, p, p, p, p]
+    for name in ("yk_pairs_closest", "yk_pairs_any"):
+        # device, treelet boxes, rows, leaf_size, runs, pair treelets,
+        # n_blocks, packed rays, n, then t + prim + b0 + b1 (closest) or
+        # occ (any), stream
+        getattr(lib, name).argtypes = [i, p, p, i, p, p, i, p, i] + [p] * (
+            5 if name == "yk_pairs_closest" else 2)
     lib.yk_dense_any.argtypes = [
         i, p, p, i, p, p, p, p, i,  # device, tris, light, n_tris, o, d, tmax, skip, n
         p, p,  # occ, stream
@@ -145,7 +158,7 @@ def _declare(lib: ctypes.CDLL) -> None:
                  "yk_cull", "yk_slot_closest", "yk_slot_any",
                  "yk_rows_closest", "yk_rows_any", "yk_dense_closest",
                  "yk_dense_any", "yk_walker_closest", "yk_walker_any",
-                 "yk_wave"):
+                 "yk_wave", "yk_pairs_closest", "yk_pairs_any"):
         getattr(lib, name).restype = i
     lib.yk_error_string.argtypes = [i]
     lib.yk_error_string.restype = ctypes.c_char_p

@@ -2,7 +2,8 @@
 // kernels of yuki_tpu/ops/trace.py, the scene queries of dense scenes
 // (at most DENSE_TRI_THRESHOLD = 4096 triangles) outside the fused wave.
 //
-//   yk_dense_closest  replaces _dense_kernel (trace.py:176)
+//   yk_dense_closest  replaces _dense_kernel (trace.py:176) and, given
+//                     light and skip ids, _dense_skip_kernel (:249)
 //   yk_dense_any      replaces _any_kernel (trace.py:221)
 //
 // Design.  One thread per ray, 256-thread blocks.  The triangles' corners
@@ -11,14 +12,18 @@
 // same time (a broadcast).  The closest sweep goes in ascending triangle
 // order and takes a triangle when it hits and ti < t; the RUNNING t enters
 // the watertight range test (t_cur * det, trace.py:167-169), so the lowest
-// index wins an exact tie, as in the TPU kernel.  The occlusion sweep ORs
+// index wins an exact tie, as in the TPU kernel.  The skip variant
+// (dense_closest_kernel<true>) also stages the tile's light ids and never
+// takes a triangle whose id equals the lane's skip id (-2 matches none):
+// one sweep serves combined closest + shadow waves.  The occlusion sweep ORs
 // hits whose light id differs from the lane's skip id: a lane stops at its
 // first occluder and a block once all its lanes are occluded (the result
 // is an OR; the TPU kernel, which has no early exit, gives the same bits).
 //
 // What bounds it: ALU work, 43 operations per watertight test and T tests
-// per ray; traffic is 28-32 B of ray in, 16 B (1 B) out per ray and the
-// 48 B triangle rows once per block (from L2 after the first block).
+// per ray; traffic is 28-32 B of ray in (32-36 B with a skip id), 16 B
+// (1 B) out per ray and the 48 B (52 B) triangle rows once per block (from
+// L2 after the first block).
 //
 // Numerics: built with -fmad=false and without fast-math, watertight9 of
 // path_fused.cuh (the raygen and bounce kernels' test).
@@ -45,11 +50,14 @@ __device__ __forceinline__ bool hit9(const Shear& sh, V3 o, float t_cur, const f
   return watertight9(sh, o, t_cur, c[0], c[1], c[2], c[3], c[4], c[5], c[6], c[7], c[8], t, b0, b1);
 }
 
+template <bool WITH_SKIP>
 __global__ void __launch_bounds__(THREADS)
-    dense_closest_kernel(const float* __restrict__ tris, int n_tris, const float* __restrict__ o,
-                         const float* __restrict__ d, const float* __restrict__ tmax, int n, float* __restrict__ t_out,
-                         int* __restrict__ prim_out, float* __restrict__ b0_out, float* __restrict__ b1_out) {
+    dense_closest_kernel(const float* __restrict__ tris, const int* __restrict__ light, int n_tris,
+                         const float* __restrict__ o, const float* __restrict__ d, const float* __restrict__ tmax,
+                         const int* __restrict__ skip, int n, float* __restrict__ t_out, int* __restrict__ prim_out,
+                         float* __restrict__ b0_out, float* __restrict__ b1_out) {
   __shared__ float tri_s[TILE * 9];
+  __shared__ int light_s[WITH_SKIP ? TILE : 1];
   const int i = blockIdx.x * THREADS + threadIdx.x;
   const bool valid = i < n;
   const V3 ro = valid ? v3(o[3 * i], o[3 * i + 1], o[3 * i + 2]) : zero3();
@@ -57,14 +65,18 @@ __global__ void __launch_bounds__(THREADS)
   float t = valid ? tmax[i] : 0.0f;
   float b0 = 0.0f, b1 = 0.0f;
   int prim = -1;
+  int sk = -2;
+  if constexpr (WITH_SKIP) sk = valid ? skip[i] : -2;
   for (int base = 0; base < n_tris; base += TILE) {
     const int m = min(TILE, n_tris - base);
     __syncthreads();
     stage_tile(tri_s, tris, base, m);
+    if constexpr (WITH_SKIP)
+      for (int j = threadIdx.x; j < m; j += THREADS) light_s[j] = __ldg(light + base + j);
     __syncthreads();
     for (int r = 0; r < m; ++r) {
       float ti, bi0, bi1;
-      if (hit9(sh, ro, t, tri_s + 9 * r, ti, bi0, bi1) && ti < t) {
+      if (hit9(sh, ro, t, tri_s + 9 * r, ti, bi0, bi1) && ti < t && (!WITH_SKIP || light_s[r] != sk)) {
         t = ti;
         prim = base + r;
         b0 = bi0;
@@ -117,12 +129,19 @@ __global__ void __launch_bounds__(THREADS)
 
 // ---- plain C interface, loaded with ctypes ---------------------------------
 
-extern "C" int yk_dense_closest(int device, const float* tris, int n_tris, const float* o, const float* d,
-                                const float* tmax, int n, float* t, int* prim, float* b0, float* b1, void* stream) {
+// light and skip both null: the plain sweep; both given: the skip sweep.
+extern "C" int yk_dense_closest(int device, const float* tris, const int* light, int n_tris, const float* o,
+                                const float* d, const float* tmax, const int* skip, int n, float* t, int* prim,
+                                float* b0, float* b1, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  dense_closest_kernel<<<(n + THREADS - 1) / THREADS, THREADS, 0, (cudaStream_t)stream>>>(tris, n_tris, o, d, tmax,
-                                                                                         n, t, prim, b0, b1);
+  const int blocks = (n + THREADS - 1) / THREADS;
+  if (skip != nullptr)
+    dense_closest_kernel<true><<<blocks, THREADS, 0, (cudaStream_t)stream>>>(tris, light, n_tris, o, d, tmax, skip, n,
+                                                                             t, prim, b0, b1);
+  else
+    dense_closest_kernel<false><<<blocks, THREADS, 0, (cudaStream_t)stream>>>(tris, light, n_tris, o, d, tmax, skip,
+                                                                              n, t, prim, b0, b1);
   return (int)cudaGetLastError();
 }
 

@@ -2,7 +2,8 @@
 // kernels of yuki_tpu/ops/trace_rows.py, the treelet dispatch's engine for
 // coherent waves.
 //
-//   yk_rows_closest  replaces _rows_closest_kernel (trace_rows.py:246)
+//   yk_rows_closest  replaces _rows_closest_kernel (trace_rows.py:246); given
+//                    a skip plane, its with_skip variant
 //   yk_rows_any      replaces _rows_any_kernel (:299)
 //
 // Design.  One 128-thread block per 128-ray row, the rays in their natural
@@ -22,6 +23,8 @@
 //     of the buffer, a second one its first reads;
 //   - closest: closest_chunk (trace_stream.cuh), the slot walk's device
 //     code, seeded from the running carry (ts, det, prim), t = ts / det;
+//     rows_closest_kernel<true> (with_skip) never takes a triangle of the
+//     lane's skip light (plane 7, an f32 light id; -2 matches none);
 //   - occlusion: groups of 8 triangles, each ORed into every lane's verdict
 //     (any_walk, yuki_tpu/ops/trace_stream.py:776-804); after each group
 //     the block leaves the chunk once no crossing lane is still unoccluded,
@@ -31,8 +34,9 @@
 // A row starts from (ts, prim, det) = (t_max, -1, 1), occlusion 0.
 //
 // What bounds it: ALU work, ~40 operations per lane and triangle of every
-// walked chunk plus 24 per recheck; traffic is 28-32 B of ray in and 12 B
-// (4 B) out per ray, 4 B per list entry and 6 KB per walked chunk.
+// walked chunk plus 24 per recheck; traffic is 28-32 B of ray in (32 B for
+// the skip variant) and 12 B (4 B) out per ray, 4 B per list entry and
+// 6 KB per walked chunk.
 //
 // Numerics: built with -fmad=false and without fast-math.  The recheck
 // takes a plain 1 / d, as _recheck does (not _safe_inv), and the NaN-
@@ -82,15 +86,17 @@ __device__ __forceinline__ RowRay load_ray(const float* __restrict__ o, const fl
   return r;
 }
 
+template <bool WITH_SKIP>
 __global__ void __launch_bounds__(ROW)
     rows_closest_kernel(const float* __restrict__ cb, const float* __restrict__ rows, int k,
                         const int* __restrict__ lists, int C, const float* __restrict__ o,
-                        const float* __restrict__ d, const float* __restrict__ tmax, float* __restrict__ out,
-                        int n) {
+                        const float* __restrict__ d, const float* __restrict__ tmax, const float* __restrict__ skip,
+                        float* __restrict__ out, int n) {
   extern __shared__ float tri_s[];
   const int i = blockIdx.x * ROW + threadIdx.x;
   const RowRay r = load_ray(o, d, tmax, i);
   const Shear sh = make_shear(r.d);
+  const float sk = WITH_SKIP ? skip[i] : 0.0f;
   float ts = r.tm, det = 1.0f, prim = -1.0f;
   const int* list = lists + (size_t)blockIdx.x * C;
   for (int j = 0; j < C; ++j) {
@@ -100,7 +106,7 @@ __global__ void __launch_bounds__(ROW)
     if (!__syncthreads_or(near)) continue;
     stage_floats(tri_s, rows + (size_t)tt * k * 12, k * 12);
     __syncthreads();
-    closest_chunk(sh, r.o, tri_s, k, ts, det, prim);
+    closest_chunk<WITH_SKIP>(sh, r.o, tri_s, k, ts, det, prim, sk);
   }
   out[i] = ts;
   out[n + i] = prim;
@@ -143,13 +149,19 @@ __global__ void __launch_bounds__(ROW)
 
 // ---- plain C interface, loaded with ctypes ---------------------------------
 
+// skip null: the plain walk; given: the with_skip variant.
 extern "C" int yk_rows_closest(int device, const float* cb, const float* rows, int leaf_size, const int* lists,
-                               int C, int n_rows, const float* o, const float* d, const float* tmax, float* out,
-                               void* stream) {
+                               int C, int n_rows, const float* o, const float* d, const float* tmax,
+                               const float* skip, float* out, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  rows_closest_kernel<<<n_rows, ROW, (size_t)leaf_size * 12 * sizeof(float), (cudaStream_t)stream>>>(
-      cb, rows, leaf_size, lists, C, o, d, tmax, out, n_rows * ROW);
+  const size_t shmem = (size_t)leaf_size * 12 * sizeof(float);
+  if (skip != nullptr)
+    rows_closest_kernel<true><<<n_rows, ROW, shmem, (cudaStream_t)stream>>>(cb, rows, leaf_size, lists, C, o, d,
+                                                                            tmax, skip, out, n_rows * ROW);
+  else
+    rows_closest_kernel<false><<<n_rows, ROW, shmem, (cudaStream_t)stream>>>(cb, rows, leaf_size, lists, C, o, d,
+                                                                             tmax, skip, out, n_rows * ROW);
   return (int)cudaGetLastError();
 }
 

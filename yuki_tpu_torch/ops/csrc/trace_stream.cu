@@ -2,7 +2,8 @@
 // kernels of yuki_tpu/ops/trace_stream.py.
 //
 //   yk_cross_words  replaces _cross_words_kernel (trace_stream.py:117)
-//   yk_slot_closest replaces _closest_kernel (:812)
+//   yk_slot_closest replaces _closest_kernel (:812), with its with_skip
+//                   variant
 //   yk_slot_any     replaces _any_kernel (:850)
 //
 // cross_words: one thread per ray.  The word union boxes and the chunk
@@ -23,7 +24,9 @@
 // scaled (ts, det, prim) carries, triangle k to carry k % 8, exactly the
 // TPU kernel's sublanes, and reduces them in _scaled_min8's halving order:
 // the cross-multiplied compare is not transitive in floating point, so one
-// carry would not give the same bits.  The occlusion walk leaves a slot at
+// carry would not give the same bits; slot_closest_kernel<true>
+// (with_skip) never takes a triangle whose light id equals the slot's
+// float 7 (-2 matches none).  The occlusion walk leaves a slot at
 // its first occluder (OR is monotone; the TPU kernel leaves a row when all
 // its live slots are occluded).  Bound: ALU, ~40 operations per slot and
 // triangle; traffic is the 32 B ray and 12 B (4 B) result per slot plus
@@ -77,6 +80,7 @@ __device__ __forceinline__ void stage_chunk(float* tri_s, const float* __restric
   stage_floats(tri_s, rows + (size_t)__ldg(row_chunk + blockIdx.x) * k * 12, k * 12);
 }
 
+template <bool WITH_SKIP>
 __global__ void __launch_bounds__(ROW)
     slot_closest_kernel(const float* __restrict__ rows, int k, const int* __restrict__ row_chunk,
                         const float* __restrict__ stream, float* __restrict__ out, int n_slots) {
@@ -95,7 +99,7 @@ __global__ void __launch_bounds__(ROW)
     return;
   }
   float ts = jmax(tm, 0.0f), det = 1.0f, prim = -1.0f;
-  closest_chunk(make_shear(dr), o, tri_s, k, ts, det, prim);
+  closest_chunk<WITH_SKIP>(make_shear(dr), o, tri_s, k, ts, det, prim, WITH_SKIP ? ray[7] : 0.0f);
   out[i] = ts;
   out[n_slots + i] = prim;
   out[2 * n_slots + i] = det;
@@ -146,11 +150,16 @@ extern "C" int yk_cross_words(int device, const float* wb, int n_words, const fl
 }
 
 extern "C" int yk_slot_closest(int device, const float* rows, int leaf_size, const int* row_chunk, int n_rows,
-                               const float* stream_in, float* out, void* stream) {
+                               const float* stream_in, int with_skip, float* out, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  slot_closest_kernel<<<n_rows, ROW, (size_t)leaf_size * 12 * sizeof(float), (cudaStream_t)stream>>>(
-      rows, leaf_size, row_chunk, stream_in, out, n_rows * ROW);
+  const size_t shmem = (size_t)leaf_size * 12 * sizeof(float);
+  if (with_skip)
+    slot_closest_kernel<true><<<n_rows, ROW, shmem, (cudaStream_t)stream>>>(rows, leaf_size, row_chunk, stream_in,
+                                                                            out, n_rows * ROW);
+  else
+    slot_closest_kernel<false><<<n_rows, ROW, shmem, (cudaStream_t)stream>>>(rows, leaf_size, row_chunk, stream_in,
+                                                                             out, n_rows * ROW);
   return (int)cudaGetLastError();
 }
 

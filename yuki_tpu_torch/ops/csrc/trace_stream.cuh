@@ -109,8 +109,11 @@ __device__ __forceinline__ void stage_floats(float* dst, const float* __restrict
 // every carry seeded from the running best, and the eight are reduced in
 // _scaled_min8's halving order: the cross-multiplied compare is not
 // transitive in floating point, so one carry would not give the same bits.
+// WITH_SKIP (the kernels' with_skip variant): a triangle whose light id
+// (column 9) equals the ray's skip id `sk` is never taken.
+template <bool WITH_SKIP>
 __device__ __forceinline__ void closest_chunk(const Shear& sh, V3 o, const float* tri, int k, float& ts,
-                                              float& det, float& prim) {
+                                              float& det, float& prim, float sk) {
   float ts_b[8], det_b[8], prim_b[8];
 #pragma unroll
   for (int s = 0; s < 8; ++s) {
@@ -125,7 +128,7 @@ __device__ __forceinline__ void closest_chunk(const Shear& sh, V3 o, const float
       float ts_c, det_c;
       const bool ok = watertight_scaled(sh, o, c, ts_c, det_c);
       const float pid = c[10];
-      if (ok && pid >= 0.0f && ts_c * det_b[s] < ts_b[s] * det_c) {
+      if (ok && pid >= 0.0f && ts_c * det_b[s] < ts_b[s] * det_c && (!WITH_SKIP || c[9] != sk)) {
         ts_b[s] = ts_c;
         det_b[s] = det_c;
         prim_b[s] = pid;

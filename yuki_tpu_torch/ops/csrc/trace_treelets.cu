@@ -34,50 +34,16 @@
 
 #include <cstdint>
 
-#include "path_fused.cuh"
+#include "trace_treelets.cuh"
 
 using namespace yk;
 
 namespace {
 
-constexpr int BLOCK = 1024;
-
-struct Lane {
-  V3 o, d, inv;
-  Shear sh;
-};
-
 __device__ __forceinline__ Lane load_lane(const float* __restrict__ o, const float* __restrict__ d, int i,
                                           bool valid) {
-  Lane l;
-  l.o = valid ? v3(o[3 * i], o[3 * i + 1], o[3 * i + 2]) : v3(0.0f, 0.0f, 0.0f);
-  l.d = valid ? v3(d[3 * i], d[3 * i + 1], d[3 * i + 2]) : v3(1.0f, 1.0f, 1.0f);
-  l.inv = {1.0f / l.d.x, 1.0f / l.d.y, 1.0f / l.d.z};
-  l.sh = make_shear(l.d);
-  return l;
-}
-
-// _slab_any's per-lane verdict (trace_treelets.py:34-52) for one box row
-// (lo 0-2, hi 3-5), read by every lane of the block.
-__device__ __forceinline__ bool slab(const float* __restrict__ box, const Lane& l, float t_cur) {
-  float t0x = (__ldg(box + 0) - l.o.x) * l.inv.x;
-  float t1x = (__ldg(box + 3) - l.o.x) * l.inv.x;
-  float t0y = (__ldg(box + 1) - l.o.y) * l.inv.y;
-  float t1y = (__ldg(box + 4) - l.o.y) * l.inv.y;
-  float t0z = (__ldg(box + 2) - l.o.z) * l.inv.z;
-  float t1z = (__ldg(box + 5) - l.o.z) * l.inv.z;
-  float tmin = jmax(jmax(jmin(t0x, t1x), jmin(t0y, t1y)), jmin(t0z, t1z));
-  float tmax = jmin(jmin(jmax(t0x, t1x), jmax(t0y, t1y)), jmax(t0z, t1z));
-  return jmax(tmin, 0.0f) <= jmin(tmax, t_cur);
-}
-
-// Stage treelet tt's K rows ([K,12] floats) into shared memory.  The
-// caller's __syncthreads_or has already passed: no lane still reads the
-// previous treelet's rows.
-__device__ __forceinline__ void stage_rows(float* rows_s, const float* __restrict__ rows, int tt, int k) {
-  const float* src = rows + (size_t)tt * k * 12;
-  for (int j = threadIdx.x; j < k * 12; j += BLOCK) rows_s[j] = __ldg(src + j);
-  __syncthreads();
+  return make_lane(valid ? v3(o[3 * i], o[3 * i + 1], o[3 * i + 2]) : v3(0.0f, 0.0f, 0.0f),
+                   valid ? v3(d[3 * i], d[3 * i + 1], d[3 * i + 2]) : v3(1.0f, 1.0f, 1.0f));
 }
 
 __global__ void __launch_bounds__(BLOCK)

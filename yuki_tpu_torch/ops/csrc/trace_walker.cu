@@ -3,7 +3,8 @@
 // traverse.WALKER_CLOSEST / WALKER_ANY.
 //
 //   yk_walker_closest  replaces _walker_closest_kernel (trace_walker.py:204)
-//                      and the fold after it, _lane_fold_closest (:354)
+//                      and the fold after it, _lane_fold_closest (:354);
+//                      given skip ids, its with_skip variant
 //   yk_walker_any      replaces _walker_any_kernel (:269)
 //
 // Design.  One 128-thread block per 8-ray bundle.  Thread j is triangle slot
@@ -24,7 +25,9 @@
 //   - the chunk's k triangle rows are staged in shared memory and each slot
 //     tests its triangle against the live rays: closest keeps a new hit only
 //     on ts_c * det_b < ts_b * det_c (the first in list order wins a tie
-//     within a slot), occlusion sets the ray's bit when the triangle is
+//     within a slot; walker_closest_kernel<true>, with_skip, never takes a
+//     triangle of the ray's skip light), occlusion sets the ray's bit when
+//     the triangle is
 //     real, of another light than the ray's skip id, and hit within t_max.
 //
 // The closest kernel ends with _lane_fold_closest in shared memory: misses
@@ -100,18 +103,22 @@ __device__ __forceinline__ float warp_min(float v) {
   return v;
 }
 
+template <bool WITH_SKIP>
 __global__ void __launch_bounds__(SLOTS)
     walker_closest_kernel(const float* __restrict__ cb, const float* __restrict__ rows, int k,
                           const int* __restrict__ lists, int C, const float* __restrict__ o,
-                          const float* __restrict__ d, const float* __restrict__ tmax, float* __restrict__ t_out,
-                          int* __restrict__ prim_out) {
+                          const float* __restrict__ d, const float* __restrict__ tmax,
+                          const float* __restrict__ skip, float* __restrict__ t_out, int* __restrict__ prim_out) {
   __shared__ BundleRays R;
+  __shared__ float sk[WITH_SKIP ? BUN : 1];
   __shared__ float tri_s[SLOTS * 12];
   __shared__ float red[WARPS][BUN];
   __shared__ bool live_s[BUN];
   __shared__ float f_ts[BUN][SLOTS], f_det[BUN][SLOTS], f_prim[BUN][SLOTS];
   const int j = threadIdx.x, lane = j % 32, warp = j / 32;
   load_bundle(R, o, d, tmax);
+  if constexpr (WITH_SKIP)
+    if (j < BUN) sk[j] = skip[blockIdx.x * BUN + j];
   __syncthreads();
 
   float ts[BUN], det[BUN], prim[BUN];
@@ -150,6 +157,8 @@ __global__ void __launch_bounds__(SLOTS)
 #pragma unroll
         for (int r = 0; r < BUN; ++r) {
           if (!live_s[r]) continue;
+          if constexpr (WITH_SKIP)
+            if (c[9] == sk[r]) continue;
           float ts_c, det_c;
           const bool ok = watertight_scaled(R.sh[r], R.o[r], c, ts_c, det_c);
           if (ok && ts_c * det[r] < ts[r] * det_c) {
@@ -258,13 +267,18 @@ __global__ void __launch_bounds__(SLOTS)
 
 // ---- plain C interface, loaded with ctypes ---------------------------------
 
+// skip null: the plain walk; given: the with_skip variant.
 extern "C" int yk_walker_closest(int device, const float* cb, const float* rows, int leaf_size, const int* lists,
-                                 int C, int n_bundles, const float* o, const float* d, const float* tmax, float* t,
-                                 int* prim, void* stream) {
+                                 int C, int n_bundles, const float* o, const float* d, const float* tmax,
+                                 const float* skip, float* t, int* prim, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  walker_closest_kernel<<<n_bundles, SLOTS, 0, (cudaStream_t)stream>>>(cb, rows, leaf_size, lists, C, o, d, tmax, t,
-                                                                       prim);
+  if (skip != nullptr)
+    walker_closest_kernel<true><<<n_bundles, SLOTS, 0, (cudaStream_t)stream>>>(cb, rows, leaf_size, lists, C, o, d,
+                                                                               tmax, skip, t, prim);
+  else
+    walker_closest_kernel<false><<<n_bundles, SLOTS, 0, (cudaStream_t)stream>>>(cb, rows, leaf_size, lists, C, o, d,
+                                                                                tmax, skip, t, prim);
   return (int)cudaGetLastError();
 }
 

@@ -18,14 +18,15 @@ Kernels (a CUDA tensor launches the hand-written kernel in
 ``csrc/trace_dense.cu`` or raises; a CPU tensor runs the plain PyTorch
 version beside it; each launch adds one to ``LAUNCHES``):
 
-  dense_trace  replaces ``_dense_kernel`` (trace.py:176): closest hit of
-               every ray against every triangle; plain: ``dense_trace_plain``
-  any_trace    replaces ``_any_kernel`` (:221): occlusion, skipping each
-               lane's light id; plain: ``any_trace_plain``
-
-``_dense_skip_kernel`` (:249), the closest sweep with a per-lane skip
-light, serves yuki_tpu's combined closest + shadow waves only, which
-``path_li`` does not make; it is not ported yet.
+  dense_trace       replaces ``_dense_kernel`` (trace.py:176): closest hit
+                    of every ray against every triangle; plain:
+                    ``dense_trace_plain``
+  dense_trace_skip  replaces ``_dense_skip_kernel`` (:249): the same sweep
+                    ignoring the triangles of each lane's skip light, for
+                    combined closest + shadow waves; plain:
+                    ``dense_trace_skip_plain``
+  any_trace         replaces ``_any_kernel`` (:221): occlusion, skipping
+                    each lane's light id; plain: ``any_trace_plain``
 """
 
 from __future__ import annotations
@@ -37,7 +38,7 @@ from . import _build
 # The largest float32 (yuki_tpu writes 3.4028235e38, which rounds to it).
 F32_MAX = 3.4028234663852886e38
 
-LAUNCHES = {"dense_closest": 0, "dense_any": 0}
+LAUNCHES = {"dense_closest": 0, "dense_closest_skip": 0, "dense_any": 0}
 
 
 def reset_launches() -> None:
@@ -151,7 +152,7 @@ def scaled_min8(ts, det, prim):
 
 
 # --------------------------------------------------------------------
-# Dense sweeps (kernels 4 and 6) and their plain versions
+# Dense sweeps (kernels 4, 5 and 6) and their plain versions
 # --------------------------------------------------------------------
 
 
@@ -159,11 +160,7 @@ def _ray_planes(o, d):
     return (o[:, 0], o[:, 1], o[:, 2], d[:, 0], d[:, 1], d[:, 2])
 
 
-def dense_trace_plain(tris_packed, o, d, t_max):
-    """Plain version of the closest sweep (``_dense_kernel``): triangles in
-    ascending order, each taken when it hits within the running t and
-    ti < t, so the lowest index wins an exact tie.  Returns (t, prim i32,
-    b0, b1), t = t_max and prim -1 on a miss."""
+def _sweep_plain(tris_packed, o, d, t_max, tri_light, skip_light):
     ox, oy, oz, dx, dy, dz = _ray_planes(o, d)
     pre = ray_shear(dx, dy, dz)
     t = t_max.clone()
@@ -173,11 +170,29 @@ def dense_trace_plain(tris_packed, o, d, t_max):
         hit, ti, bi0, bi1 = watertight(ox, oy, oz, dx, dy, dz, t,
                                        row.unbind(0), pre)
         closer = hit & (ti < t)
+        if skip_light is not None:
+            closer = closer & (tri_light[i] != skip_light)
         t = torch.where(closer, ti, t)
         prim = torch.where(closer, i, prim)
         b0 = torch.where(closer, bi0, b0)
         b1 = torch.where(closer, bi1, b1)
     return t, prim, b0, b1
+
+
+def dense_trace_plain(tris_packed, o, d, t_max):
+    """Plain version of the closest sweep (``_dense_kernel``): triangles in
+    ascending order, each taken when it hits within the running t and
+    ti < t, so the lowest index wins an exact tie.  Returns (t, prim i32,
+    b0, b1), t = t_max and prim -1 on a miss."""
+    return _sweep_plain(tris_packed, o, d, t_max, None, None)
+
+
+def dense_trace_skip_plain(tris_packed, tri_light, o, d, t_max, skip_light):
+    """Plain version of the skip sweep (``_dense_skip_kernel``): as
+    dense_trace_plain, but a triangle whose area-light id (``tri_light``
+    [T] i32) equals the lane's ``skip_light`` [N] i32 is never taken; -2
+    skips nothing."""
+    return _sweep_plain(tris_packed, o, d, t_max, tri_light, skip_light)
 
 
 def any_trace_plain(tris_packed, tri_light, o, d, t_max, skip_light,
@@ -214,26 +229,46 @@ def _check_dense(tris_packed, o, d, t_max, dev):
     return n
 
 
+def _closest_sweep(tris_packed, tri_light, o, d, t_max, skip_light):
+    dev = o.device
+    n = _check_dense(tris_packed, o, d, t_max, dev)
+    light = skip = None
+    if skip_light is not None:
+        _build.check(tri_light, "tri_light", torch.int32,
+                     (tris_packed.shape[0],), dev)
+        _build.check(skip_light, "skip_light", torch.int32, (n,), dev)
+        light, skip = _build.ptr(tri_light), _build.ptr(skip_light)
+    t = torch.empty_like(t_max)
+    prim = torch.empty((n,), dtype=torch.int32, device=dev)
+    b0, b1 = torch.empty_like(t_max), torch.empty_like(t_max)
+    if n:
+        name = "dense_closest" if skip is None else "dense_closest_skip"
+        err = _build.library().yk_dense_closest(
+            dev.index, _build.ptr(tris_packed), light,
+            tris_packed.shape[0], _build.ptr(o), _build.ptr(d),
+            _build.ptr(t_max), skip, n, _build.ptr(t), _build.ptr(prim),
+            _build.ptr(b0), _build.ptr(b1), _build.stream(dev))
+        _build.launch_check(err, name)
+        LAUNCHES[name] += 1
+    return t, prim, b0, b1
+
+
 def dense_trace(tris_packed, o, d, t_max):
     """Closest hit of rays o, d [N,3], t_max [N] against every triangle of
     ``tris_packed`` [T,12] (``pack_triangles``).  Returns (t, prim i32, b0,
     b1) [N]."""
     if not _build.dispatch(o):
         return dense_trace_plain(tris_packed, o, d, t_max)
-    dev = o.device
-    n = _check_dense(tris_packed, o, d, t_max, dev)
-    t = torch.empty_like(t_max)
-    prim = torch.empty((n,), dtype=torch.int32, device=dev)
-    b0, b1 = torch.empty_like(t_max), torch.empty_like(t_max)
-    if n:
-        err = _build.library().yk_dense_closest(
-            dev.index, _build.ptr(tris_packed), tris_packed.shape[0],
-            _build.ptr(o), _build.ptr(d), _build.ptr(t_max), n, _build.ptr(t),
-            _build.ptr(prim), _build.ptr(b0), _build.ptr(b1),
-            _build.stream(dev))
-        _build.launch_check(err, "dense_closest")
-        LAUNCHES["dense_closest"] += 1
-    return t, prim, b0, b1
+    return _closest_sweep(tris_packed, None, o, d, t_max, None)
+
+
+def dense_trace_skip(tris_packed, tri_light, o, d, t_max, skip_light):
+    """dense_trace ignoring, for each lane, the triangles whose area-light
+    id (``tri_light`` [T] i32) equals its ``skip_light`` [N] i32."""
+    if not _build.dispatch(o):
+        return dense_trace_skip_plain(tris_packed, tri_light, o, d, t_max,
+                                      skip_light)
+    return _closest_sweep(tris_packed, tri_light, o, d, t_max, skip_light)
 
 
 def any_trace(tris_packed, tri_light, o, d, t_max, skip_light):

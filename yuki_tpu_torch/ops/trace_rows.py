@@ -17,7 +17,8 @@ Kernels (a CUDA tensor launches the hand-written kernel in
 ``csrc/trace_rows.cu`` or raises; a CPU tensor runs the plain PyTorch
 version beside it; each launch adds one to ``LAUNCHES``):
 
-  rows_closest_walk  replaces ``_rows_closest_kernel`` (trace_rows.py:246)
+  rows_closest_walk  replaces ``_rows_closest_kernel`` (trace_rows.py:246),
+                     with ``skip`` its ``with_skip`` variant
   rows_any_walk      replaces ``_rows_any_kernel`` (:299)
 
 What the TPU needed and the port does not copy: the (row, chunk) pair
@@ -25,8 +26,7 @@ table, its QUAD grouping and the dead row block exist to feed a
 sequential grid from prefetched scalars, and the SEG_R segments to fit
 that table in SMEM.  The decisions they make that change a result are
 kept: which pairs a segment's budget drops (``kept_lists``) and which
-rays are flagged for it.  The ``with_skip`` variant (combined closest +
-shadow waves) is not ported yet.
+rays are flagged for it.
 """
 
 from __future__ import annotations
@@ -40,12 +40,33 @@ from .trace_stream import LANES, extract_lists, n_words, pack_bits
 QUAD = 4  # pairs per TPU grid step: each row's pair count rounds up to it
 SEG_R = 2048  # rows per pair-budget segment
 
-LAUNCHES = {"rows_closest": 0, "rows_any": 0}
+LAUNCHES = {"rows_closest": 0, "rows_closest_skip": 0, "rows_any": 0}
 
 
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+def axis_interval(lo_a, hi_a, olo, ohi, dlo, dhi):
+    """Conservative [t_enter, t_exit] of one axis for a bundle of rays
+    with origins in [olo, ohi] and directions in [dlo, dhi] against boxes
+    [lo_a, hi_a] (trace_rows.py:94-108, trace_pairs.py:86-101): a
+    direction interval that spans zero gives [0, inf)."""
+    pos = dlo > 0.0
+    neg = dhi < 0.0
+    n_lo = lo_a - ohi
+    t_en_pos = n_lo / torch.where(n_lo >= 0.0, dhi, dlo)
+    m_hi = hi_a - olo
+    t_ex_pos = m_hi / torch.where(m_hi >= 0.0, dlo, dhi)
+    n_hi = hi_a - olo
+    t_en_neg = n_hi / torch.where(n_hi <= 0.0, dlo, dhi)
+    m_lo = lo_a - ohi
+    t_ex_neg = m_lo / torch.where(m_lo <= 0.0, dhi, dlo)
+    t_en = torch.where(pos, t_en_pos, torch.where(neg, t_en_neg, 0.0))
+    t_ex = torch.where(pos, t_ex_pos,
+                       torch.where(neg, t_ex_neg, float("inf")))
+    return t_en, t_ex
 
 
 def row_words_interval(ch, o, d, t_max, group: int = LANES):
@@ -73,22 +94,6 @@ def row_words_interval(ch, o, d, t_max, group: int = LANES):
     inf = torch.full((ch_pad - n_c, 3), float("inf"), device=dev)
     lo_t = torch.cat([cb[:, 0:3], inf])[None]  # [1, ch_pad, 3]
     hi_t = torch.cat([cb[:, 3:6], inf])[None]
-
-    def axis_interval(lo_a, hi_a, olo, ohi, dlo, dhi):
-        pos = dlo > 0.0
-        neg = dhi < 0.0
-        n_lo = lo_a - ohi
-        t_en_pos = n_lo / torch.where(n_lo >= 0.0, dhi, dlo)
-        m_hi = hi_a - olo
-        t_ex_pos = m_hi / torch.where(m_hi >= 0.0, dlo, dhi)
-        n_hi = hi_a - olo
-        t_en_neg = n_hi / torch.where(n_hi <= 0.0, dlo, dhi)
-        m_lo = lo_a - ohi
-        t_ex_neg = m_lo / torch.where(m_lo <= 0.0, dhi, dlo)
-        t_en = torch.where(pos, t_en_pos, torch.where(neg, t_en_neg, 0.0))
-        t_ex = torch.where(pos, t_ex_pos,
-                           torch.where(neg, t_ex_neg, float("inf")))
-        return t_en, t_ex
 
     t_en = torch.zeros((rows, 1), device=dev)
     t_ex = t_hi[:, None].expand(rows, ch_pad)
@@ -181,15 +186,18 @@ def _tally(stats, key, value) -> None:
         stats[key] = stats.get(key, 0) + int(value)
 
 
-def rows_closest_walk_plain(ch, lists, o, d, t_max, stats=None):
+def rows_closest_walk_plain(ch, lists, o, d, t_max, stats=None, skip=None):
     """Plain version of the closest row walk (``_rows_closest_kernel``):
     [3, N] f32 rows (scaled ts, prim, det).  Each row starts at (t_max, -1,
     1) per lane and walks its list in order; a chunk is walked by all the
     row's lanes when some lane with t_max > 0 passes its recheck, with the
-    eight carries of closest_walk seeded from the running best.  ``stats``
-    receives "boxes" (rechecks of lanes with t_max > 0) and "tests" (such
-    lanes against the real triangles of each walked chunk)."""
+    eight carries of closest_walk seeded from the running best.  With
+    ``skip`` [N] f32 (plane 7 of the ``with_skip`` variant) a triangle
+    whose light id equals the lane's is never taken.  ``stats`` receives
+    "boxes" (rechecks of lanes with t_max > 0) and "tests" (such lanes
+    against the real triangles of each walked chunk)."""
     ox, oy, oz, dx, dy, dz, tm = _row_planes(o, d, t_max)
+    sk = None if skip is None else skip.reshape(tm.shape)
     pre = ray_shear(dx, dy, dz)
     live = tm > 0.0
     ts, det = tm.clone(), torch.ones_like(tm)
@@ -218,6 +226,8 @@ def rows_closest_walk_plain(ch, lists, o, d, t_max, stats=None):
             ok, ts_c, det_c = watertight_scaled(pre_r, *lane, cols[:9])
             pid = cols[10]
             closer = ok & (pid >= 0.0) & (ts_c * det_b < ts_b * det_c)
+            if sk is not None:
+                closer = closer & (cols[9] != sk[r])
             ts_b = torch.where(closer, ts_c, ts_b)
             det_b = torch.where(closer, det_c, det_b)
             prim_b = torch.where(closer, pid, prim_b)
@@ -292,23 +302,28 @@ def _check_rows(ch, lists, o, d, t_max, dev):
     return n
 
 
-def rows_closest_walk(ch, lists, o, d, t_max):
+def rows_closest_walk(ch, lists, o, d, t_max, skip=None):
     """Closest row walk of rays o, d [N,3], t_max [N] (N a multiple of 128)
-    over each row's list in ``lists`` [N / 128, C] (``kept_lists``).
+    over each row's list in ``lists`` [N / 128, C] (``kept_lists``); with
+    ``skip`` [N] f32, each lane ignores the triangles of its skip light.
     Returns [3, N] f32: scaled ts, prim id, det."""
     if not _build.dispatch(o):
-        return rows_closest_walk_plain(ch, lists, o, d, t_max)
+        return rows_closest_walk_plain(ch, lists, o, d, t_max, skip=skip)
     dev = o.device
     n = _check_rows(ch, lists, o, d, t_max, dev)
+    if skip is not None:
+        _build.check(skip, "skip", torch.float32, (n,), dev)
     out = torch.empty((3, n), dtype=torch.float32, device=dev)
     if n:
+        name = "rows_closest" if skip is None else "rows_closest_skip"
         err = _build.library().yk_rows_closest(
             dev.index, _build.ptr(ch.treelet_bounds), _build.ptr(ch.rows),
             ch.leaf_size, _build.ptr(lists), lists.shape[1], n // LANES,
-            _build.ptr(o), _build.ptr(d), _build.ptr(t_max), _build.ptr(out),
+            _build.ptr(o), _build.ptr(d), _build.ptr(t_max),
+            None if skip is None else _build.ptr(skip), _build.ptr(out),
             _build.stream(dev))
-        _build.launch_check(err, "rows_closest")
-        LAUNCHES["rows_closest"] += 1
+        _build.launch_check(err, name)
+        LAUNCHES[name] += 1
     return out
 
 
@@ -337,13 +352,16 @@ def rows_any_walk(ch, lists, o, d, t_max, skip):
 # --------------------------------------------------------------------
 
 
-def rows_closest_w(ch, row_words, o, d, t_max, *, C: int, mult: int):
+def rows_closest_w(ch, row_words, o, d, t_max, *, C: int, mult: int,
+                   skip=None):
     """Closest hit by the row-union walk from per-row union words
-    (``rows_closest_w``).  Returns (t, prim i32, overflow [N]): t = t_max
-    and prim -1 on a miss, t = ts / det by one divide per ray; overflow
-    rays may miss hits and are re-run by the caller."""
+    (``rows_closest_w``); ``skip`` [N] i32 (or None): each lane's light to
+    ignore.  Returns (t, prim i32, overflow [N]): t = t_max and prim -1 on
+    a miss, t = ts / det by one divide per ray; overflow rays may miss
+    hits and are re-run by the caller."""
     lists, overflow = kept_lists(row_words, C, mult)
-    out = rows_closest_walk(ch, lists, o, d, t_max)
+    out = rows_closest_walk(ch, lists, o, d, t_max, None if skip is None
+                            else skip.to(torch.float32).contiguous())
     prim = out[1]
     t = torch.where(prim >= 0.0, out[0] / out[2], t_max)
     return t, prim.to(torch.int32), overflow.repeat_interleave(LANES)

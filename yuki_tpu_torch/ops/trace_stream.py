@@ -17,7 +17,8 @@ version beside it; each launch adds one to ``LAUNCHES``):
 
   cross_words   replaces ``_cross_words_kernel`` (trace_stream.py:117);
                 plain version: ``_cross_words_xla`` (:337)
-  slot_closest  replaces ``_closest_kernel`` (:812); plain: ``closest_walk``
+  slot_closest  replaces ``_closest_kernel`` (:812), with ``with_skip`` its
+                ``with_skip`` variant; plain: ``closest_walk``
   slot_any      replaces ``_any_kernel`` (:850); plain: ``any_walk``
 
 What the TPU needed and the port does not copy: the static slot budgets
@@ -50,7 +51,8 @@ WIDE_LOW_MULT = 8
 CROSS_2L_MIN_CHUNKS = 1024  # the two-level cull from this many chunks up
 CROSS_S = 24  # crossed words per ray in the two-level cull
 
-LAUNCHES = {"cross_words": 0, "slot_closest": 0, "slot_any": 0}
+LAUNCHES = {"cross_words": 0, "slot_closest": 0, "slot_closest_skip": 0,
+            "slot_any": 0}
 STATS = {"host_syncs": 0}
 
 
@@ -316,12 +318,14 @@ def _crossing_lanes(stream):
     return tm, live_row, lanes, stream[lanes]
 
 
-def slot_closest_plain(rows, leaf_size: int, row_chunk, stream, stats=None):
+def slot_closest_plain(rows, leaf_size: int, row_chunk, stream, stats=None,
+                       with_skip=False):
     """Plain version of the closest slot walk (``closest_walk`` under
     ``_closest_kernel``): [3, slots] f32 rows (scaled ts, prim, det).
     Triangle k of the slot's chunk goes to carry k % 8; the carries start
     at (max(t, 0), det 1, prim -1) and take a triangle when
-    ts_c * det_b < ts_b * det_c; the eight are reduced by scaled_min8.
+    ts_c * det_b < ts_b * det_c (``with_skip``: and its light id differs
+    from the slot's stream column 7); the eight are reduced by scaled_min8.
     A row with no live slot writes (t, -1, 1) (:830-833); only slots with
     t > 0 can take a triangle, so the rest of a live row keeps
     (0, -1, 1).  ``stats`` receives "tests": the real triangles the live
@@ -338,7 +342,7 @@ def slot_closest_plain(rows, leaf_size: int, row_chunk, stream, stats=None):
         stats["tests"] = stats.get("tests", 0) + int(real[chunk].sum())
     if lanes.numel() == 0:
         return out
-    ox, oy, oz, dx, dy, dz, t0 = (ray[:, j] for j in range(7))
+    ox, oy, oz, dx, dy, dz, t0, skip = (ray[:, j] for j in range(8))
     pre = ray_shear(dx, dy, dz)
     ts_b = [torch.clamp(t0, min=0.0)] * 8
     det_b = [torch.ones_like(t0)] * 8
@@ -350,6 +354,8 @@ def slot_closest_plain(rows, leaf_size: int, row_chunk, stream, stats=None):
         s = k % 8
         pid = c[:, 10]
         closer = ok & (pid >= 0.0) & (ts_c * det_b[s] < ts_b[s] * det_c)
+        if with_skip:
+            closer = closer & (c[:, 9] != skip)
         ts_b[s] = torch.where(closer, ts_c, ts_b[s])
         det_b[s] = torch.where(closer, det_c, det_b[s])
         prim_b[s] = torch.where(closer, pid, prim_b[s])
@@ -405,22 +411,26 @@ def _check_slots(rows, leaf_size, row_chunk, stream, dev):
     return n_rows
 
 
-def slot_closest(rows, leaf_size: int, row_chunk, stream):
+def slot_closest(rows, leaf_size: int, row_chunk, stream, with_skip=False):
     """Closest slot walk of each 128-slot row against its chunk's
     ``leaf_size`` triangle rows (``rows`` [chunks * leaf_size, 12]).
-    ``stream`` [rows * 128, 8] from ``_pack_stream``.  Returns [3, slots]
-    f32: scaled ts, prim id, det."""
+    ``stream`` [rows * 128, 8] from ``_pack_stream``; ``with_skip``: its
+    column 7 holds each slot's skip light id, whose triangles the slot
+    ignores.  Returns [3, slots] f32: scaled ts, prim id, det."""
     if not _build.dispatch(stream):
-        return slot_closest_plain(rows, leaf_size, row_chunk, stream)
+        return slot_closest_plain(rows, leaf_size, row_chunk, stream,
+                                  with_skip=with_skip)
     dev = stream.device
     n_rows = _check_slots(rows, leaf_size, row_chunk, stream, dev)
     out = torch.empty((3, n_rows * LANES), dtype=torch.float32, device=dev)
     if n_rows:
+        name = "slot_closest_skip" if with_skip else "slot_closest"
         err = _build.library().yk_slot_closest(
             dev.index, _build.ptr(rows), leaf_size, _build.ptr(row_chunk),
-            n_rows, _build.ptr(stream), _build.ptr(out), _build.stream(dev))
-        _build.launch_check(err, "slot_closest")
-        LAUNCHES["slot_closest"] += 1
+            n_rows, _build.ptr(stream), int(with_skip), _build.ptr(out),
+            _build.stream(dev))
+        _build.launch_check(err, name)
+        LAUNCHES[name] += 1
     return out
 
 
@@ -480,12 +490,14 @@ def _slots(ch, lists, C, mult, mult_wide, budget_n):
 
 
 def stream_closest_l(ch, lists, overflow, o, d, t_max, C: int = C_MAIN,
-                     mult=6, mult_wide=None, budget_n=None):
+                     mult=6, mult_wide=None, budget_n=None, skip=None):
     """Closest hit over the slot stream from candidate lists [N, C]
-    (``stream_closest_l``).  Returns (t, prim i32, overflow, ok): t = t_max
-    and prim -1 on a miss; rays flagged ``overflow`` may miss hits; when
-    ``ok`` is False (slot demand above the budget for ``budget_n`` rays,
-    default N) the results are not computed and the caller falls back."""
+    (``stream_closest_l``); ``skip`` [N] i32 (or None): each ray's light
+    to ignore, riding stream float 7.  Returns (t, prim i32, overflow,
+    ok): t = t_max and prim -1 on a miss; rays flagged ``overflow`` may
+    miss hits; when ``ok`` is False (slot demand above the budget for
+    ``budget_n`` rays, default N) the results are not computed and the
+    caller falls back."""
     n = o.shape[0]
     t_out, prim = t_max.clone(), torch.full_like(t_max, -1, dtype=torch.int32)
     slots = _slots(ch, lists, C, mult, mult_wide, n if budget_n is None
@@ -496,7 +508,8 @@ def stream_closest_l(ch, lists, overflow, o, d, t_max, C: int = C_MAIN,
     if row_chunk.numel() == 0:
         return t_out, prim, overflow, True
     out = slot_closest(ch.rows, ch.leaf_size, row_chunk,
-                       _pack_stream(o, d, t_max, slot_ray, valid))
+                       _pack_stream(o, d, t_max, slot_ray, valid, extra=skip),
+                       with_skip=skip is not None)
     # One IEEE divide per slot resolves the scaled carry.
     slot_t = out[0] / out[2]
     slot_prim = out[1]
@@ -516,20 +529,20 @@ def stream_closest_l(ch, lists, overflow, o, d, t_max, C: int = C_MAIN,
 
 
 def stream_closest_w(ch, words, o, d, t_max, C: int = C_MAIN, mult=6,
-                     mult_wide=None, budget_n=None):
+                     mult_wide=None, budget_n=None, skip=None):
     """``stream_closest_l`` from dense crossing words."""
     lists, overflow = extract_lists(words, C)
     return stream_closest_l(ch, lists, overflow, o, d, t_max, C=C, mult=mult,
-                            mult_wide=mult_wide, budget_n=budget_n)
+                            mult_wide=mult_wide, budget_n=budget_n, skip=skip)
 
 
 def stream_closest(ch, shading_packed, o, d, t_max, C: int = C_MAIN,
-                   mult=6, mult_wide=None, budget_n=None):
+                   mult=6, mult_wide=None, budget_n=None, skip=None):
     """The wide pass's closest hit: crossing words, lists, slot walk and
     barycentrics.  Returns (t, prim, b0, b1, overflow, ok)."""
     t, prim, overflow, ok = stream_closest_w(
         ch, cross_words(ch, o, d, t_max), o, d, t_max, C=C, mult=mult,
-        mult_wide=mult_wide, budget_n=budget_n)
+        mult_wide=mult_wide, budget_n=budget_n, skip=skip)
     b0, b1 = _recompute_bary(shading_packed, o, d, t, prim)
     return t, prim, b0, b1, overflow, ok
 

@@ -24,11 +24,8 @@ same visits and tests the same rows.  Each kernel launch adds one to
 
 The plain closest walk tests a visited treelet's rows for all lanes of
 the visiting blocks in one batch (everything that does not depend on the
-running t), then runs the in-order accept: each round finds, per lane,
-the first row from its position on that hits within its current t and is
-closer; rows it passes over would have been rejected one by one too,
-because t changes only on an accept.  That is the 64-step sequential
-accept in a few rounds.
+running t), then runs the in-order accept (``_accept_in_order``): the
+64-step sequential accept in a few rounds.
 """
 
 from __future__ import annotations
@@ -120,10 +117,11 @@ class _Rays:
     def slab(self, box, t_cur):
         return _slab(box, *self.o, *self.inv, t_cur)
 
-    def lanes(self, vb):
-        """The flattened per-lane terms of the blocks ``vb``."""
+    def lanes(self, vb, flat=True):
+        """The per-lane terms of the blocks ``vb``, flattened, or [len(vb),
+        BLOCK] with ``flat`` False."""
         def f(x):
-            return x[vb].reshape(-1)
+            return x[vb].reshape(-1) if flat else x[vb]
         return dict(
             o=tuple(f(x) for x in self.o), x_max=f(self.x_max),
             y_max=f(self.y_max), sx=f(self.sx), sy=f(self.sy),
@@ -133,17 +131,21 @@ class _Rays:
 
 def _edge_terms(ln, tri):
     """The t-independent part of the watertight test (ops/trace.py
-    watertight, yuki_tpu ops/trace.py:120-173) for K rows ``tri`` [K,12]
-    against M lanes: returns [K, M] (base_ok, det, t_scaled, inv_det, e0,
-    e1), where base_ok = the sign and det tests pass."""
-    ox, oy, oz = ln["o"]
-    x_max, y_max = ln["x_max"][None], ln["y_max"][None]
-    sx, sy = ln["sx"][None], ln["sy"][None]
+    watertight, yuki_tpu ops/trace.py:120-173) for K rows ``tri`` [..., K,
+    12] against M lanes (``ln``'s terms [..., M]): returns [..., K, M]
+    (base_ok, det, t_scaled, inv_det, e0, e1), where base_ok = the sign and
+    det tests pass."""
+    def lanes(x):
+        return x[..., None, :]
+
+    ox, oy, oz = (lanes(x) for x in ln["o"])
+    x_max, y_max = lanes(ln["x_max"]), lanes(ln["y_max"])
+    sx, sy = lanes(ln["sx"]), lanes(ln["sy"])
 
     def corner(c):
-        return _Rays.permute(tri[:, c, None] - ox[None],
-                             tri[:, c + 1, None] - oy[None],
-                             tri[:, c + 2, None] - oz[None], x_max, y_max)
+        return _Rays.permute(tri[..., c, None] - ox,
+                             tri[..., c + 1, None] - oy,
+                             tri[..., c + 2, None] - oz, x_max, y_max)
 
     p0tx, p0ty, p0tz = corner(0)
     p1tx, p1ty, p1tz = corner(3)
@@ -163,7 +165,7 @@ def _edge_terms(ln, tri):
     det = e0 + e1 + e2
     miss_det = det == 0.0
     det_safe = torch.where(miss_det, torch.ones_like(det), det)
-    t_scaled = (e0 * p0tz + e1 * p1tz + e2 * p2tz) * ln["inv_dz"][None]
+    t_scaled = (e0 * p0tz + e1 * p1tz + e2 * p2tz) * lanes(ln["inv_dz"])
     inv_det = torch.reciprocal(det_safe)
     return ~(miss_sign | miss_det), det, t_scaled, inv_det, e0, e1
 
@@ -176,6 +178,41 @@ def _in_range(det, t_scaled, t_cur):
         ~neg & ((t_scaled <= 0.0) | (t_scaled > bound))
     )
     return ~miss
+
+
+def _accept_in_order(tri, terms, t_l, p_l, b0_l, b1_l):
+    """The closest walk's in-order accept of K rows ``tri`` [..., K, 12]
+    against lanes whose running (t, prim, b0, b1) are [..., M], given the
+    rows' ``_edge_terms`` [..., K, M].  Each round finds, per lane, the
+    first row from its position on that hits within its current t, is
+    closer and is real (prim id >= 0), and takes it; rows passed over
+    would have been rejected one by one too, because t changes only on an
+    accept.  Returns the updated (t, prim, b0, b1)."""
+    base_ok, det, t_scaled, inv_det, e0, e1 = terms
+    k = tri.shape[-2]
+    ti = t_scaled * inv_det
+    cand = base_ok & (tri[..., 10] >= 0.0)[..., None]
+    pid = tri[..., 10, None].expand_as(ti)
+    row_k = torch.arange(k, device=ti.device)[:, None]
+    pos = torch.zeros_like(p_l, dtype=torch.int64)
+    while True:
+        acc = (cand & (row_k >= pos[..., None, :])
+               & _in_range(det, t_scaled, t_l[..., None, :])
+               & (ti < t_l[..., None, :]))
+        first = torch.where(acc, row_k, k).amin(dim=-2)
+        took = first < k
+        if not bool(took.any()):
+            return t_l, p_l, b0_l, b1_l
+        f = torch.clamp(first, max=k - 1)[..., None, :]
+
+        def at(x):
+            return x.gather(-2, f).squeeze(-2)
+
+        t_l = torch.where(took, at(ti), t_l)
+        p_l = torch.where(took, at(pid).to(torch.int32), p_l)
+        b0_l = torch.where(took, at(e0 * inv_det), b0_l)
+        b1_l = torch.where(took, at(e1 * inv_det), b1_l)
+        pos = torch.where(took, first + 1, k)
 
 
 def _visiting(mask):
@@ -254,33 +291,9 @@ def treelet_closest_plain(tl, o, d, t_max, stats=None):
             if vb.numel() == 0:
                 continue
             tri = rows[tt]
-            ln = rays.lanes(vb)
-            base_ok, det, t_scaled, inv_det, e0, e1 = _edge_terms(ln, tri)
-            ti = t_scaled * inv_det
-            live_row = (tri[:, 10] >= 0.0)[:, None]
-            cand = base_ok & live_row
-            m = cand.shape[1]
-            t_l = t[vb].reshape(-1)
-            p_l = prim[vb].reshape(-1)
-            b0_l = b0[vb].reshape(-1)
-            b1_l = b1[vb].reshape(-1)
-            pos = torch.zeros(m, dtype=torch.int64, device=t.device)
-            row_k = torch.arange(k, device=t.device)[:, None]
-            lane = torch.arange(m, device=t.device)
-            while True:
-                acc = (cand & (row_k >= pos[None])
-                       & _in_range(det, t_scaled, t_l[None])
-                       & (ti < t_l[None]))
-                first = torch.where(acc, row_k, k).amin(dim=0)
-                took = first < k
-                if not bool(took.any()):
-                    break
-                f = torch.clamp(first, max=k - 1)
-                t_l = torch.where(took, ti[f, lane], t_l)
-                p_l = torch.where(took, tri[f, 10].to(torch.int32), p_l)
-                b0_l = torch.where(took, (e0 * inv_det)[f, lane], b0_l)
-                b1_l = torch.where(took, (e1 * inv_det)[f, lane], b1_l)
-                pos = torch.where(took, first + 1, k)
+            t_l, p_l, b0_l, b1_l = _accept_in_order(
+                tri, _edge_terms(rays.lanes(vb), tri),
+                *(x[vb].reshape(-1) for x in (t, prim, b0, b1)))
             nv = vb.numel()
             t[vb] = t_l.reshape(nv, BLOCK)
             prim[vb] = p_l.reshape(nv, BLOCK)

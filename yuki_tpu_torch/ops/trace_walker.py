@@ -13,8 +13,9 @@ Kernels (a CUDA tensor launches the hand-written kernel in
 ``csrc/trace_walker.cu`` or raises; a CPU tensor runs the plain PyTorch
 version beside it; each launch adds one to ``LAUNCHES``):
 
-  walker_closest  replaces ``_walker_closest_kernel`` (trace_walker.py:204)
-                  plain: ``walker_closest_plain``
+  walker_closest  replaces ``_walker_closest_kernel`` (trace_walker.py:204),
+                  with ``skip`` its ``with_skip`` variant; plain:
+                  ``walker_closest_plain``
   walker_any      replaces ``_walker_any_kernel`` (:269)
                   plain: ``walker_any_plain``
 
@@ -28,7 +29,9 @@ What changes a result, and is kept:
   one when its cross-multiplied compare is smaller or equal with a lower
   prim id; misses enter as (F32_MAX, 1, BIG).  The scaled compare is not
   transitive, so neither the carry nor the pairing may be replaced by a
-  running minimum.  t = ts / det by one IEEE divide.
+  running minimum.  t = ts / det by one IEEE divide.  With ``skip`` (the
+  ray table's column 7) a slot never takes a triangle of the ray's skip
+  light.
 - Before each chunk, each ray's bound is the minimum over its 128 slots of
   ts / det, and a ray is live when t_max > 0 and its slab test of the
   chunk's box (``_bounds_recheck``: the finite reciprocal of
@@ -44,8 +47,7 @@ What changes a result, and is kept:
 What the TPU needed and the port does not copy: the plane-major triangle
 table (``walker_tri_planes``), the (bundle, chunk) pair and quad tables
 (``_bundle_pairs``), the per-segment sentinel blocks and the two tier
-instantiations.  The ``skip`` variant of the closest walk (combined closest
-+ shadow waves) is not ported yet.
+instantiations.
 """
 
 from __future__ import annotations
@@ -62,7 +64,7 @@ QUAD = 4  # pairs per TPU grid step: each bundle's pair count rounds up to it
 C_WALK = 64  # candidates per bundle
 SEG_B = 2048  # bundles per pair-budget segment
 
-LAUNCHES = {"walker_closest": 0, "walker_any": 0}
+LAUNCHES = {"walker_closest": 0, "walker_closest_skip": 0, "walker_any": 0}
 
 _BATCH = 8192  # bundles per step of the plain walks (bounds their memory)
 
@@ -155,10 +157,11 @@ def _fold_closest(ts, det, prim, tm):
     return t, torch.where(hit, prim[..., 0], -1.0).to(torch.int32)
 
 
-def walker_closest_plain(ch, lists, o, d, t_max, stats=None):
+def walker_closest_plain(ch, lists, o, d, t_max, stats=None, skip=None):
     """Plain version of the closest walk (``_walker_closest_kernel`` and
     ``_lane_fold_closest``): lists [N / 8, C] i32 -> (t [N] f32, prim [N]
-    i32), t = t_max and prim -1 on a miss.  ``stats`` receives "boxes"
+    i32), t = t_max and prim -1 on a miss; with ``skip`` [N] f32 a ray
+    never takes a triangle of its skip light.  ``stats`` receives "boxes"
     (rechecks of rays with t_max > 0 of each listed chunk) and "tests"
     (live rays against the real triangles of each walked chunk)."""
     n = o.shape[0]
@@ -170,6 +173,8 @@ def walker_closest_plain(ch, lists, o, d, t_max, stats=None):
     for a in range(0, n_b, _BATCH):
         b = min(a + _BATCH, n_b)
         ox, oy, oz, dx, dy, dz, tm = _bundle_planes(o, d, t_max, a, b)
+        sk = None if skip is None else skip[a * BUN:b * BUN].reshape(
+            b - a, BUN)
         # Slots past the chunk width (k < 128) keep their seed, as the
         # TPU's padding lanes do.
         ts = tm[:, :, None].expand(b - a, BUN, LANES).clone()
@@ -196,6 +201,8 @@ def walker_closest_plain(ch, lists, o, d, t_max, stats=None):
             ts_b, det_b, prim_b = ts[r, :, :k], det[r, :, :k], prim[r, :, :k]
             closer = (ok & live[r][:, :, None] & (cols[10] >= 0.0)
                       & (ts_c * det_b < ts_b * det_c))
+            if sk is not None:
+                closer = closer & (cols[9] != sk[r][:, :, None])
             ts[r, :, :k] = torch.where(closer, ts_c, ts_b)
             det[r, :, :k] = torch.where(closer, det_c, det_b)
             prim[r, :, :k] = torch.where(closer, cols[10].expand_as(ts_c),
@@ -268,23 +275,29 @@ def _check_walk(ch, lists, o, d, t_max, dev):
     return n
 
 
-def walker_closest_walk(ch, lists, o, d, t_max):
+def walker_closest_walk(ch, lists, o, d, t_max, skip=None):
     """Closest hits of rays o, d [N,3], t_max [N] (N a multiple of 8) by
-    the bundle walk over ``lists`` [N / 8, C] i32.  Returns (t, prim i32)."""
+    the bundle walk over ``lists`` [N / 8, C] i32; with ``skip`` [N] f32,
+    each ray ignores the triangles of its skip light.  Returns (t, prim
+    i32)."""
     if not _build.dispatch(o):
-        return walker_closest_plain(ch, lists, o, d, t_max)
+        return walker_closest_plain(ch, lists, o, d, t_max, skip=skip)
     dev = o.device
     n = _check_walk(ch, lists, o, d, t_max, dev)
+    if skip is not None:
+        _build.check(skip, "skip", torch.float32, (n,), dev)
     t = torch.empty((n,), dtype=torch.float32, device=dev)
     prim = torch.empty((n,), dtype=torch.int32, device=dev)
     if n:
+        name = "walker_closest" if skip is None else "walker_closest_skip"
         err = _build.library().yk_walker_closest(
             dev.index, _build.ptr(ch.treelet_bounds), _build.ptr(ch.rows),
             ch.leaf_size, _build.ptr(lists), lists.shape[1], n // BUN,
-            _build.ptr(o), _build.ptr(d), _build.ptr(t_max), _build.ptr(t),
+            _build.ptr(o), _build.ptr(d), _build.ptr(t_max),
+            None if skip is None else _build.ptr(skip), _build.ptr(t),
             _build.ptr(prim), _build.stream(dev))
-        _build.launch_check(err, "walker_closest")
-        LAUNCHES["walker_closest"] += 1
+        _build.launch_check(err, name)
+        LAUNCHES[name] += 1
     return t, prim
 
 
@@ -322,17 +335,19 @@ def walker_lists(words, C: int):
 
 
 def walker_closest_w(ch, words, o, d, t_max, C: int = C_WALK, mult: int = 16,
-                     mult_wide=None):
+                     mult_wide=None, skip=None):
     """Closest hit over the bundle walker from per-ray crossing words
-    [N, W] (``walker_closest_w``).  Returns (t, prim i32, overflow [N],
-    ok): t = t_max and prim -1 on a miss; overflow rays may miss hits; when
-    ok is False (a segment's pair demand passes its budget, one host read)
-    the walk does not run and the caller falls back."""
+    [N, W] (``walker_closest_w``); ``skip`` [N] i32 (or None): each ray's
+    light to ignore.  Returns (t, prim i32, overflow [N], ok): t = t_max
+    and prim -1 on a miss; overflow rays may miss hits; when ok is False
+    (a segment's pair demand passes its budget, one host read) the walk
+    does not run and the caller falls back."""
     lists, overflow = walker_lists(words, C)
     if not host_int(budget_ok(lists, mult, mult_wide)):
         return (t_max.clone(), torch.full_like(t_max, -1, dtype=torch.int32),
                 overflow, False)
-    t, prim = walker_closest_walk(ch, lists, o, d, t_max)
+    t, prim = walker_closest_walk(ch, lists, o, d, t_max, None if skip is None
+                                  else skip.to(torch.float32).contiguous())
     return t, prim, overflow, True
 
 
