@@ -1,0 +1,340 @@
+#!/usr/bin/env python3
+"""A/B of the two-level cull and the dense bounce kernel between two
+checkouts of this repository, on one NVIDIA GPU.
+
+    python3 chip_ab.py run ROOT TAG OUT.json [PARTS]   # measure ROOT's port
+    python3 chip_ab.py compare A.json B.json           # A against B
+
+PARTS is a comma-separated subset of bounce,cull,frames (default: all).
+
+``run`` imports the ``yuki_tpu_torch`` package of the checkout at ROOT
+(its kernels are built there, at first use) and records, on the card:
+
+- the cull (``candidate_lists_fused``) on the bounce-1 rays and their
+  shadow rays of the first 2048-tile wave of the 1080p colonnade (seed 1,
+  made as ``chip_smoke.py`` phase 6 makes them): unsorted, as path_li
+  hands them over, and sorted by ``traverse.ray_sort_key`` (the sorted
+  wave's lists, permuted back, must equal the unsorted wave's);
+- the bounce kernel at every bounce of the 1080p Cornell wave (4096 tiles,
+  1,048,576 lanes, depth 5), under UniformSampler and under
+  StratifiedSampler(4, 4)'s planes: as is, and with its input lanes
+  (state planes, ``ph``, sampler planes) permuted by material class (dead,
+  missed, then the hit's material type and surface kind), whose outputs,
+  permuted back, must equal the unpermuted ones;
+- the one-kernel wave on the same Cornell wave;
+- the 1080p d5 16 spp Cornell frame and the 1080p d5 1 spp colonnade frame
+  (the median of three after one warm-up), and one of each under
+  torch.profiler: device busy time, idle share and the cull's or the
+  bounce kernel's device time;
+- each of those kernels' ``-Xptxas -v`` lines;
+
+and writes the times with a SHA-256 digest of every kernel output to
+OUT.json.  ``compare`` prints the times side by side and exits 1 unless
+every digest of A equals B's (the kernels' outputs bit for bit).
+"""
+
+import hashlib
+import importlib.util
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+DEPTH = 5
+SPP = 16
+CORNELL_TILES = 4096
+COL_TILES = 2048
+KERNEL_NAMES = ("cull_kernel", "bounce_kernel", "wave_kernel",
+                "raygen_trace_kernel")
+
+
+def _smoke():
+    """chip_smoke.py beside this file, for its wave builders and timer."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke_helpers", os.path.join(HERE, "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def digest(t):
+    return hashlib.sha256(t.detach().contiguous().cpu().numpy().tobytes()
+                          ).hexdigest()[:20]
+
+
+def ptxas_lines(report):
+    """The ptxas lines of the kernels in KERNEL_NAMES: {kernel: [line]}."""
+    out, cur = {}, None
+    for line in report.splitlines():
+        if "Compiling entry function" in line or "Function properties" in line:
+            cur = next((k for k in KERNEL_NAMES if k in line), None)
+            if "Compiling" in line:
+                continue
+        if cur is not None and ("registers" in line or "spill" in line
+                                or "stack" in line):
+            out.setdefault(cur, []).append(line.split(":", 1)[-1].strip())
+    return out
+
+
+def material_class(torch, tpf, tb, st):
+    """Each lane's class: 0 dead, 1 missed, else 2 + 2 mtype + (sphere
+    hit), from the state planes and the wave's tables."""
+    S = tpf._ST
+    alive = st[S["alive"]] > 0.0
+    hitf = st[S["hitf"]] > 0.0
+    sph = st[S["sph"]]
+    mid = tb.trs[st[S["prim"]].clamp(min=0.0).long(), 26]
+    is_sph = sph >= 0.0
+    if tb.n_spheres:
+        si = sph.clamp(0, tb.n_spheres - 1).long()
+        valid = is_sph & (sph < tb.n_spheres) & (si.float() == sph)
+        mid = torch.where(valid, tb.sp[si, 34], mid)
+    mtype = tb.mat[mid.clamp(min=0.0).long(), 0].long()
+    return torch.where(~alive, 0, torch.where(
+        ~hitf, 1, 2 + 2 * mtype + is_sph.long()))
+
+
+def device_times(torch, prof, name):
+    """(busy ms, ms in kernels whose name holds ``name``) of a profile."""
+    busy = part = 0.0
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CPU:
+            continue
+        t = float(getattr(e, "self_device_time_total", 0.0) or 0.0) / 1e3
+        busy += t
+        if name in e.key:
+            part += t
+    return busy, part
+
+
+def run(root, tag, out_path, parts="bounce,cull,frames"):
+    parts = set(parts.split(","))
+    sys.path.insert(0, os.path.abspath(root))
+    import numpy as np  # noqa: F401
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_ab: FAIL: no CUDA card", file=sys.stderr)
+        return 1
+    import yuki_tpu_torch
+
+    pkg = os.path.dirname(os.path.abspath(yuki_tpu_torch.__file__))
+    if os.path.dirname(pkg) != os.path.abspath(root):
+        print(f"chip_ab: FAIL: imported {pkg}, not {root}'s", file=sys.stderr)
+        return 1
+    from yuki_tpu_torch import traverse
+    from yuki_tpu_torch.film import FilmSettings
+    from yuki_tpu_torch.integrators import PathParams, _ph_i32
+    from yuki_tpu_torch.ops import _build
+    from yuki_tpu_torch.ops import path_fused as tpf
+    from yuki_tpu_torch.ops import shade_fused as tsf
+    from yuki_tpu_torch.ops import trace_cull as tcu
+    from yuki_tpu_torch.ops import trace_stream as ts
+    from yuki_tpu_torch.ops.trace import F32_MAX
+    from yuki_tpu_torch.renderer import render_frame
+    from yuki_tpu_torch.sampling import StratifiedSampler, UniformSampler
+    from yuki_tpu_torch.scene.cornell import cornell
+    from yuki_tpu_torch.scene.testscenes import colonnade
+    from torch.profiler import ProfilerActivity, profile
+
+    sm = _smoke()
+    dev = torch.device("cuda")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()[0]
+    t0 = time.monotonic()
+    _build.library()
+    res = dict(tag=tag, root=os.path.abspath(root), card=card,
+               build_s=time.monotonic() - t0,
+               ptxas=ptxas_lines(_build.ptxas_report), hashes={}, ms={},
+               notes={})
+    print(f"[{tag}] {card}; build {res['build_s']:.1f} s")
+    for k, lines in res["ptxas"].items():
+        print(f"[{tag}] ptxas {k}: {' | '.join(lines)}")
+
+    def ms(fn, reps=20):
+        return sm.cuda_ms(torch, fn, reps)
+
+    # ---- the dense bounce on the Cornell wave ----------------------------
+    tb, px, py = sm._cornell_wave(torch, dev)
+    n = px.shape[0]
+    for sam_name, sam, si in (("uniform", None, 0),
+                              ("strat", StratifiedSampler(4, 4), 5)):
+        if "bounce" not in parts:
+            break
+        spl = tpf.strat_planes(sam, px, py, si, 1, tb.n_lights, DEPTH)
+        st, ph = tpf.raygen_trace(px, py, si, 1, tb,
+                                  None if spl is None else spl[:2])
+        res["hashes"][f"raygen {sam_name}"] = digest(st)
+        res["ms"][f"raygen {sam_name}"] = ms(lambda: tpf.raygen_trace(
+            px, py, si, 1, tb, None if spl is None else spl[:2]))
+        for b in range(DEPTH):
+            planes = tpf._bounce_planes(spl, tb, b)
+            out = tpf.bounce(st, ph, b, tb, planes)
+            res["hashes"][f"bounce {b} {sam_name}"] = digest(out)
+            cls = material_class(torch, tpf, tb, st)
+            perm = torch.argsort(cls, stable=True)
+            inv = torch.argsort(perm)
+            st_p = st[:, perm].contiguous()
+            ph_p = ph[perm].contiguous()
+            pl_p = None if planes is None else planes[:, perm].contiguous()
+            out_p = tpf.bounce(st_p, ph_p, b, tb, pl_p)
+            torch.cuda.synchronize()
+            if not torch.equal(out_p[:, inv].view(torch.int32),
+                               out.view(torch.int32)):
+                print(f"chip_ab: FAIL: bounce {b} {sam_name}: permuted "
+                      "lanes give other bits", file=sys.stderr)
+                return 1
+            t_as = ms(lambda: tpf.bounce(st, ph, b, tb, planes))
+            t_sorted = ms(lambda: tpf.bounce(st_p, ph_p, b, tb, pl_p))
+            counts = torch.bincount(cls, minlength=10).tolist()
+            res["ms"][f"bounce {b} {sam_name}"] = t_as
+            res["ms"][f"bounce {b} {sam_name}, lanes by material"] = t_sorted
+            res["notes"][f"bounce {b} {sam_name} classes"] = counts
+            print(f"[{tag}] bounce {b} {sam_name} [{n} lanes, classes "
+                  f"{counts}]: {t_as:.4f} ms as is, {t_sorted:.4f} ms with "
+                  f"lanes by material ({t_sorted / t_as:.3f}x)")
+            st = out
+        wave_out = tpf.wave(px, py, si, 1, tb, spl)
+        res["hashes"][f"wave {sam_name}"] = digest(wave_out)
+        res["ms"][f"wave {sam_name}"] = ms(
+            lambda: tpf.wave(px, py, si, 1, tb, spl), 10)
+        print(f"[{tag}] wave {sam_name}: {res['ms'][f'wave {sam_name}']:.4f}"
+              " ms")
+
+    # ---- the cull on the colonnade's bounce-1 and shadow rays -------------
+    if "cull" not in parts and "frames" not in parts:
+        return _write(res, out_path)
+    scene, cam, _ = colonnade(device=dev)
+    ctx, o, d = sm._camera_wave(torch, dev, cam, COL_TILES)
+    t_max = torch.full((o.shape[0],), F32_MAX, device=dev)
+    n_lights = len(scene.meta.light_types)
+    hit = traverse.intersect(scene.data, scene.meta, o, d, t_max,
+                             skip_sort=True)
+    tables = tsf.make_shade_tables(scene, PathParams(DEPTH))
+    ph = _ph_i32(ctx)
+    ones = torch.ones_like(o)
+    (o2, d2, beta2, alive2, spec2, *_rest) = tsf.shade_fused(
+        tables, hit, o, d, ones, hit.hit, torch.zeros_like(hit.hit), ph, 2,
+        0)
+    t2 = torch.where(alive2, F32_MAX, 0.0).to(torch.float32)
+    hit2 = traverse.intersect(scene.data, scene.meta, o2, d2, t2,
+                              skip_sort=True)
+    (_, _, _, _, _, no2, nd2, nt2, *_rest) = tsf.shade_fused(
+        tables, hit2, o2, d2, beta2, alive2 & hit2.hit, spec2, ph,
+        2 + 2 * n_lights + 3, 1)
+    ch = scene.data.chunks
+    for what, (wo, wd, wt) in (("bounce-1 rays", (o2, d2, t2)),
+                               ("shadow rays", (no2, nd2, nt2))):
+        if "cull" not in parts:
+            break
+        lists, ov = tcu.candidate_lists_fused(ch, wo, wd, wt, ts.C_MAIN)
+        res["hashes"][f"cull {what} lists"] = digest(lists)
+        res["hashes"][f"cull {what} overflow"] = digest(ov)
+        order = torch.argsort(traverse.ray_sort_key(scene.data, wo, wd),
+                              stable=True)
+        so, sd, st_ = (x[order].contiguous() for x in (wo, wd, wt))
+        s_lists, s_ov = tcu.candidate_lists_fused(ch, so, sd, st_, ts.C_MAIN)
+        back = torch.empty_like(s_lists)
+        back[order] = s_lists
+        back_ov = torch.empty_like(s_ov)
+        back_ov[order] = s_ov
+        torch.cuda.synchronize()
+        if not (torch.equal(back, lists) and torch.equal(back_ov, ov)):
+            print(f"chip_ab: FAIL: cull on sorted {what} differs",
+                  file=sys.stderr)
+            return 1
+        t_un = ms(lambda: tcu.candidate_lists_fused(ch, wo, wd, wt,
+                                                    ts.C_MAIN))
+        t_so = ms(lambda: tcu.candidate_lists_fused(ch, so, sd, st_,
+                                                    ts.C_MAIN))
+        res["ms"][f"cull {what}"] = t_un
+        res["ms"][f"cull {what}, sorted"] = t_so
+        print(f"[{tag}] cull {what} [{wo.shape[0]} rays, "
+              f"{int((wt > 0).sum())} live, {int(ov.sum())} overflow]: "
+              f"{t_un:.4f} ms unsorted, {t_so:.4f} ms sorted "
+              f"({t_un / t_so:.2f}x)")
+
+    # ---- frames ---------------------------------------------------------
+    fs = FilmSettings(res=(1920, 1080), tile_dim=16)
+    cscene, ccam, _ = cornell(device=dev)
+    frames = {
+        "cornell 1080p d5 16 spp": (lambda: render_frame(
+            cscene, ccam, fs, UniformSampler(SPP), PathParams(DEPTH),
+            wave_tiles=CORNELL_TILES, samples_per_launch=SPP, seed=1),
+            "bounce_kernel"),
+        "colonnade 1080p d5 1 spp": (lambda: render_frame(
+            scene, cam, fs, UniformSampler(1), PathParams(DEPTH),
+            wave_tiles=COL_TILES, seed=1), "cull_kernel"),
+    }
+    for what, (frame, kern) in frames.items():
+        if "frames" not in parts:
+            break
+        r = frame()
+        res["hashes"][f"frame {what}"] = digest(torch.as_tensor(
+            r.film.image()))
+        secs = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            secs.append(frame().elapsed_s)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t_p = time.monotonic()
+            frame()
+            torch.cuda.synchronize()
+            t_p = time.monotonic() - t_p
+        busy, part = device_times(torch, prof, kern)
+        med = statistics.median(secs)
+        res["ms"][f"frame {what}"] = med * 1e3
+        res["ms"][f"frame {what}: device busy (profiled)"] = busy
+        res["ms"][f"frame {what}: {kern} (profiled)"] = part
+        res["notes"][f"frame {what}"] = dict(
+            seconds=secs, profiled_wall_ms=t_p * 1e3,
+            image_mean=float(r.film.image().mean()), rays=r.ray_count)
+        print(f"[{tag}] frame {what}: {med:.4f} s (of {secs}); under the "
+              f"profiler wall {t_p * 1e3:.3f} ms, device busy {busy:.3f} ms "
+              f"(idle {100 * (1 - busy / (med * 1e3)):.1f}% of the "
+              f"unprofiled frame), {kern} {part:.3f} ms; image mean "
+              f"{float(r.film.image().mean()):.5f}")
+    return _write(res, out_path)
+
+
+def _write(res, out_path):
+    with open(out_path, "w") as f:
+        json.dump(res, f, indent=1)
+    return 0
+
+
+def compare(a_path, b_path):
+    with open(a_path) as f:
+        a = json.load(f)
+    with open(b_path) as f:
+        b = json.load(f)
+    print(f"A = {a['tag']} ({a['card']}), B = {b['tag']} ({b['card']})")
+    for k in KERNEL_NAMES:
+        print(f"ptxas {k}: A {' | '.join(a['ptxas'].get(k, []))}; "
+              f"B {' | '.join(b['ptxas'].get(k, []))}")
+    for k, ta in a["ms"].items():
+        if k not in b["ms"]:
+            continue
+        tb = b["ms"][k]
+        ratio = f"{tb / ta:.3f}x" if tb and ta else "-"
+        print(f"{k}: A {ta:.4f} ms, B {tb:.4f} ms, B/A {ratio}")
+    both = [k for k in a["hashes"] if k in b["hashes"]]
+    bad = [k for k in both if b["hashes"][k] != a["hashes"][k]]
+    print(f"{len(both) - len(bad)} of {len(both)} outputs measured by both "
+          f"equal bit for bit" + (f"; differ: {bad}" if bad else ""))
+    return 1 if bad else 0
+
+
+if __name__ == "__main__":
+    if len(sys.argv) in (5, 6) and sys.argv[1] == "run":
+        sys.exit(run(*sys.argv[2:]))
+    if len(sys.argv) == 4 and sys.argv[1] == "compare":
+        sys.exit(compare(*sys.argv[2:]))
+    print(__doc__, file=sys.stderr)
+    sys.exit(2)

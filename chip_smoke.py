@@ -12,9 +12,10 @@ beside this file.  It imports no JAX.  Phases:
      build time and each kernel's ptxas register/spill report;
   2. the dense wave's kernels against their plain PyTorch versions on one
      4096-tile wave of the 1080p Cornell film (1,048,576 rays, depth 5):
-     raygen_trace, one bounce at bounce 0 and at bounce 3 from the same
-     state, and the whole wave; with each kernel's time beside the plain
-     version's;
+     raygen_trace, every bounce 0-4 (each from the kernels' state before
+     it), and the whole wave; with each kernel's time beside the plain
+     version's and the bound from the plain version's tally of the
+     sweeps' tests;
   3. the Cornell golden: 64x48, depth 4, 8 spp, seed 42 through
      make_wave_renderer on the card against
      tests/goldens/cornell_64x48_path4_8spp_seed42.npz (rendered by the
@@ -33,9 +34,9 @@ beside this file.  It imports no JAX.  Phases:
      held against the fused wave's frame (depth 2: rtol 2e-6; depth 5:
      the chaos-aware bounds and ray counts within 1%); then the Cornell
      golden through the path_li route;
-  4c. the stratified variants of raygen_trace and bounce against their
-     plain versions on the Cornell wave with StratifiedSampler(4, 4)'s
-     planes;
+  4c. the stratified variants of raygen_trace and bounce (every bounce
+     0-4, each timed) against their plain versions on the Cornell wave
+     with StratifiedSampler(4, 4)'s planes;
   4d. the one-kernel wave: wave_kernel against the two-kernel CUDA wave,
      bit for bit, on the Cornell wave with UniformSampler(16) and
      StratifiedSampler(4, 4), and against its plain version; the 1080p d5
@@ -59,7 +60,9 @@ beside this file.  It imports no JAX.  Phases:
      needs, from which the walks' bounds are computed;
   7. the divergent-wave kernels against their plain versions on the same
      wave's bounce-1 rays and their shadow rays (both lights): the cull on
-     both, the crossing words on the cull's overflow mini-wave and on a
+     both, unsorted as path_li makes them and sorted by ray_sort_key (the
+     sorted wave's lists permuted back must equal the unsorted's; each
+     timed), the crossing words on the cull's overflow mini-wave and on a
      64-block slice, the closest and occlusion slot walks on the slots the
      dispatch lays out; with the bounds from the plain versions' tallies;
   8. the treelet dispatch against the treelet walk on the same rays: prim
@@ -245,6 +248,17 @@ def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
+def bounce_bound(tb, state_bytes, stats):
+    """The bounce kernel's bound: the state planes in and out and the
+    tables once; the sweeps' tests as bounce_plain tallies them (the next
+    hit's full sweep of each traced lane, each light's shadow sweep up to
+    its first hit); the shading arithmetic is not counted."""
+    return bound(state_bytes + nbytes(tb.ms, tb.tri, tb.trs, tb.mat, tb.lt,
+                                      tb.sp),
+                 stats["tests"] * OPS_WATERTIGHT
+                 + stats["sphere_tests"] * OPS_SPHERE)
+
+
 def _kernel_modules():
     from yuki_tpu_torch.ops import (path_fused, shade_fused, trace, trace_cull,
                                     trace_pairs, trace_rows, trace_stream,
@@ -359,17 +373,15 @@ def phase_kernels(torch, np, dev):
     result["raygen_trace"] = dict(max_abs_err=err, ms=ms_k, plain_ms=ms_p,
                                   bound_ms=b_ms, bound_by=b_by)
 
-    # bounce at 0 and 3, each kernel vs plain from one input state
-    states = {0: st_k}
-    s_in = st_k
-    for b in range(3):
-        s_in = tpf.bounce(s_in, ph_k, b, tb)
-    states[3] = s_in
+    # every bounce, each kernel vs plain from one input state (the
+    # kernels' chain)
     err = 0.0
     times = {}
-    for b, s_in in states.items():
+    s_in = st_k
+    for b in range(DEPTH):
         out_k = tpf.bounce(s_in, ph_k, b, tb)
-        out_p = tpf.bounce_plain(s_in, ph_k, b, tb)
+        stats = {}
+        out_p = tpf.bounce_plain(s_in, ph_k, b, tb, stats=stats)
         torch.cuda.synchronize()
         for k in ("alive", "spec", "rc"):
             check(torch.equal(out_k[st[k]], out_p[st[k]]),
@@ -385,18 +397,13 @@ def phase_kernels(torch, np, dev):
         t_k = cuda_ms(torch, lambda: tpf.bounce(s_in, ph_k, b, tb), 10)
         t_p = cuda_ms(torch, lambda: tpf.bounce_plain(s_in, ph_k, b, tb), 3)
         alive = int(s_in[st["alive"]].sum())
-        # Lower bound: the state in and out, and the next hit's full
-        # sweep for the lanes that trace one; the shading arithmetic and
-        # the shadow sweeps (which exit early) are not counted.
-        traced = int(out_k[st["alive"]].sum()) if b < DEPTH - 1 else 0
-        b_ms, b_by = bound(
-            nbytes(s_in, ph_k, out_k) + nbytes(tb.ms, tb.tri, tb.trs, tb.mat,
-                                               tb.lt, tb.sp),
-            traced * (tb.n_tris * OPS_WATERTIGHT + tb.n_spheres * OPS_SPHERE))
+        b_ms, b_by = bounce_bound(tb, nbytes(s_in, ph_k, out_k), stats)
         print(f"bounce {b} [{n} rays, {alive} alive]: kernel {t_k:.4f} ms, "
-              f"plain {t_p:.4f} ms, bound {b_ms:.4f} ms ({b_by}), next-hit "
-              f"ids agree {same:.6f}")
+              f"plain {t_p:.4f} ms, bound {b_ms:.4f} ms ({b_by}; "
+              f"{stats['tests']} triangle tests, {stats['sphere_tests']} "
+              f"sphere tests), next-hit ids agree {same:.6f}")
         times[b] = (t_k, t_p, b_ms, b_by)
+        s_in = out_k
     result["bounce"] = dict(max_abs_err=err, ms=times[0][0],
                             plain_ms=times[0][1], bound_ms=times[0][2],
                             bound_by=times[0][3])
@@ -735,7 +742,8 @@ def phase_strat_kernels(torch, np, dev, card):
     for b in range(DEPTH):
         planes = tpf._bounce_planes(spl, tb, b)
         out_k = tpf.bounce(s_in, ph_k, b, tb, planes)
-        out_p = tpf.bounce_plain(s_in, ph_k, b, tb, planes)
+        stats = {}
+        out_p = tpf.bounce_plain(s_in, ph_k, b, tb, planes, stats)
         torch.cuda.synchronize()
         err = _check_wave_state(torch, out_k, out_p, f"strat bounce {b}",
                                 ("alive", "spec", "rc"), FLOATS, 2e-6, 1e-7)
@@ -743,23 +751,18 @@ def phase_strat_kernels(torch, np, dev, card):
                       == out_p[tpf._ST["prim"]]).float().mean())
         check(same >= 0.999, f"strat bounce {b}: next-hit ids agree on "
               f"{same:.5f}")
-        if b in (0, 3):
-            ms_k = cuda_ms(torch, lambda: tpf.bounce(s_in, ph_k, b, tb,
-                                                     planes), 10)
-            ms_p = cuda_ms(torch, lambda: tpf.bounce_plain(s_in, ph_k, b, tb,
-                                                           planes), 3)
-            traced = int(out_k[tpf._ST["alive"]].sum()) if b < DEPTH - 1 \
-                else 0
-            b_ms, b_by = bound(
-                nbytes(s_in, ph_k, planes, out_k)
-                + nbytes(tb.ms, tb.tri, tb.trs, tb.mat, tb.lt, tb.sp),
-                traced * (tb.n_tris * OPS_WATERTIGHT
-                          + tb.n_spheres * OPS_SPHERE))
-            print(f"bounce {b} strat [{n} rays, "
-                  f"{int(s_in[tpf._ST['alive']].sum())} alive]: kernel "
-                  f"{ms_k:.4f} ms, plain {ms_p:.4f} ms, bound {b_ms:.4f} ms "
-                  f"({b_by}), max_abs_err {err:.3g}, next-hit ids agree "
-                  f"{same:.6f} [{card}]")
+        ms_k = cuda_ms(torch, lambda: tpf.bounce(s_in, ph_k, b, tb, planes),
+                       10)
+        ms_p = cuda_ms(torch, lambda: tpf.bounce_plain(s_in, ph_k, b, tb,
+                                                       planes), 3)
+        b_ms, b_by = bounce_bound(tb, nbytes(s_in, ph_k, planes, out_k),
+                                  stats)
+        print(f"bounce {b} strat [{n} rays, "
+              f"{int(s_in[tpf._ST['alive']].sum())} alive]: kernel "
+              f"{ms_k:.4f} ms, plain {ms_p:.4f} ms, bound {b_ms:.4f} ms "
+              f"({b_by}; {stats['tests']} triangle tests, "
+              f"{stats['sphere_tests']} sphere tests), max_abs_err {err:.3g}, "
+              f"next-hit ids agree {same:.6f} [{card}]")
         s_in = out_k
 
 
@@ -1244,6 +1247,7 @@ def phase_stream_kernels(torch, np, scene, rays, card):
     """The divergent-wave kernels against their plain versions on the
     wave's bounce-1 rays and their shadow rays, with the plain versions'
     tallies for the bounds."""
+    from yuki_tpu_torch import traverse
     from yuki_tpu_torch.ops import trace_cull as tcu
     from yuki_tpu_torch.ops import trace_stream as ts
 
@@ -1270,10 +1274,25 @@ def phase_stream_kernels(torch, np, scene, rays, card):
         m = o.shape[0]
         b_ms, b_by = bound(m * 28 + m * (4 * ts.C_MAIN + 1) + tables,
                            stats["boxes"] * OPS_SLAB)
+        # The same rays sorted by the coherence key, lists permuted back.
+        order = torch.argsort(traverse.ray_sort_key(scene.data, o, d),
+                              stable=True)
+        so, sd, st_ = (x[order].contiguous() for x in (o, d, t))
+        s_l, s_ov = tcu.candidate_lists_fused(ch, so, sd, st_, ts.C_MAIN)
+        back_l, back_ov = torch.empty_like(s_l), torch.empty_like(s_ov)
+        back_l[order] = s_l
+        back_ov[order] = s_ov
+        torch.cuda.synchronize()
+        check(torch.equal(back_l, got[0]) and torch.equal(back_ov, got[1]),
+              f"cull on sorted {what}: lists or overflow differ")
+        ms_s = cuda_ms(torch, lambda: tcu.candidate_lists_fused(
+            ch, so, sd, st_, ts.C_MAIN), 10)
         print(f"cull [{m} {what}, {int((t > 0).sum())} live, "
               f"{int(got[1].sum())} overflow]: kernel {ms_k:.4f} ms, plain "
               f"{ms_p:.4f} ms, bound {b_ms:.4f} ms ({b_by}; {stats['boxes']} "
-              f"slab tests): lists and overflow equal [{card}]")
+              f"slab tests): lists and overflow equal; sorted by "
+              f"ray_sort_key: kernel {ms_s:.4f} ms, lists equal permuted "
+              f"back [{card}]")
         if what == "bounce-1 rays":
             result["cull"] = dict(max_abs_err=0.0, ms=ms_k, plain_ms=ms_p,
                                   bound_ms=b_ms, bound_by=b_by)

@@ -22,6 +22,7 @@ from yuki_tpu_torch.camera import Camera, CameraParameters, FoV
 from yuki_tpu_torch.integrators import PathParams
 from yuki_tpu_torch.ops import path_fused as tpf
 from yuki_tpu_torch.scene.cornell import cornell
+from yuki_tpu_torch.sampling import StratifiedSampler
 from yuki_tpu_torch.scene.data import SceneBuilder
 
 pytestmark = pytest.mark.cuda
@@ -76,7 +77,7 @@ def _every_branch_scene(device):
     return b.build(device=device), cam
 
 
-def _setup(name, device, clamp=None):
+def _setup(name, device, clamp=None, n=N):
     if name == "cornell":
         scene, cam, _ = cornell(device=device)
     else:
@@ -84,9 +85,9 @@ def _setup(name, device, clamp=None):
     tb = tpf.make_tables(scene, Camera.create(cam, *RES),
                          PathParams(DEPTH, indirect_clamp=clamp))
     rng = np.random.default_rng(3)
-    px = torch.as_tensor(rng.integers(0, RES[0], N, dtype=np.int32),
+    px = torch.as_tensor(rng.integers(0, RES[0], n, dtype=np.int32),
                          device=device)
-    py = torch.as_tensor(rng.integers(0, RES[1], N, dtype=np.int32),
+    py = torch.as_tensor(rng.integers(0, RES[1], n, dtype=np.int32),
                          device=device)
     return tb, px, py
 
@@ -112,15 +113,49 @@ def test_raygen_kernel_matches_plain(cuda, name):
                                    rtol=1e-6, atol=1e-7, err_msg=k)
 
 
-@pytest.mark.parametrize("name,clamp", CASES)
-def test_bounce_kernel_matches_plain(cuda, name, clamp):
-    """Every bounce of a wave, each from the same input state."""
-    tb, px, py = _setup(name, cuda, clamp)
-    st, ph = tpf.raygen_trace(px, py, 1, 7, tb)
+BOUNCE_CASES = [pytest.param(name, clamp, "film", id=f"{name}-{clamp}")
+                for name, clamp in CASES] + [
+    pytest.param("every-branch", None, "ragged", id="every-branch-ragged"),
+    pytest.param("every-branch", None, "dead", id="every-branch-all-dead"),
+    pytest.param("cornell", None, "missed", id="cornell-all-missed"),
+    pytest.param("every-branch", None, "stratified",
+                 id="every-branch-stratified"),
+    pytest.param("cornell", 2.0, "stratified", id="cornell-2.0-stratified"),
+]
+
+
+@pytest.mark.parametrize("name,clamp,lanes", BOUNCE_CASES)
+def test_bounce_kernel_matches_plain(cuda, name, clamp, lanes):
+    """Every bounce of a wave, each from the same input state; also on a
+    ragged lane count (no multiple of a warp, a block or the kernel's
+    512-lane tile), a state whose lanes are all dead, one whose lanes all
+    miss, and StratifiedSampler(4, 4)'s planes.  The kernel runs each
+    tile's lanes grouped by material class: on the same lanes in another
+    order it gives the same bits, permuted."""
+    tb, px, py = _setup(name, cuda, clamp, 1000 + 37 if lanes == "ragged"
+                        else N)
+    n = px.shape[0]
+    sam = StratifiedSampler(4, 4) if lanes == "stratified" else None
+    spl = tpf.strat_planes(sam, px, py, 1, 7, tb.n_lights, DEPTH)
+    st, ph = tpf.raygen_trace(px, py, 1, 7, tb,
+                              None if spl is None else spl[:2])
+    if lanes == "dead":
+        st[tpf._ST["alive"]] = 0.0
+    if lanes == "missed":
+        for k, v in (("hitf", 0.0), ("prim", -1.0), ("sph", -1.0)):
+            st[tpf._ST[k]] = v
+    perm = torch.as_tensor(np.random.default_rng(8).permutation(n),
+                           device=cuda)
     for b in range(DEPTH):
-        out_k = tpf.bounce(st, ph, b, tb)
-        out_p = tpf.bounce_plain(st, ph, b, tb)
+        planes = tpf._bounce_planes(spl, tb, b)
+        out_k = tpf.bounce(st, ph, b, tb, planes)
+        out_p = tpf.bounce_plain(st, ph, b, tb, planes)
+        out_perm = tpf.bounce(
+            st[:, perm].contiguous(), ph[perm].contiguous(), b, tb,
+            None if planes is None else planes[:, perm].contiguous())
         torch.cuda.synchronize()
+        assert torch.equal(out_perm.view(torch.int32),
+                           out_k[:, perm].view(torch.int32)), f"bounce {b}"
         for k in ("alive", "spec", "rc"):
             np.testing.assert_array_equal(_plane(out_k, k), _plane(out_p, k),
                                           f"bounce {b} {k}")
@@ -130,6 +165,8 @@ def test_bounce_kernel_matches_plain(cuda, name, clamp):
                                        err_msg=f"bounce {b} {k}")
         same = _plane(out_k, "prim") == _plane(out_p, "prim")
         assert same.mean() >= 0.99, f"bounce {b}: next-hit ids differ"
+        if lanes in ("dead", "missed"):
+            assert not _plane(out_k, "alive").any()
         st = out_k
 
 

@@ -76,11 +76,38 @@ def test_cross_words_match_plain(cuda, scenes, which):
     assert int(ts.popcount32(got).sum()) > 3000
 
 
-@pytest.mark.parametrize("C,S", [(16, 24), (4, 3), (16, 2)])
-def test_cull_matches_plain(cuda, scenes, C, S):
+CULL_CASES = [pytest.param(C, S, "random", id=f"{C}-{S}")
+              for C, S in ((16, 24), (4, 3), (16, 2))] + [
+    pytest.param(16, 24, "sorted", id="16-24-sorted"),
+    pytest.param(16, 24, "overflow", id="16-24-overflow-heavy"),
+    pytest.param(16, 24, "ragged", id="16-24-ragged"),
+]
+
+
+@pytest.mark.parametrize("C,S,rays", CULL_CASES)
+def test_cull_matches_plain(cuda, scenes, C, S, rays):
+    """Random bounce-like rays (forced overflow with small C and S); the
+    same rays sorted by traverse.ray_sort_key; an overflow-heavy set
+    (from chunk centres, nearly along the scene's long axis: about 28%
+    overflow); and a ragged count (no multiple of a warp or of the
+    kernel's block)."""
     scene = scenes["full"]
     ch = scene.data.chunks
-    o, d, t_max = _rays(scene, 3000, 2, cuda)
+    n = {"ragged": 3000 + 23 * 32 + 5}.get(rays, 3000)
+    o, d, t_max = _rays(scene, n, 2, cuda)
+    if rays == "sorted":
+        order = torch.argsort(traverse.ray_sort_key(scene.data, o, d),
+                              stable=True)
+        o, d, t_max = (x[order].contiguous() for x in (o, d, t_max))
+    if rays == "overflow":  # from chunk centres, nearly along the long axis
+        cb = ch.treelet_bounds
+        k = torch.as_tensor(np.random.default_rng(2).integers(
+            0, cb.shape[0], n), device=cuda)
+        o = (0.5 * (cb[k, :3] + cb[k, 3:6])).contiguous()
+        ax = int(torch.argmax(scene.data.world_hi - scene.data.world_lo))
+        d = d.clone()
+        d[:, ax] = torch.where(d[:, ax] >= 0.0, 20.0, -20.0)
+        d = (d / d.norm(dim=1, keepdim=True)).contiguous()
     tcu.reset_launches()
     lists, ov = tcu.candidate_lists_fused(ch, o, d, t_max, C, S)
     assert tcu.LAUNCHES["cull"] == 1
@@ -88,6 +115,8 @@ def test_cull_matches_plain(cuda, scenes, C, S):
     assert torch.equal(ov, ref_ov) and torch.equal(lists, ref_l)
     if (C, S) != (16, 24):
         assert bool(ov.any())  # forced overflow
+    if rays == "overflow":
+        assert int(ov.sum()) > n // 10
     assert (lists[t_max == 0.0] == -1).all()
 
 

@@ -82,9 +82,10 @@ def _digest() -> str:
 
 def _declare(lib: ctypes.CDLL) -> None:
     p, i, u, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
-    # device, px, py, n, sample_index, seed, ms, tri, n_tris, sp, n_spheres,
-    # spl, st, ph, stream
-    lib.yk_raygen_trace.argtypes = [i, p, p, i, u, u, p, p, i, p, i, p, p, p, p]
+    # device, px, py, n, sample_index, seed, ms, tri, n_tris, trs, sp,
+    # n_spheres, spl, st, ph, stream
+    lib.yk_raygen_trace.argtypes = [i, p, p, i, u, u, p, p, i, p, p, i, p, p,
+                                    p, p]
     lib.yk_bounce.argtypes = [
         i, p, p, p, i, i, i, i,  # device, st_in, ph, st_out, n, dim0, bounce, max_depth
         p, p, i, p, p, p, i,  # ms, tri, n_tris, trs, mat, lt, n_lights

@@ -7,7 +7,10 @@
 //   yk_bounce        replaces _bounce_kernel (path_fused.py:709, body
 //                    _bounce_values :543 + shade_fused._shade_body :360):
 //                    one whole bounce, including the NEE occlusion sweeps and
-//                    the next ray's closest hit.
+//                    the next ray's closest hit.  Its first port ran one
+//                    thread per lane in film order; this is its redesign
+//                    for the card (PERF.md §6 records the change and its
+//                    measurements).
 //   yk_wave          replaces _wave_kernel (path_fused.py:788): raygen and
 //                    every bounce of one sample in one launch, the path
 //                    state in registers, writing only radiance and the ray
@@ -19,25 +22,48 @@
 // beforehand (the TPU kernels' `strat` variants) where the caller passes
 // them, else the uniform sampler's hash.
 //
-// Design.  One thread per ray.  The TPU kernels ran 1024-ray blocks of
-// (8,128) planes and replaced every per-lane table read with MXU one-hot
-// selects; here each thread reads its rows directly from global memory
-// (__ldg: the tables are a few KB and stay in L1/L2).  The JAX kernels
-// specialise on static scene facts (light types, material families, sigma,
-// clamp, textures); this kernel takes them at run time and branches per
-// lane, which gives the same value on every lane because a lane only ever
-// selects a lobe or light type the scene holds.  State crosses bounces as
-// [24, N] float planes (plane-major, so loads and stores coalesce).
+// What bounds them on this card: the per-ray sweeps are O(T) triangle tests
+// (Cornell: 36 for the closest hit and 36 per light for occlusion) and the
+// shading body, all ALU work on registers, issued by the SMs; the state
+// round trip of a bounce is 2 x 96 B per ray.  The JAX kernels specialise on
+// static scene facts (light types, material families, sigma, clamp,
+// textures); these kernels take them at run time and branch per lane, which
+// gives the same value on every lane because a lane only ever selects a lobe
+// or light type the scene holds.  One thread runs one lane.  The first
+// port's bounce kernel read every triangle's 12 floats and every shadow
+// test's light id from global memory, and ran the lanes in film order: a
+// warp held dead, missed and live lanes of every material, so it paid each
+// branch of the shading body and the longest sweep of any of its lanes (at
+// bounces 1-4 the same kernel on lanes grouped by material took 0.43-0.63x
+// the time).
 //
-// What bounds it: the per-ray sweeps are O(T) triangle tests (Cornell: 36
-// for the closest hit and 36 per light for occlusion), all ALU work on
-// registers; the state round trip is 2 x 96 B per ray per bounce.  So the
-// bounce kernel is compute- and register-bound, not memory-bound.  The
-// shading body is long, so __launch_bounds__(128) lets the compiler use up
-// to 255 registers per thread; spills show in -Xptxas -v.  Lanes that are
-// dead skip the occlusion and next-hit sweeps (their results are fixed),
-// but still run the shading maths so every output plane matches the plain
-// version bit for bit.
+// Design (the redesign).
+// - Scene tables in shared memory, staged by every block of all three
+//   kernels, which read them the same way: the triangle rows [T, 12] as
+//   float4s (48 KB at the wave's gate of 1024 triangles), the spheres' test
+//   rows (world_to_obj's first three rows and the radius, four float4s), and
+//   the triangles' area-light ids as ints, so a shadow test reads one shared
+//   int.  A sweep's lanes read the same triangle at once: a broadcast.  The
+//   shading rows stay in global memory (one row a lane).
+// - Material-coherent lanes in the bounce kernel: a block of 256 threads
+//   takes a tile of TILE = 512 lanes and sorts them with a stable counting
+//   sort in shared memory, by class: dead, missed, then the hit's material
+//   type (matte, glass, metal, glossy) and surface (triangle or sphere).
+//   Thread t then runs lane perm[p] of the tile for its positions p: it
+//   loads that lane's state, reads its hash `ph` and its sampler planes at
+//   the lane's own index, and writes its outputs there.  Warps of dead
+//   lanes skip the sweeps together, and a warp shades one BSDF branch.  A
+//   lane's arithmetic is unchanged, so every output plane keeps its bits.
+// - Grids: one lane a thread (raygen, wave) and one tile a block (bounce),
+//   so the card schedules blocks as they finish.  A persistent grid, which
+//   stages the tables once per block, measured slower here: the tables of
+//   a Cornell-sized scene take 2 KB, and its blocks' uneven work left SMs
+//   idle at the end (PERF.md §6).
+// - Registers: __launch_bounds__(256, 2) caps them at 128; the bounce
+//   kernel takes 108 and spills nothing (the first port's took 96 with 24
+//   B of spills).  256 threads and 512-lane tiles measured fastest over
+//   bounces 0-4 among 128-384 threads and 384-2048 lanes.
+// - State crosses bounces as [24, N] float planes (plane-major).
 //
 // Numerics: compiled with -fmad=false and without fast-math, so products,
 // sums, divisions and square roots round exactly as in the JAX and PyTorch
@@ -51,6 +77,10 @@
 
 using namespace yk;
 
+// The block's dynamic shared memory: the staged scene, then the bounce
+// kernel's sort buffers.
+extern __shared__ float4 smem[];
+
 namespace {
 
 constexpr int ST_OX = 0, ST_OY = 1, ST_OZ = 2, ST_DX = 3, ST_DY = 4, ST_DZ = 5;
@@ -63,14 +93,61 @@ constexpr int MS_R2C = 0, MS_C2W = 16, MS_CENTER = 32, MS_DIAG = 35, MS_BG = 36,
 
 constexpr int FLAG_SIGMA = 1, FLAG_CLAMP = 2, FLAG_TEX = 4;
 
-constexpr int THREADS = 128;
+constexpr int THREADS = 128;  // raygen and wave kernels
+constexpr int BOUNCE_THREADS = 256;  // bounce kernel
+constexpr int BOUNCE_MIN_BLOCKS = 2;  // its blocks per SM: at most 128 registers
+constexpr int TILE = 512;  // lanes the bounce kernel sorts together
+constexpr int BOUNCE_WARPS = BOUNCE_THREADS / 32;
+constexpr int PER_THREAD = TILE / BOUNCE_THREADS;
+constexpr int N_CLASSES = 10;  // dead, missed, 4 material types x 2 surfaces
+constexpr unsigned FULL = 0xffffffffu;
 
-struct Scene {
-  const float* __restrict__ tri;  // [T, 12]
+// The scene's tables in device memory, as the wrapper passes them.
+struct SceneSrc {
+  const float* __restrict__ tri;  // [T, 12] packed corners
+  const float* __restrict__ trs;  // [T, 32] shading rows (column 27: area light)
   int n_tris;
-  const float* __restrict__ sp;  // [S, 40]
+  const float* __restrict__ sp;  // [S, 40] sphere rows
   int n_spheres;
 };
+
+// Bytes of shared memory the staged scene takes.
+__host__ __device__ inline size_t scene_bytes(int n_tris, int n_spheres) {
+  return (size_t)n_tris * 48 + (size_t)n_spheres * 64 + (((size_t)n_tris * 4 + 15) / 16) * 16;
+}
+
+// The sweeps' tables, staged in shared memory by stage_scene: the triangle
+// rows [T][3] float4s, the sphere test rows [S][4] float4s (world_to_obj
+// rows 0-2, then the radius), each triangle's area light [T] ints (-1 for
+// none).  The addresses are computed from `smem` and the counts, so they
+// take no registers and compile to shared-memory loads.
+struct Scene {
+  int n_tris, n_spheres;
+  __device__ __forceinline__ const float4* tri(int i) const { return smem + 3 * i; }
+  __device__ __forceinline__ const float4* sp(int s) const { return smem + 3 * n_tris + 4 * s; }
+  __device__ __forceinline__ int light(int i) const {
+    return ((const int*)(smem + 3 * n_tris + 4 * n_spheres))[i];
+  }
+  // The first byte past the tables.
+  __device__ __forceinline__ void* end() const { return (char*)smem + scene_bytes(n_tris, n_spheres); }
+};
+
+// Stage the scene's tables by all threads of the block, then synchronise.
+__device__ __forceinline__ Scene stage_scene(const SceneSrc& src) {
+  const int T = src.n_tris, S = src.n_spheres;
+  float* tri = (float*)smem;
+  float* sp = (float*)(smem + 3 * T);
+  int* light = (int*)(smem + 3 * T + 4 * S);
+  for (int e = threadIdx.x; e < 12 * T; e += blockDim.x) tri[e] = __ldg(src.tri + e);
+  for (int e = threadIdx.x; e < 16 * S; e += blockDim.x) {
+    const int s = e >> 4, k = e & 15;
+    sp[e] = k < 12 ? __ldg(src.sp + 40 * s + k) : (k == 12 ? __ldg(src.sp + 40 * s + 32) : 0.0f);
+  }
+  // Area-light ids are whole numbers stored as floats (-1 for none).
+  for (int i = threadIdx.x; i < T; i += blockDim.x) light[i] = (int)__ldg(src.trs + 32 * i + 27);
+  __syncthreads();
+  return {T, S};
+}
 
 struct Hit {
   float t, b0, b1, prim, sph, hitf;
@@ -85,7 +162,7 @@ __device__ Hit trace_scene(const Scene& sc, V3 o, V3 d, float t_max) {
   int prim = -1;
   for (int i = 0; i < sc.n_tris; ++i) {
     float ti, bi0, bi1;
-    bool hit = watertight(sh, o, t, sc.tri + 12 * i, ti, bi0, bi1);
+    bool hit = watertight_row(sh, o, t, sc.tri(i), ti, bi0, bi1);
     if (hit && ti < t) {
       t = ti;
       prim = i;
@@ -100,7 +177,7 @@ __device__ Hit trace_scene(const Scene& sc, V3 o, V3 d, float t_max) {
     int best_i = -1;
     for (int s = 0; s < sc.n_spheres; ++s) {
       bool hit;
-      float ts = sphere_t(sc.sp + 40 * s, o, d, t_max, hit);
+      float ts = sphere_t(sc.sp(s), o, d, t_max, hit);
       if (hit && ts < best_t) {
         best_t = ts;
         best_i = s;
@@ -118,18 +195,18 @@ __device__ Hit trace_scene(const Scene& sc, V3 o, V3 d, float t_max) {
 }
 
 // Occlusion: any triangle hit (skipping the area light `skip_id`'s own
-// triangles, shading row column 27) or any sphere hit.  path_fused.py:210.
-__device__ bool occluded(const Scene& sc, const float* __restrict__ trs, int skip_id, V3 o, V3 d, float t_max) {
+// triangles) or any sphere hit.  path_fused.py:210.
+__device__ bool occluded(const Scene& sc, int skip_id, V3 o, V3 d, float t_max) {
   Shear sh = make_shear(d);
   for (int i = 0; i < sc.n_tris; ++i) {
     float ti, bi0, bi1;
-    bool hit = watertight(sh, o, t_max, sc.tri + 12 * i, ti, bi0, bi1);
-    if (skip_id >= 0) hit = hit && (__ldg(trs + 32 * i + 27) != (float)skip_id);
+    bool hit = watertight_row(sh, o, t_max, sc.tri(i), ti, bi0, bi1);
+    if (skip_id >= 0) hit = hit && sc.light(i) != skip_id;
     if (hit) return true;
   }
   for (int s = 0; s < sc.n_spheres; ++s) {
     bool hit;
-    sphere_t(sc.sp + 40 * s, o, d, t_max, hit);
+    sphere_t(sc.sp(s), o, d, t_max, hit);
     if (hit) return true;
   }
   return false;
@@ -149,8 +226,7 @@ __device__ __forceinline__ int trunc_i32(float x) {
 // WaveTables).
 struct Tables {
   const float* __restrict__ ms;
-  Scene sc;
-  const float* __restrict__ trs;  // [T, 32]
+  SceneSrc src;
   const float* __restrict__ mat;  // [M, 16]
   const float* __restrict__ lt;   // [L, 32]
   int n_lights;
@@ -284,20 +360,34 @@ __device__ __forceinline__ PathState raygen_lane(int px, int py, uint32_t sample
 // the bounce radiance seeded with the emission term.
 struct BounceNee {
   const Scene& sc;
-  const float* __restrict__ trs;
   V3 br;
   __device__ void emit(V3 ne) { br = ne; }
   __device__ void light(int, int skip, bool worth, V3 o_s, V3 d_s, V3 contrib) {
     // A lane that is not worth it traces with t_max = 0, which never hits.
-    bool lit = worth && !occluded(sc, trs, skip, o_s, d_s, F(0.9999));
+    bool lit = worth && !occluded(sc, skip, o_s, d_s, F(0.9999));
     br = {br.x + (lit ? contrib.x : 0.0f), br.y + (lit ? contrib.y : 0.0f), br.z + (lit ? contrib.z : 0.0f)};
   }
 };
 
+// The shading body's tables, in device memory.
+__device__ __forceinline__ ShadeTables shade_tables(const Tables& a) {
+  ShadeTables tb;
+  tb.trs = a.src.trs;
+  tb.mat = a.mat;
+  tb.lt = a.lt;
+  tb.n_lights = a.n_lights;
+  tb.sp = a.src.sp;
+  tb.n_spheres = a.src.n_spheres;
+  tb.center = {__ldg(a.ms + MS_CENTER), __ldg(a.ms + MS_CENTER + 1), __ldg(a.ms + MS_CENTER + 2)};
+  tb.diag = __ldg(a.ms + MS_DIAG);
+  tb.has_sigma = (a.flags & FLAG_SIGMA) != 0;
+  return tb;
+}
+
 // One bounce (_bounce_values + the next ray's trace, path_fused.py:543-786):
 // shade, NEE occlusion, resolve, next closest hit.
-__device__ __forceinline__ PathState bounce_lane(const Tables& a, const PathState& s, const Draws& urand,
-                                                 int bounce) {
+__device__ __forceinline__ PathState bounce_lane(const Tables& a, const Scene& sc, const PathState& s,
+                                                 const Draws& urand, int bounce) {
   const bool has_clamp = (a.flags & FLAG_CLAMP) != 0;
   const bool has_tex = (a.flags & FLAG_TEX) != 0;
 
@@ -316,16 +406,7 @@ __device__ __forceinline__ PathState bounce_lane(const Tables& a, const PathStat
   bool missed = alive_in && !hitf;
   in.alive = alive_in && hitf;
 
-  ShadeTables tb;
-  tb.trs = a.trs;
-  tb.mat = a.mat;
-  tb.lt = a.lt;
-  tb.n_lights = a.n_lights;
-  tb.sp = a.sc.sp;
-  tb.n_spheres = a.sc.n_spheres;
-  tb.center = {__ldg(a.ms + MS_CENTER), __ldg(a.ms + MS_CENTER + 1), __ldg(a.ms + MS_CENTER + 2)};
-  tb.diag = __ldg(a.ms + MS_DIAG);
-  tb.has_sigma = (a.flags & FLAG_SIGMA) != 0;
+  const ShadeTables tb = shade_tables(a);
 
   // Table rows; the u8 texel replaces kd where the material binds one.
   Rows r = select_rows(tb, s.hit.prim, s.hit.sph);
@@ -343,7 +424,7 @@ __device__ __forceinline__ PathState bounce_lane(const Tables& a, const PathStat
     }
   }
 
-  BounceNee nee{a.sc, a.trs, zero3()};
+  BounceNee nee{sc, zero3()};
   ShadeOut so = shade_lane(tb, in, r, mt, urand, bounce, nee);
   V3 br = nee.br;
   const V3 beta = in.beta;
@@ -371,33 +452,106 @@ __device__ __forceinline__ PathState bounce_lane(const Tables& a, const PathStat
   // Next ray's closest hit; a dead lane traces with t_max = 0, which
   // leaves (t, b0, b1, prim, sph, hitf) = (0, 0, 0, -1, -1, 0).
   out.hit = {0.0f, 0.0f, 0.0f, -1.0f, -1.0f, 0.0f};
-  if (not_last && so.alive2) out.hit = trace_scene(a.sc, so.o2, so.d2, YK_F32_MAX);
+  if (not_last && so.alive2) out.hit = trace_scene(sc, so.o2, so.d2, YK_F32_MAX);
   return out;
 }
 
+// A lane's class for the bounce kernel's sort: 0 dead, 1 missed, else 2 +
+// 2 * the hit's material type + 1 on a sphere's surface.  It orders lanes
+// only; no output depends on it.
+__device__ __forceinline__ int lane_class(const Tables& a, const float* __restrict__ s, size_t N) {
+  if (!(__ldg(s + ST_ALIVE * N) > 0.0f)) return 0;
+  if (!(__ldg(s + ST_HITF * N) > 0.0f)) return 1;
+  const Rows r = select_rows(shade_tables(a), __ldg(s + ST_PRIM * N), __ldg(s + ST_SPH * N));
+  const int mtype = min(max((int)__ldg(r.mrow), 0), 3);
+  return 2 + 2 * mtype + (r.sph_valid ? 1 : 0);
+}
+
 // ---- kernels -------------------------------------------------------------
+// Each block stages the scene, then runs one lane a thread (raygen, wave)
+// or one tile of TILE lanes (bounce).
 
 __global__ void __launch_bounds__(THREADS)
     raygen_trace_kernel(const int* __restrict__ px_in, const int* __restrict__ py_in, int n, uint32_t sample_index,
-                        uint32_t seed, const float* __restrict__ ms, Scene sc, const float* __restrict__ spl,
+                        uint32_t seed, const float* __restrict__ ms, SceneSrc src, const float* __restrict__ spl,
                         float* __restrict__ st, int* __restrict__ ph_out) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const Scene sc = stage_scene(src);
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
+  const size_t N = (size_t)n;
   uint32_t ph;
-  const PathState p = raygen_lane(px_in[i], py_in[i], sample_index, seed, ms, sc, spl ? spl + i : nullptr,
-                                  (size_t)n, ph);
-  store_state(st + i, (size_t)n, p);
+  const PathState p = raygen_lane(px_in[i], py_in[i], sample_index, seed, ms, sc, spl ? spl + i : nullptr, N, ph);
+  store_state(st + i, N, p);
   ph_out[i] = (int)ph;
 }
 
-__global__ void __launch_bounds__(THREADS)
+// One bounce of TILE lanes a block.  The tile's lanes are sorted by
+// lane_class with a stable counting sort: thread t classes lanes
+// PER_THREAD t .. PER_THREAD t + PER_THREAD - 1 and counts each class; warp
+// scans and one pass over the warps' sums give every thread, for each
+// class, its first position in the sorted tile.  Then the block runs the
+// tile in that order: position p goes to thread p % BOUNCE_THREADS, so each
+// warp takes 32 neighbours in class order.  Every lane reads and writes its
+// own index.
+__global__ void __launch_bounds__(BOUNCE_THREADS, BOUNCE_MIN_BLOCKS)
     bounce_kernel(Tables a, const float* __restrict__ st_in, const int* __restrict__ ph, float* __restrict__ st_out,
                   int n, int dim0, int bounce, const float* __restrict__ spl) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
+  const Scene sc = stage_scene(a.src);
+  uint16_t* perm = (uint16_t*)sc.end();            // [TILE]
+  int* warp_sums = (int*)(perm + TILE);            // [N_CLASSES][BOUNCE_WARPS]
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const size_t N = (size_t)n;
-  const Draws urand{(uint32_t)ph[i], (uint32_t)dim0, spl ? spl + i : nullptr, N};
-  store_state(st_out + i, N, bounce_lane(a, load_state(st_in + i, N), urand, bounce));
+  const int base = blockIdx.x * TILE;
+  int cls[PER_THREAD];
+  int pos[N_CLASSES];  // this thread's count of each class, then its first position
+#pragma unroll
+  for (int k = 0; k < N_CLASSES; ++k) pos[k] = 0;
+#pragma unroll
+  for (int j = 0; j < PER_THREAD; ++j) {
+    const int i = base + PER_THREAD * threadIdx.x + j;
+    cls[j] = i < n ? lane_class(a, st_in + i, N) : N_CLASSES;
+#pragma unroll
+    for (int k = 0; k < N_CLASSES; ++k) pos[k] += cls[j] == k ? 1 : 0;
+  }
+  // Inclusive warp scans of the counts, then the warps' sums.
+#pragma unroll
+  for (int k = 0; k < N_CLASSES; ++k) {
+    int incl = pos[k];
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const int u = __shfl_up_sync(FULL, incl, off);
+      if (lane >= off) incl += u;
+    }
+    if (lane == 31) warp_sums[k * BOUNCE_WARPS + warp] = incl;
+    pos[k] = incl - pos[k];  // exclusive, within the warp
+  }
+  __syncthreads();
+  int start = 0;  // the sorted tile's first position of class k
+#pragma unroll
+  for (int k = 0; k < N_CLASSES; ++k) {
+    int before = 0, total = 0;
+#pragma unroll
+    for (int w = 0; w < BOUNCE_WARPS; ++w) {
+      const int u = warp_sums[k * BOUNCE_WARPS + w];
+      total += u;
+      before += w < warp ? u : 0;
+    }
+    pos[k] += start + before;
+    start += total;
+  }
+#pragma unroll
+  for (int j = 0; j < PER_THREAD; ++j) {
+#pragma unroll
+    for (int k = 0; k < N_CLASSES; ++k) {
+      if (cls[j] == k) perm[pos[k]++] = (uint16_t)(PER_THREAD * threadIdx.x + j);
+    }
+  }
+  __syncthreads();  // perm complete; `start` is the tile's lane count
+  for (int p = threadIdx.x; p < start; p += BOUNCE_THREADS) {
+    const int i = base + perm[p];
+    const Draws urand{(uint32_t)ph[i], (uint32_t)dim0, spl ? spl + i : nullptr, N};
+    store_state(st_out + i, N, bounce_lane(a, sc, load_state(st_in + i, N), urand, bounce));
+  }
 }
 
 // The whole path of one sample (_wave_kernel, path_fused.py:788): raygen,
@@ -410,17 +564,18 @@ __global__ void __launch_bounds__(THREADS)
 __global__ void __launch_bounds__(THREADS)
     wave_kernel(Tables a, const int* __restrict__ px_in, const int* __restrict__ py_in, int n, uint32_t sample_index,
                 uint32_t seed, const float* __restrict__ spl, float* __restrict__ out) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const Scene sc = stage_scene(a.src);
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   const size_t N = (size_t)n;
   const float* lane_spl = spl ? spl + i : nullptr;
   uint32_t ph;
-  PathState p = raygen_lane(px_in[i], py_in[i], sample_index, seed, a.ms, a.sc, lane_spl, N, ph);
+  PathState p = raygen_lane(px_in[i], py_in[i], sample_index, seed, a.ms, sc, lane_spl, N, ph);
   const int dims_per_bounce = 2 * a.n_lights + 3;
   for (int b = 0; b < a.max_depth && p.alive > 0.0f; ++b) {
     const int dim0 = 2 + b * dims_per_bounce;
     const Draws urand{ph, (uint32_t)dim0, lane_spl ? lane_spl + (size_t)dim0 * N : nullptr, N};
-    p = bounce_lane(a, p, urand, b);
+    p = bounce_lane(a, sc, p, urand, b);
   }
   out[i] = p.rad.x;
   out[N + i] = p.rad.y;
@@ -428,15 +583,12 @@ __global__ void __launch_bounds__(THREADS)
   out[3 * N + i] = p.rc;
 }
 
-inline int blocks_for(int n) { return (n + THREADS - 1) / THREADS; }
-
 Tables make_tables(const float* ms, const float* tri, int n_tris, const float* trs, const float* mat,
                    const float* lt, int n_lights, const float* sp, int n_spheres, const float* td, int n_td,
                    const unsigned char* tex, int pool_pad, int flags, int max_depth) {
   Tables a;
   a.ms = ms;
-  a.sc = {tri, n_tris, sp, n_spheres};
-  a.trs = trs;
+  a.src = {tri, trs, n_tris, sp, n_spheres};
   a.mat = mat;
   a.lt = lt;
   a.n_lights = n_lights;
@@ -458,13 +610,16 @@ Tables make_tables(const float* ms, const float* tri, int n_tris, const float* t
 // the wave's [2 + max_depth * (2L+3), n]) or null for the uniform sampler.
 
 extern "C" int yk_raygen_trace(int device, const int* px, const int* py, int n, unsigned int sample_index,
-                               unsigned int seed, const float* ms, const float* tri, int n_tris, const float* sp,
-                               int n_spheres, const float* spl, float* st, int* ph, void* stream) {
+                               unsigned int seed, const float* ms, const float* tri, int n_tris, const float* trs,
+                               const float* sp, int n_spheres, const float* spl, float* st, int* ph, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  Scene sc = {tri, n_tris, sp, n_spheres};
-  raygen_trace_kernel<<<blocks_for(n), THREADS, 0, (cudaStream_t)stream>>>(px, py, n, sample_index, seed, ms, sc,
-                                                                           spl, st, ph);
+  const SceneSrc src = {tri, trs, n_tris, sp, n_spheres};
+  const size_t shmem = scene_bytes(n_tris, n_spheres);
+  err = allow_shared((const void*)raygen_trace_kernel, shmem);
+  if (err != cudaSuccess) return (int)err;
+  raygen_trace_kernel<<<(n + THREADS - 1) / THREADS, THREADS, shmem, (cudaStream_t)stream>>>(
+      px, py, n, sample_index, seed, ms, src, spl, st, ph);
   return (int)cudaGetLastError();
 }
 
@@ -477,7 +632,12 @@ extern "C" int yk_bounce(int device, const float* st_in, const int* ph, float* s
   if (err != cudaSuccess) return (int)err;
   const Tables a = make_tables(ms, tri, n_tris, trs, mat, lt, n_lights, sp, n_spheres, td, n_td, tex, pool_pad,
                                flags, max_depth);
-  bounce_kernel<<<blocks_for(n), THREADS, 0, (cudaStream_t)stream>>>(a, st_in, ph, st_out, n, dim0, bounce, spl);
+  const size_t shmem =
+      scene_bytes(n_tris, n_spheres) + TILE * sizeof(uint16_t) + N_CLASSES * BOUNCE_WARPS * sizeof(int);
+  err = allow_shared((const void*)bounce_kernel, shmem);
+  if (err != cudaSuccess) return (int)err;
+  bounce_kernel<<<(n + TILE - 1) / TILE, BOUNCE_THREADS, shmem, (cudaStream_t)stream>>>(a, st_in, ph, st_out, n,
+                                                                                         dim0, bounce, spl);
   return (int)cudaGetLastError();
 }
 
@@ -490,7 +650,11 @@ extern "C" int yk_wave(int device, const int* px, const int* py, int n, unsigned
   if (err != cudaSuccess) return (int)err;
   const Tables a = make_tables(ms, tri, n_tris, trs, mat, lt, n_lights, sp, n_spheres, td, n_td, tex, pool_pad,
                                flags, max_depth);
-  wave_kernel<<<blocks_for(n), THREADS, 0, (cudaStream_t)stream>>>(a, px, py, n, sample_index, seed, spl, out);
+  const size_t shmem = scene_bytes(n_tris, n_spheres);
+  err = allow_shared((const void*)wave_kernel, shmem);
+  if (err != cudaSuccess) return (int)err;
+  wave_kernel<<<(n + THREADS - 1) / THREADS, THREADS, shmem, (cudaStream_t)stream>>>(a, px, py, n, sample_index,
+                                                                                     seed, spl, out);
   return (int)cudaGetLastError();
 }
 

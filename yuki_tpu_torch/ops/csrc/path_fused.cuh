@@ -1,7 +1,7 @@
 // Device maths shared by the port's kernels (path_fused.cu, shade_fused.cu,
 // trace_treelets.cu): the sampler hash, SoA vector helpers, the watertight
-// triangle test, the object-space sphere test, the BSDF lobes and the
-// per-bounce shading body.
+// triangle test, the object-space sphere test, the BSDF lobes, the
+// per-bounce shading body, and the host's shared-memory opt-in.
 //
 // Every formula keeps yuki_tpu's op order (ops/trace.py, ops/path_fused.py,
 // ops/shade_fused.py) and the file is compiled with -fmad=false, so each
@@ -9,6 +9,8 @@
 // Constants are written F(double literal): a double rounded once to float,
 // as a Python float meeting a float32 array is.
 #pragma once
+
+#include <cuda_runtime.h>
 
 #include <cstdint>
 
@@ -34,6 +36,15 @@ __device__ __forceinline__ float jmin(float a, float b) {
 
 __device__ __forceinline__ float jclip(float x, float lo, float hi) {
   return jmin(jmax(x, lo), hi);
+}
+
+// ---- launch helper (host) -----------------------------------------------
+
+// Let `kernel` take `bytes` of dynamic shared memory (above 48 KB it must
+// opt in); a table too large for the card gives the launch's error.
+inline cudaError_t allow_shared(const void* kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
 // ---- counter-based sampler (sampling.py pcg_hash) -----------------------
@@ -162,25 +173,30 @@ __device__ __forceinline__ bool watertight9(const Shear& s, V3 o, float t_cur, f
   return hit;
 }
 
-// The same test with the nine corner coordinates read from global memory.
-__device__ __forceinline__ bool watertight(const Shear& s, V3 o, float t_cur, const float* __restrict__ c,
-                                          float& t, float& b0, float& b1) {
-  return watertight9(s, o, t_cur, __ldg(c + 0), __ldg(c + 1), __ldg(c + 2), __ldg(c + 3), __ldg(c + 4),
-                     __ldg(c + 5), __ldg(c + 6), __ldg(c + 7), __ldg(c + 8), t, b0, b1);
+// The same test against one [12]-float triangle row staged in shared
+// memory as three float4s (corners p0, p1, p2 in the first nine floats):
+// three 16-byte loads, broadcast to the warp when its lanes sweep the same
+// triangle.
+__device__ __forceinline__ bool watertight_row(const Shear& s, V3 o, float t_cur, const float4* c, float& t,
+                                              float& b0, float& b1) {
+  const float4 c0 = c[0], c1 = c[1], c2 = c[2];
+  return watertight9(s, o, t_cur, c0.x, c0.y, c0.z, c0.w, c1.x, c1.y, c1.z, c1.w, c2.x, t, b0, b1);
 }
 
 // ---- object-space sphere test (stable-q quadratic, sphere.rs:37-89) -----
 
-// m: one sphere row (world_to_obj 0..15, obj_to_world 16..31, radius 32).
-// Returns the hit distance or a miss through `hit`.
-__device__ __forceinline__ float sphere_t(const float* __restrict__ m, V3 o, V3 d, float t_max, bool& hit) {
-  float m0 = __ldg(m + 0), m1 = __ldg(m + 1), m2 = __ldg(m + 2), m3 = __ldg(m + 3);
-  float m4 = __ldg(m + 4), m5 = __ldg(m + 5), m6 = __ldg(m + 6), m7 = __ldg(m + 7);
-  float m8 = __ldg(m + 8), m9 = __ldg(m + 9), m10 = __ldg(m + 10), m11 = __ldg(m + 11);
+// m: one sphere's test row staged in shared memory as four float4s:
+// world_to_obj's first three rows (m0..m11), then the radius.  Returns the
+// hit distance or a miss through `hit`.
+__device__ __forceinline__ float sphere_t(const float4* m, V3 o, V3 d, float t_max, bool& hit) {
+  const float4 r0 = m[0], r1 = m[1], r2 = m[2];
+  const float m0 = r0.x, m1 = r0.y, m2 = r0.z, m3 = r0.w;
+  const float m4 = r1.x, m5 = r1.y, m6 = r1.z, m7 = r1.w;
+  const float m8 = r2.x, m9 = r2.y, m10 = r2.z, m11 = r2.w;
   V3 ro = {m0 * o.x + m1 * o.y + m2 * o.z + m3, m4 * o.x + m5 * o.y + m6 * o.z + m7,
            m8 * o.x + m9 * o.y + m10 * o.z + m11};
   V3 rd = {m0 * d.x + m1 * d.y + m2 * d.z, m4 * d.x + m5 * d.y + m6 * d.z, m8 * d.x + m9 * d.y + m10 * d.z};
-  float radius = __ldg(m + 32);
+  float radius = m[3].x;
   float a = rd.x * rd.x + rd.y * rd.y + rd.z * rd.z;
   float b = 2.0f * (rd.x * ro.x + rd.y * ro.y + rd.z * ro.z);
   float c = ro.x * ro.x + ro.y * ro.y + ro.z * ro.z - radius * radius;

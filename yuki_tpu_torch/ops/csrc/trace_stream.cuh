@@ -57,13 +57,6 @@ __device__ __forceinline__ void stage_boxes(float* dst, const float* __restrict_
   for (int j = threadIdx.x; j < n * 6; j += blockDim.x) dst[j] = __ldg(src + (j / 6) * 8 + j % 6);
 }
 
-// Let `kernel` take `bytes` of dynamic shared memory (above 48 KB it must
-// opt in); a table too large for the card gives the launch's error.
-inline cudaError_t allow_shared(const void* kernel, size_t bytes) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-}
-
 // _watertight_scaled: the divide-free test against the ray's shear.  ts and
 // det come back with det > 0 (t = ts / det); the result covers the sign
 // test, det != 0 and ts > 0, and the caller applies the upper bound by

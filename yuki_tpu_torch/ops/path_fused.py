@@ -28,7 +28,12 @@ Each wrapper dispatches on where its tensors lie: a CUDA tensor launches
 the hand-written kernel in ``csrc/path_fused.cu`` (or raises); a CPU
 tensor runs the plain PyTorch version beside it (``raygen_trace_plain``,
 ``bounce_plain``), which the CPU tests hold against ``yuki_tpu``.  Each
-kernel launch adds one to ``LAUNCHES``.
+kernel launch adds one to ``LAUNCHES``.  The kernels stage the scene's
+sweep tables in shared memory, and the bounce kernel runs each 512-lane
+tile's lanes grouped by material class (dead, missed, the hit's material
+type and surface); a lane still reads and writes its own index, so no
+output depends on that order (``bounce_plain`` is lane-permutation
+equivariant bit for bit).
 
 The TPU-only tricks are gone: the MXU one-hot row selects
 (``_select_row_mxu``) are row loads at ``max(idx, 0)``, and the MXU texel
@@ -273,37 +278,43 @@ def _tri_closest(tb: WaveTables, o, d, t_max):
     return t, prim, b0, b1
 
 
+def _sphere_t(tb: WaveTables, s: int, o, d, t_max):
+    """Object-space test of sphere ``s`` (stable-q quadratic,
+    sphere.rs:37-89): (t, miss)."""
+    m = tb.sp[s].unbind()
+    ro = (
+        m[0] * o[0] + m[1] * o[1] + m[2] * o[2] + m[3],
+        m[4] * o[0] + m[5] * o[1] + m[6] * o[2] + m[7],
+        m[8] * o[0] + m[9] * o[1] + m[10] * o[2] + m[11],
+    )
+    rd = (
+        m[0] * d[0] + m[1] * d[1] + m[2] * d[2],
+        m[4] * d[0] + m[5] * d[1] + m[6] * d[2],
+        m[8] * d[0] + m[9] * d[1] + m[10] * d[2],
+    )
+    radius = m[32]
+    a = rd[0] * rd[0] + rd[1] * rd[1] + rd[2] * rd[2]
+    b = 2.0 * (rd[0] * ro[0] + rd[1] * ro[1] + rd[2] * ro[2])
+    c = ro[0] * ro[0] + ro[1] * ro[1] + ro[2] * ro[2] - radius * radius
+    discrim = b * b - 4.0 * a * c
+    has_root = discrim >= 0.0
+    rt = _sqrt(torch.clamp(discrim, min=0.0))
+    q = torch.where(b < 0.0, -0.5 * (b - rt), -0.5 * (b + rt))
+    t0 = q / a
+    t1 = c / torch.where(q == 0.0, 1e-30, q)
+    lo_t = torch.minimum(t0, t1)
+    hi_t = torch.maximum(t0, t1)
+    miss = (lo_t > t_max) | (hi_t <= 0.0)
+    t = torch.where(lo_t <= 0.0, hi_t, lo_t)
+    return t, miss | (t > t_max) | ~has_root
+
+
 def _spheres_closest(tb: WaveTables, o, d, t_max):
-    """Object-space sphere test (stable-q quadratic, sphere.rs:37-89)."""
+    """The closest sphere hit: (t, sphere id or -1)."""
     best_t = torch.full_like(t_max, F32_MAX)
     best_i = torch.full_like(t_max, -1, dtype=torch.int32)
     for s in range(tb.n_spheres):
-        m = tb.sp[s].unbind()
-        ro = (
-            m[0] * o[0] + m[1] * o[1] + m[2] * o[2] + m[3],
-            m[4] * o[0] + m[5] * o[1] + m[6] * o[2] + m[7],
-            m[8] * o[0] + m[9] * o[1] + m[10] * o[2] + m[11],
-        )
-        rd = (
-            m[0] * d[0] + m[1] * d[1] + m[2] * d[2],
-            m[4] * d[0] + m[5] * d[1] + m[6] * d[2],
-            m[8] * d[0] + m[9] * d[1] + m[10] * d[2],
-        )
-        radius = m[32]
-        a = rd[0] * rd[0] + rd[1] * rd[1] + rd[2] * rd[2]
-        b = 2.0 * (rd[0] * ro[0] + rd[1] * ro[1] + rd[2] * ro[2])
-        c = ro[0] * ro[0] + ro[1] * ro[1] + ro[2] * ro[2] - radius * radius
-        discrim = b * b - 4.0 * a * c
-        has_root = discrim >= 0.0
-        rt = _sqrt(torch.clamp(discrim, min=0.0))
-        q = torch.where(b < 0.0, -0.5 * (b - rt), -0.5 * (b + rt))
-        t0 = q / a
-        t1 = c / torch.where(q == 0.0, 1e-30, q)
-        lo_t = torch.minimum(t0, t1)
-        hi_t = torch.maximum(t0, t1)
-        miss = (lo_t > t_max) | (hi_t <= 0.0)
-        t = torch.where(lo_t <= 0.0, hi_t, lo_t)
-        miss = miss | (t > t_max) | ~has_root
+        t, miss = _sphere_t(tb, s, o, d, t_max)
         closer = ~miss & (t < best_t)
         best_t = torch.where(closer, t, best_t)
         best_i = torch.where(closer, s, best_i)
@@ -328,9 +339,12 @@ def _trace_scene(tb: WaveTables, o, d, t_max):
             hit.to(torch.float32))
 
 
-def _occluded(tb: WaveTables, skip_id: int, o, d, t_max):
+def _occluded(tb: WaveTables, skip_id: int, o, d, t_max, stats=None,
+              worth=None):
     """Any hit over the triangles (skipping the sampled area light's own
-    triangles, bvh.rs:287-293) or any sphere."""
+    triangles, bvh.rs:287-293) or any sphere.  ``stats`` receives the
+    tests the kernel's sweep makes for the ``worth`` lanes: each triangle
+    ("tests") and then each sphere ("sphere_tests") until the first hit."""
     occ = torch.zeros_like(t_max, dtype=torch.bool)
     for i in range(tb.n_tris):
         cols = tb.tri[i, :9].unbind()
@@ -338,10 +352,13 @@ def _occluded(tb: WaveTables, skip_id: int, o, d, t_max):
                                   t_max, cols)
         if skip_id >= 0:
             hit = hit & (tb.trs[i, 27] != float(skip_id))
+        if stats is not None:
+            stats["tests"] += int((worth & ~occ).sum())
         occ = occ | hit
-    if tb.n_spheres:
-        _, si_ = _spheres_closest(tb, o, d, t_max)
-        occ = occ | (si_ >= 0)
+    for s in range(tb.n_spheres):
+        if stats is not None:
+            stats["sphere_tests"] += int((worth & ~occ).sum())
+        occ = occ | ~_sphere_t(tb, s, o, d, t_max)[1]
     return occ
 
 
@@ -484,10 +501,14 @@ def _tex_index(tb: WaveTables, tex0_f, uv_s, uv_t):
 
 
 def bounce_plain(st: torch.Tensor, ph: torch.Tensor, bounce: int,
-                 tb: WaveTables, spl=None) -> torch.Tensor:
+                 tb: WaveTables, spl=None, stats=None) -> torch.Tensor:
     """Plain version of the bounce kernel (yuki_tpu ``_bounce_values`` +
     ``_bounce_kernel``'s writes and next-ray trace): state in, state out.
-    ``spl``: this bounce's [2L+3, N] stratified planes, or None."""
+    ``spl``: this bounce's [2L+3, N] stratified planes, or None.
+    ``stats`` (a dict) receives the sweeps' work as the kernel does it:
+    "tests" (triangle tests) and "sphere_tests", for the next hit's full
+    sweep of every lane that traces one and each light's shadow sweep of
+    every lane worth a shadow ray, up to its first hit."""
     dim0 = 2 + bounce * tb.dims_per_bounce
 
     def s(name):
@@ -556,10 +577,13 @@ def bounce_plain(st: torch.Tensor, ph: torch.Tensor, bounce: int,
     )
 
     # NEE occlusion per light.
+    if stats is not None:
+        stats.setdefault("tests", 0)
+        stats.setdefault("sphere_tests", 0)
     occs = []
     for li, (o_s, d_s, t_s, worth, contrib) in enumerate(nee):
         skip = li if tb.light_types[li] == LIGHT_RECT else -2
-        occs.append(_occluded(tb, skip, o_s, d_s, t_s))
+        occs.append(_occluded(tb, skip, o_s, d_s, t_s, stats, worth))
 
     # Resolve: background first, the per-light fold seeded with the
     # beta*emitted term (the outer beta below is the reference's
@@ -598,6 +622,10 @@ def bounce_plain(st: torch.Tensor, ph: torch.Tensor, bounce: int,
 
     if not_last:
         t_max2 = torch.where(alive2, F32_MAX, 0.0)
+        if stats is not None:
+            traced = int(alive2.sum())
+            stats["tests"] += traced * tb.n_tris
+            stats["sphere_tests"] += traced * tb.n_spheres
         t, prim2, nb0, nb1, sph2, hitf2 = _trace_scene(tb, o2, d2v, t_max2)
     else:
         t, nb0, nb1, hitf2 = zero, zero, zero, zero
@@ -663,8 +691,8 @@ def raygen_trace(px: torch.Tensor, py: torch.Tensor, sample_index: int,
         dev.index, _build.ptr(px), _build.ptr(py), n,
         ctypes.c_uint32(int(sample_index) & MASK32),
         ctypes.c_uint32(int(seed) & MASK32),
-        _build.ptr(tb.ms), _build.ptr(tb.tri), tb.n_tris, _build.ptr(tb.sp), tb.n_spheres,
-        spl_p, _build.ptr(st), _build.ptr(ph),
+        _build.ptr(tb.ms), _build.ptr(tb.tri), tb.n_tris, _build.ptr(tb.trs),
+        _build.ptr(tb.sp), tb.n_spheres, spl_p, _build.ptr(st), _build.ptr(ph),
         _build.stream(dev),
     )
     _build.launch_check(err, "raygen_trace")

@@ -13,12 +13,13 @@ than S words or more than C chunks; the caller re-runs it wide.
                          bit for bit against the Pallas kernel
 
 A CUDA tensor launches the hand-written kernel in ``csrc/trace_cull.cu``
-(one thread per ray, word boxes and chunk bounds in shared memory) or
-raises; a CPU tensor runs the plain version.  The TPU kernel's one-hot
-MXU gathers of the chunk bounds are exact ``1.0 * value`` products, so
-plain loads replace them.  Padding conventions are yuki_tpu's: level-1
-word boxes pad lo = +inf, hi = -inf; level-2 pad chunks hold BIG and are
-masked by chunk id.
+(word and chunk boxes in shared memory as structure of arrays; level 1 one
+thread per ray, level 2 one lane per chunk of each crossed word, a warp's
+rays in turn) or raises; a CPU tensor runs the plain version.  The TPU
+kernel's one-hot MXU gathers of the chunk bounds are exact ``1.0 * value``
+products, so plain loads replace them.  Padding conventions are
+yuki_tpu's: level-1 word boxes pad lo = +inf, hi = -inf; level-2 pad
+chunks hold BIG and are masked by chunk id.
 """
 
 from __future__ import annotations
