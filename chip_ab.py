@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
-"""A/B of the two-level cull and the dense bounce kernel between two
-checkouts of this repository, on one NVIDIA GPU.
+"""A/B of the redesigned kernels (the two-level cull, the dense bounce,
+the crossing words and the slot walks) between two checkouts of this
+repository, on one NVIDIA GPU.
 
     python3 chip_ab.py run ROOT TAG OUT.json [PARTS]   # measure ROOT's port
     python3 chip_ab.py compare A.json B.json           # A against B
 
-PARTS is a comma-separated subset of bounce,cull,frames (default: all).
+PARTS is a comma-separated subset of bounce,cull,stream,frames (default:
+all).
 
 ``run`` imports the ``yuki_tpu_torch`` package of the checkout at ROOT
 (its kernels are built there, at first use) and records, on the card:
@@ -22,10 +24,20 @@ PARTS is a comma-separated subset of bounce,cull,frames (default: all).
   missed, then the hit's material type and surface kind), whose outputs,
   permuted back, must equal the unpermuted ones;
 - the one-kernel wave on the same Cornell wave;
+- ``stream``: the crossing words on 1, 32 and all (2,217) of the cull's
+  overflow rays of that bounce-1 wave, on its first 65,536 rays and on
+  the whole wave (524,288 rays), with each wave's crossed word boxes per
+  ray and a warp's union of them against their sum; the closest slot
+  walk on the bounce-1 wave's slot rows, on the overflow rays' wide
+  re-run (C_WIDE) and, with_skip, on the combined wave's (the bounce-1
+  rays then their shadow rays, as ``chip_smoke.py`` phase 12 makes it),
+  with the share of live slots and the real rows of the launched chunks;
+  the occlusion slot walk on the shadow rays' slot rows; each timed a call
+  (CUDA events) and as the kernel's device time (torch.profiler);
 - the 1080p d5 16 spp Cornell frame and the 1080p d5 1 spp colonnade frame
-  (the median of three after one warm-up), and one of each under
-  torch.profiler: device busy time, idle share and the cull's or the
-  bounce kernel's device time;
+  on the slot stream and with both walker flags (the median of three
+  after one warm-up), and one of each under torch.profiler: device busy
+  time, idle share and the redesigned kernels' device time;
 - each of those kernels' ``-Xptxas -v`` lines;
 
 and writes the times with a SHA-256 digest of every kernel output to
@@ -47,8 +59,13 @@ DEPTH = 5
 SPP = 16
 CORNELL_TILES = 4096
 COL_TILES = 2048
+SLICE_RAYS = 65536  # the crossing words' slice of the bounce-1 wave
 KERNEL_NAMES = ("cull_kernel", "bounce_kernel", "wave_kernel",
-                "raygen_trace_kernel")
+                "raygen_trace_kernel", "cross_words_kernel",
+                "slot_closest_kernel", "slot_any_kernel")
+COL_KERNELS = ("cull_kernel", "cross_words_kernel", "slot_closest_kernel",
+               "slot_any_kernel", "walker_closest_kernel",
+               "walker_any_kernel")
 
 
 def _smoke():
@@ -65,12 +82,23 @@ def digest(t):
                           ).hexdigest()[:20]
 
 
+def _kernel_key(line):
+    """The name in KERNEL_NAMES that a ptxas line's mangled name holds,
+    with a bool template argument as <true> or <false>."""
+    k = next((k for k in KERNEL_NAMES if k in line), None)
+    if k is not None and "ILb1E" in line:
+        return k + "<true>"
+    if k is not None and "ILb0E" in line:
+        return k + "<false>"
+    return k
+
+
 def ptxas_lines(report):
     """The ptxas lines of the kernels in KERNEL_NAMES: {kernel: [line]}."""
     out, cur = {}, None
     for line in report.splitlines():
         if "Compiling entry function" in line or "Function properties" in line:
-            cur = next((k for k in KERNEL_NAMES if k in line), None)
+            cur = _kernel_key(line)
             if "Compiling" in line:
                 continue
         if cur is not None and ("registers" in line or "spill" in line
@@ -97,20 +125,23 @@ def material_class(torch, tpf, tb, st):
         ~hitf, 1, 2 + 2 * mtype + is_sph.long()))
 
 
-def device_times(torch, prof, name):
-    """(busy ms, ms in kernels whose name holds ``name``) of a profile."""
-    busy = part = 0.0
+def device_times(torch, prof, names):
+    """(busy ms, {name: (ms, launches) in kernels whose name holds it}) of
+    a profile."""
+    busy, parts = 0.0, {k: [0.0, 0] for k in names}
     for e in prof.key_averages():
         if e.device_type == torch.autograd.DeviceType.CPU:
             continue
         t = float(getattr(e, "self_device_time_total", 0.0) or 0.0) / 1e3
         busy += t
-        if name in e.key:
-            part += t
-    return busy, part
+        for k in names:
+            if k in e.key:
+                parts[k][0] += t
+                parts[k][1] += int(e.count)
+    return busy, {k: tuple(v) for k, v in parts.items()}
 
 
-def run(root, tag, out_path, parts="bounce,cull,frames"):
+def run(root, tag, out_path, parts="bounce,cull,stream,frames"):
     parts = set(parts.split(","))
     sys.path.insert(0, os.path.abspath(root))
     import numpy as np  # noqa: F401
@@ -207,7 +238,7 @@ def run(root, tag, out_path, parts="bounce,cull,frames"):
               " ms")
 
     # ---- the cull on the colonnade's bounce-1 and shadow rays -------------
-    if "cull" not in parts and "frames" not in parts:
+    if not parts & {"cull", "stream", "frames"}:
         return _write(res, out_path)
     scene, cam, _ = colonnade(device=dev)
     ctx, o, d = sm._camera_wave(torch, dev, cam, COL_TILES)
@@ -224,7 +255,7 @@ def run(root, tag, out_path, parts="bounce,cull,frames"):
     t2 = torch.where(alive2, F32_MAX, 0.0).to(torch.float32)
     hit2 = traverse.intersect(scene.data, scene.meta, o2, d2, t2,
                               skip_sort=True)
-    (_, _, _, _, _, no2, nd2, nt2, *_rest) = tsf.shade_fused(
+    (_, _, _, _, _, no2, nd2, nt2, sk2, *_rest) = tsf.shade_fused(
         tables, hit2, o2, d2, beta2, alive2 & hit2.hit, spec2, ph,
         2 + 2 * n_lights + 3, 1)
     ch = scene.data.chunks
@@ -259,19 +290,38 @@ def run(root, tag, out_path, parts="bounce,cull,frames"):
               f"{t_un:.4f} ms unsorted, {t_so:.4f} ms sorted "
               f"({t_un / t_so:.2f}x)")
 
+    # ---- the crossing words and the slot walks --------------------------
+    if "stream" in parts:
+        rc = _stream(torch, sm, res, tag, scene, (o2, d2, t2),
+                     (no2, nd2, nt2, sk2), ms)
+        if rc:
+            return rc
+
     # ---- frames ---------------------------------------------------------
     fs = FilmSettings(res=(1920, 1080), tile_dim=16)
     cscene, ccam, _ = cornell(device=dev)
+
+    def colonnade_frame(walker):
+        def frame():
+            sm._walker_flags(walker)
+            try:
+                return render_frame(scene, cam, fs, UniformSampler(1),
+                                    PathParams(DEPTH), wave_tiles=COL_TILES,
+                                    seed=1)
+            finally:
+                sm._walker_flags(False)
+        return frame
+
     frames = {
         "cornell 1080p d5 16 spp": (lambda: render_frame(
             cscene, ccam, fs, UniformSampler(SPP), PathParams(DEPTH),
             wave_tiles=CORNELL_TILES, samples_per_launch=SPP, seed=1),
-            "bounce_kernel"),
-        "colonnade 1080p d5 1 spp": (lambda: render_frame(
-            scene, cam, fs, UniformSampler(1), PathParams(DEPTH),
-            wave_tiles=COL_TILES, seed=1), "cull_kernel"),
+            ("bounce_kernel",)),
+        "colonnade 1080p d5 1 spp": (colonnade_frame(False), COL_KERNELS),
+        "colonnade 1080p d5 1 spp, walker": (colonnade_frame(True),
+                                             COL_KERNELS),
     }
-    for what, (frame, kern) in frames.items():
+    for what, (frame, kerns) in frames.items():
         if "frames" not in parts:
             break
         r = frame()
@@ -287,20 +337,187 @@ def run(root, tag, out_path, parts="bounce,cull,frames"):
             frame()
             torch.cuda.synchronize()
             t_p = time.monotonic() - t_p
-        busy, part = device_times(torch, prof, kern)
+        busy, kt = device_times(torch, prof, kerns)
         med = statistics.median(secs)
         res["ms"][f"frame {what}"] = med * 1e3
         res["ms"][f"frame {what}: device busy (profiled)"] = busy
-        res["ms"][f"frame {what}: {kern} (profiled)"] = part
+        for k, (t_k, n_k) in kt.items():
+            if n_k:
+                res["ms"][f"frame {what}: {k} (profiled)"] = t_k
+                res["notes"][f"frame {what}: {k} launches"] = n_k
         res["notes"][f"frame {what}"] = dict(
             seconds=secs, profiled_wall_ms=t_p * 1e3,
             image_mean=float(r.film.image().mean()), rays=r.ray_count)
+        per_kernel = ", ".join(f"{k} {t_k:.3f} ms / {n_k}"
+                               for k, (t_k, n_k) in kt.items() if n_k)
         print(f"[{tag}] frame {what}: {med:.4f} s (of {secs}); under the "
               f"profiler wall {t_p * 1e3:.3f} ms, device busy {busy:.3f} ms "
               f"(idle {100 * (1 - busy / (med * 1e3)):.1f}% of the "
-              f"unprofiled frame), {kern} {part:.3f} ms; image mean "
+              f"unprofiled frame), {per_kernel}; image mean "
               f"{float(r.film.image().mean()):.5f}")
     return _write(res, out_path)
+
+
+def _crossed_word_stats(torch, ts, ch, o, d, t):
+    """Crossed word boxes per live ray (mean, median, 90th percentile,
+    max) and, over 32-ray groups in wave order (one thread-per-ray warp),
+    the sum of their union sizes times 32 against the sum of the rays'
+    own counts: the level-2 chunk tests of a warp that walks every word
+    any of its rays crosses against those of one that walks each ray's
+    own."""
+    wb = ts.word_boxes(ch.treelet_bounds, ch.n_treelets, float("inf"))
+    crossed = ts.box_crossings(wb[:, 0:3], wb[:, 3:6], o, d, t)
+    per_ray = crossed.sum(dim=1)
+    live = per_ray[t > 0.0].float()
+    pad = (-crossed.shape[0]) % 32
+    groups = torch.cat([crossed, crossed.new_zeros((pad, crossed.shape[1]))]
+                       ).reshape(-1, 32, crossed.shape[1])
+    union = int(groups.any(dim=1).sum())
+    q = torch.quantile(live, torch.tensor([0.5, 0.9], device=live.device)
+                       ).tolist() if live.numel() else [0.0, 0.0]
+    return dict(live_rays=int(live.numel()),
+                mean=float(live.mean()) if live.numel() else 0.0,
+                p50=q[0], p90=q[1],
+                max=int(live.max()) if live.numel() else 0,
+                warp_union_x32=32 * union, sum_own=int(per_ray.sum()))
+
+
+def _slot_stats(torch, ch, row_chunk, stream):
+    """Live share of the slots, the mean real rows of the launched chunks
+    (rows with prim id >= 0) and their last real row (rounded up to 8),
+    and the 32-slot warps of live rows with no live slot."""
+    k = ch.leaf_size
+    pid = ch.rows.reshape(-1, k, ch.rows.shape[1])[:, :, 10]
+    real = (pid >= 0.0).sum(dim=1)
+    r_idx = torch.arange(1, k + 1, device=pid.device)
+    last = torch.where(pid >= 0.0, r_idx, 0).amax(dim=1)
+    last8 = (last + 7) // 8 * 8
+    rc = row_chunk.long()
+    live = (stream[:, 6] > 0.0).reshape(-1, 4, 32)
+    row_live = live.reshape(-1, 128).any(dim=1)
+    dead_warps = int((~live.any(dim=2) & row_live[:, None]).sum())
+    return dict(rows=int(rc.numel()), slots=int(stream.shape[0]),
+                live_share=float(live.float().mean()),
+                mean_real_rows=float(real[rc].float().mean()),
+                mean_walked_rows=float(last8[rc].float().mean()),
+                leaf_size=k, dead_rows=int((~row_live).sum()),
+                dead_warps_of_live_rows=dead_warps)
+
+
+def kernel_device_ms(torch, fn, name, reps=10):
+    """Device time per call of the kernels whose name holds ``name`` in fn
+    (torch.profiler, after one warm-up call): the kernel alone, without
+    the wrapper's host time between launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    _, parts = device_times(torch, prof, (name,))
+    return parts[name][0] / reps
+
+
+def _stream(torch, sm, res, tag, scene, bounce1, shadow, ms):
+    """The crossing words and the slot walks on the colonnade's bounce-1
+    and shadow rays (see the module's docstring)."""
+    from yuki_tpu_torch import traverse
+    from yuki_tpu_torch.ops import trace_cull as tcu
+    from yuki_tpu_torch.ops import trace_stream as ts
+
+    ch, meta = scene.data.chunks, scene.meta
+    o2, d2, t2 = bounce1
+    no2, nd2, nt2, sk2 = shadow
+    n = o2.shape[0]
+    lists, ov = tcu.candidate_lists_fused(ch, o2, d2, t2, ts.C_MAIN)
+    idx = torch.nonzero(ov).squeeze(1)
+    n_ov = int(idx.numel())
+    waves = {
+        "1 overflow ray": idx[:1],
+        "32 overflow rays": idx[:32],
+        f"{n_ov} overflow rays": idx,
+        f"{SLICE_RAYS}-ray slice": torch.arange(SLICE_RAYS, device=o2.device),
+        f"{n}-ray wave": torch.arange(n, device=o2.device),
+    }
+    for what, sel in waves.items():
+        o, d, t = (x[sel].contiguous() for x in (o2, d2, t2))
+        words = ts.cross_words(ch, o, d, t)
+        res["hashes"][f"cross_words {what}"] = digest(words)
+        t_k = ms(lambda: ts.cross_words(ch, o, d, t),
+                 10 if o.shape[0] > 65536 else 20)
+        t_dev = kernel_device_ms(torch, lambda: ts.cross_words(ch, o, d, t),
+                                 "cross_words_kernel")
+        res["ms"][f"cross_words {what}"] = t_k
+        res["ms"][f"cross_words {what}: kernel device time"] = t_dev
+        note = ""
+        if o.shape[0] >= 2048:
+            st = _crossed_word_stats(torch, ts, ch, o, d, t)
+            st["chunk_bits"] = int(ts.popcount32(words).sum())
+            res["notes"][f"cross_words {what}"] = st
+            note = (f"; crossed word boxes per live ray mean "
+                    f"{st['mean']:.2f}, median {st['p50']:.0f}, p90 "
+                    f"{st['p90']:.0f}, max {st['max']}; a warp's union x 32 "
+                    f"{st['warp_union_x32']} against the rays' own "
+                    f"{st['sum_own']} ({st['warp_union_x32'] / max(1, st['sum_own']):.2f}x)"
+                    f"; {st['chunk_bits']} chunk crossings")
+        print(f"[{tag}] cross_words [{what}]: {t_k:.4f} ms a call, kernel "
+              f"device time {t_dev:.4f} ms{note}")
+
+    k = ch.leaf_size
+    # The wide re-run of the overflow rays, as traverse._closest_dispatch
+    # makes it.
+    o, d, t = (x[idx].contiguous() for x in (o2, d2, t2))
+    w_lists, _ = ts.extract_lists(ts.cross_words(ch, o, d, t), ts.C_WIDE)
+    wide = (ts._slots(ch, w_lists, ts.C_WIDE,
+                      (ts.WIDE_LOW_MULT, ts.WIDE_TIGHT_MULT), ts.C_WIDE,
+                      traverse._wide_cap(n_ov)), (o, d, t, None))
+    main = (ts._slots(ch, lists, ts.C_MAIN, meta.slot_mult_tight,
+                      meta.slot_mult, n), (o2, d2, t2, None))
+    co, cd, ct, cs = sm._combine(torch, o2, d2, t2, no2, nd2, nt2, sk2)
+    c_lists, _ = tcu.candidate_lists_fused(ch, co, cd, ct, ts.C_MAIN)
+    comb = (ts._slots(ch, c_lists, ts.C_MAIN, meta.slot_mult_tight,
+                      meta.slot_mult, co.shape[0]), (co, cd, ct, cs))
+    s_lists, _ = tcu.candidate_lists_fused(ch, no2, nd2, nt2, ts.C_MAIN)
+    shadow_slots = (ts._slots(ch, s_lists, ts.C_MAIN,
+                              max(3, meta.slot_mult_tight - 1),
+                              max(4, meta.slot_mult - 2), no2.shape[0]),
+                    (no2, nd2, nt2, sk2))
+    cases = (("slot_closest", "bounce-1 slots", main, False),
+             ("slot_closest", "wide re-run slots", wide, False),
+             ("slot_closest_skip", "combined wave slots", comb, True),
+             ("slot_closest", "combined wave slots", comb, False),
+             ("slot_any", "shadow slots", shadow_slots, None))
+    for name, what, (slots, (o, d, t, extra)), skip in cases:
+        if slots is None:
+            print(f"chip_ab: FAIL: {name} on {what}: the slot budget blew",
+                  file=sys.stderr)
+            return 1
+        _, slot_ray, row_chunk, valid = slots
+        stream = ts._pack_stream(o, d, t, slot_ray, valid, extra=extra)
+        if skip is None:
+            def fn():
+                return ts.slot_any(ch.rows, k, row_chunk, stream)
+        else:
+            def fn():
+                return ts.slot_closest(ch.rows, k, row_chunk, stream, skip)
+        res["hashes"][f"{name} {what}"] = digest(fn())
+        t_k = ms(fn)
+        t_dev = kernel_device_ms(torch, fn, name.replace("_skip", "")
+                                 + "_kernel")
+        res["ms"][f"{name} {what}"] = t_k
+        res["ms"][f"{name} {what}: kernel device time"] = t_dev
+        st = _slot_stats(torch, ch, row_chunk, stream)
+        res["notes"][f"{name} {what}"] = st
+        print(f"[{tag}] {name} [{what}: {st['rows']} rows, live share "
+              f"{st['live_share']:.4f}, {st['dead_rows']} dead rows, "
+              f"{st['dead_warps_of_live_rows']} dead warps of live rows, "
+              f"real rows of the launched chunks {st['mean_real_rows']:.2f}"
+              f" (to the last real, rounded to 8: "
+              f"{st['mean_walked_rows']:.2f}) of {k}]: {t_k:.4f} ms a call, "
+              f"kernel device time {t_dev:.4f} ms")
+    return 0
 
 
 def _write(res, out_path):
@@ -315,7 +532,7 @@ def compare(a_path, b_path):
     with open(b_path) as f:
         b = json.load(f)
     print(f"A = {a['tag']} ({a['card']}), B = {b['tag']} ({b['card']})")
-    for k in KERNEL_NAMES:
+    for k in sorted(set(a["ptxas"]) | set(b["ptxas"])):
         print(f"ptxas {k}: A {' | '.join(a['ptxas'].get(k, []))}; "
               f"B {' | '.join(b['ptxas'].get(k, []))}")
     for k, ta in a["ms"].items():

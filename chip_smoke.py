@@ -9,7 +9,9 @@ first use, into build/yuki_tpu_torch/) and the yuki_tpu_torch package
 beside this file.  It imports no JAX.  Phases:
 
   1. the card (nvidia-smi name and power limit), CUDA version, kernel
-     build time and each kernel's ptxas register/spill report;
+     build time and each kernel's ptxas register/spill report, and the
+     bounds' operations ceiling (SMs x 128 FP32 lanes x the largest SM
+     clock);
   2. the dense wave's kernels against their plain PyTorch versions on one
      4096-tile wave of the 1080p Cornell film (1,048,576 rays, depth 5):
      raygen_trace, every bounce 0-4 (each from the kernels' state before
@@ -64,7 +66,9 @@ beside this file.  It imports no JAX.  Phases:
      sorted wave's lists permuted back must equal the unsorted's; each
      timed), the crossing words on the cull's overflow mini-wave and on a
      64-block slice, the closest and occlusion slot walks on the slots the
-     dispatch lays out; with the bounds from the plain versions' tallies;
+     dispatch lays out, and the closest walk, both instantiations (skip
+     -2), on the bounce-1 wave's slots and on the overflow rays' wide
+     re-run's (C_WIDE); with the bounds from the plain versions' tallies;
   8. the treelet dispatch against the treelet walk on the same rays: prim
      and occlusion equal apart from counted ties (|t| gaps of at most one
      ulp), t within one ulp and b0/b1 equal where prim is equal; then
@@ -102,7 +106,8 @@ beside this file.  It imports no JAX.  Phases:
      the shadow lanes' hit against any_intersect, the combined call's time
      against the two separate calls; the with_skip rows, slot and bundle
      walks against their plain versions bit for bit, each with its time
-     beside the same kernel without skip;
+     beside the same kernel without skip (the closest slot walk without
+     skip also against its plain version);
  12a. Cornell's combined wave (camera and bounce-0 shadow lanes, 2,097,152)
      through intersect and the dense skip sweep, against its plain
      version, dense_trace (skip -2) and any_trace (the shadow lanes);
@@ -178,12 +183,16 @@ SKIP_KERNELS = ("dense_closest_skip", "rows_closest_skip",
                 "slot_closest_skip", "walker_closest_skip")
 
 # Bounds: the least time the card could take for a kernel's work, the
-# larger of bytes over the memory rate and operations over the FP32 rate
-# (NVIDIA H100 SXM data sheet).  Operations
-# are adds, subtracts, multiplies, divides, square roots and min/max;
-# compares and selects are not counted.  Per unit of work:
+# larger of bytes over the memory rate (NVIDIA H100 SXM data sheet) and
+# operations over the rate at which the card issues them.  Operations are
+# adds, subtracts, multiplies, divides, square roots and min/max; compares
+# and selects are not counted.  The data sheet's 67 TFLOP/s counts an FMA
+# as two, but the kernels are built with -fmad=false, so each counted
+# operation issues alone: the ceiling is SMs x 128 FP32 lanes x the
+# largest SM clock, set by phase_device (about 33.5e12 a second on an
+# H100 SXM).  Per unit of work:
 PEAK_BYTES = 3.35e12  # B/s
-PEAK_FP32 = 67e12  # FLOP/s
+PEAK_OPS = None  # operations a second, from phase_device
 OPS_WATERTIGHT = 43  # 9 translate, 12 shear, 9 edges, 2 det, 6 t_scaled,
 # 1 bound, 1 divide, 1 t, 2 barycentrics
 OPS_SLAB = 24  # 6 subtract, 6 multiply, 12 min/max
@@ -240,7 +249,7 @@ def deep_parity(np, ref, got, spp=1):
 def bound(nbytes, ops):
     """(bound_ms, bound_by) for a kernel moving nbytes and doing ops."""
     t_bytes = nbytes / PEAK_BYTES * 1e3
-    t_ops = ops / PEAK_FP32 * 1e3
+    t_ops = ops / PEAK_OPS * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -292,6 +301,18 @@ def phase_device(torch):
     check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr.strip()}")
     card = smi.stdout.strip().splitlines()[0]
     print(f"card: {card}")
+    clk = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60,
+    )
+    check(clk.returncode == 0, f"nvidia-smi failed: {clk.stderr.strip()}")
+    mhz = float(clk.stdout.strip().splitlines()[0])
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    global PEAK_OPS
+    PEAK_OPS = n_sm * 128 * mhz * 1e6
+    print(f"operations ceiling of the bounds: {n_sm} SMs x 128 lanes x "
+          f"{mhz:.0f} MHz = {PEAK_OPS / 1e12:.3f}e12 a second")
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}")
     from yuki_tpu_torch.ops import _build
@@ -1356,6 +1377,40 @@ def phase_stream_kernels(torch, np, scene, rays, card):
               f" equal on every slot [{card}]")
         result[name] = dict(max_abs_err=0.0, ms=ms_k, plain_ms=ms_p,
                             bound_ms=b_ms, bound_by=b_by)
+
+    # The closest walk, both instantiations (skip -2 skips nothing), on
+    # the bounce-1 wave's slots and on the overflow rays' wide re-run
+    # (C_WIDE), laid out as traverse._closest_dispatch lays them out.
+    ow, dw, tw_ = (x[idx].contiguous() for x in (o2, d2, t2))
+    w_lists, _ = ts.extract_lists(ts.cross_words(ch, ow, dw, tw_), ts.C_WIDE)
+    sets = {
+        "the bounce-1 rays' slots": (ts._slots(
+            ch, lists["bounce-1 rays"][0], ts.C_MAIN,
+            *budgets["bounce-1 rays"], n), (o2, d2, t2)),
+        "the overflow rays' wide re-run slots": (ts._slots(
+            ch, w_lists, ts.C_WIDE, (ts.WIDE_LOW_MULT, ts.WIDE_TIGHT_MULT),
+            ts.C_WIDE, traverse._wide_cap(int(idx.numel()))), (ow, dw, tw_)),
+    }
+    for what, (slots, (so, sd, st_)) in sets.items():
+        check(slots is not None, f"slot_closest: {what}: the budget blew")
+        _, slot_ray, row_chunk, valid = slots
+        neutral = torch.full((so.shape[0],), -2, dtype=torch.int32,
+                             device=so.device)
+        stream = ts._pack_stream(so, sd, st_, slot_ray, valid, extra=neutral)
+        times = []
+        for skip in (False, True):
+            got = ts.slot_closest(ch.rows, k, row_chunk, stream, skip)
+            ref = ts.slot_closest_plain(ch.rows, k, row_chunk, stream,
+                                        with_skip=skip)
+            torch.cuda.synchronize()
+            check(torch.equal(got, ref), f"slot_closest (with_skip {skip}) "
+                  f"on {what} differs from its plain version")
+            times.append(cuda_ms(torch, lambda: ts.slot_closest(
+                ch.rows, k, row_chunk, stream, skip), 10))
+        print(f"slot_closest on {what} [{row_chunk.numel()} rows, "
+              f"{int((stream[:, 6] > 0).sum())} live slots]: kernel "
+              f"{times[0]:.4f} ms, with_skip {times[1]:.4f} ms: both equal "
+              f"their plain versions bit for bit [{card}]")
     return result
 
 
@@ -2069,6 +2124,11 @@ def phase_combined(torch, scene, rays, wave0, card):
         f"{3 * n} bounce-1 + shadow lanes, {row_chunk.numel()} slot rows, "
         f"{int(valid.sum())} valid slots, {chunks} chunks; {stats['tests']} "
         "triangle tests", card)
+    got = ts.slot_closest(ch.rows, k, row_chunk, stream)
+    ref = ts.slot_closest_plain(ch.rows, k, row_chunk, stream)
+    torch.cuda.synchronize()
+    check(torch.equal(got, ref), "slot_closest on the combined wave's slots "
+          "differs from its plain version")
 
     # walker_closest_skip on the bounce-1 wave's bundle lists.
     lists, _ = tw.walker_lists(ts.cross_words(ch, o, d, t), tw.C_WALK)

@@ -22,6 +22,7 @@ from yuki_tpu_torch.ops import trace_cull as tcu
 from yuki_tpu_torch.ops import trace_stream as ts
 from yuki_tpu_torch.ops.trace import F32_MAX
 from yuki_tpu_torch.scene.testscenes import colonnade
+from yuki_tpu_torch.treelets import TreeletArrays
 
 pytestmark = pytest.mark.cuda
 
@@ -195,3 +196,142 @@ def test_dispatch_matches_plain(cuda, scenes, monkeypatch, case):
     assert c["fallbacks"] == (4 if case == "fallback" else 0)
     if case == "overflow":
         assert c["wide_reruns"] == 4 and c["overflow_rays"] > 1000
+
+
+# ---- the redesigned crossing words and closest slot walk at edge shapes
+
+
+def _sub_chunks(ch, m):
+    """The first m chunks of ``ch`` as a chunk structure of their own."""
+    k = ch.leaf_size
+    return TreeletArrays(
+        super_bounds=ch.treelet_bounds[:m], super_range=ch.super_range[:m],
+        treelet_bounds=ch.treelet_bounds[:m].contiguous(),
+        rows=ch.rows[:m * k].contiguous(), leaf_size=k, n_supers=m,
+        n_treelets=m)
+
+
+def _edge_rays(scene, n, seed, dev, dead=False):
+    """_rays plus the crossing words' edge cases: a quarter with t_max =
+    +inf, among them rays with no negative direction component (the +inf
+    pad chunks cross those) and axis-parallel rays with -0.0 components."""
+    o, d, t_max = _rays(scene, n, seed, dev)
+    rng = np.random.default_rng(seed + 100)
+    inf = torch.as_tensor(rng.random(n) < 0.25, device=dev)
+    t_max = torch.where(inf & (t_max > 0.0), float("inf"), t_max)
+    pos = torch.as_tensor(rng.random(n) < 0.3, device=dev)
+    d = torch.where(pos[:, None], d.abs(), d)
+    d = torch.where(d == 0.0, torch.where(pos[:, None], -0.0, 0.0), d)
+    if dead:
+        t_max = torch.where(torch.arange(n, device=dev) % 2 == 0, 0.0, -1.0)
+    return o.contiguous(), d.contiguous(), t_max.contiguous()
+
+
+@pytest.mark.parametrize("n_chunks", [31, 32, 33, None])
+@pytest.mark.parametrize("n", [1, 31, 33, 2217, "dead"])
+def test_cross_words_edge_shapes(cuda, scenes, n_chunks, n):
+    """Waves of 1, 31, 33 and 2,217 rays and a wave with every ray dead,
+    on the first 31, 32 and 33 chunks of the colonnade and on all of
+    them: the kernel's words equal the plain version's bit for bit."""
+    scene = scenes["full"]
+    ch = scene.data.chunks
+    if n_chunks is not None:
+        ch = _sub_chunks(ch, n_chunks)
+    m = 64 if n == "dead" else n
+    o, d, t_max = _edge_rays(scene, m, 7, cuda, dead=n == "dead")
+    ts.reset_launches()
+    got = ts.cross_words(ch, o, d, t_max)
+    assert ts.LAUNCHES["cross_words"] == 1
+    ref = ts.cross_words_plain(ch, o, d, t_max)
+    assert torch.equal(got, ref)
+    if n == "dead":
+        assert not bool(got.any())
+
+
+def test_cross_words_pad_chunks_cross_like_the_plain_version(cuda, scenes):
+    """Rays with t_max = +inf and no negative direction component cross
+    the +inf pad chunks of a partial last word, in the plain version as in
+    yuki_tpu; the kernel gives the same bits."""
+    ch = _sub_chunks(scenes["full"].data.chunks, 33)
+    n = 64
+    o = torch.zeros((n, 3), device=cuda)
+    d = torch.rand((n, 3), device=cuda, generator=torch.Generator(
+        device=cuda).manual_seed(3))
+    d[:8] = torch.tensor([0.0, -0.0, 1.0], device=cuda)
+    t_max = torch.full((n,), float("inf"), device=cuda)
+    got = ts.cross_words(ch, o, d, t_max)
+    ref = ts.cross_words_plain(ch, o, d, t_max)
+    assert torch.equal(got, ref)
+    assert bool(((got[:, 1] >> 1) != 0).all())  # bits past chunk 32
+
+
+def _synthetic_chunks(k, n_chunks, seed, dev):
+    """Chunks of k random triangle rows in [-1, 1]^3: chunk 0 all real,
+    chunk 1 all padding but row 0, chunk 2 padding between real rows
+    (not a tail), the rest a random real count then padding (prim id -1,
+    light -3); light ids among -1, 0 and 1."""
+    rng = np.random.default_rng(seed)
+    rows = np.zeros((n_chunks * k, 12), np.float32)
+    rows[:, 0:9] = rng.uniform(-1.0, 1.0, (n_chunks * k, 9))
+    rows[:, 9] = rng.choice([-1.0, 0.0, 1.0], n_chunks * k)
+    rows[:, 10] = np.arange(n_chunks * k)
+    real = rng.integers(1, k + 1, n_chunks)
+    real[0], real[1] = k, 1
+    pad = np.arange(k)[None, :] >= real[:, None]
+    pad[2] = rng.random(k) < 0.5
+    pad[2, [0, k - 1]] = False, True
+    pad = pad.reshape(-1)
+    rows[pad, 9] = -3.0
+    rows[pad, 10] = -1.0
+    return torch.as_tensor(rows, device=dev)
+
+
+def _slot_stream(n_rows, n_chunks, seed, dev):
+    """Slot rows (row_chunk, stream): rays from [-0.3, 0.3]^3 at random
+    directions, skip ids among -2, 0 and 1; row 0 has no live slot, row 1
+    one, row 2 all, the rest about a third dead (t -1 or 0)."""
+    rng = np.random.default_rng(seed)
+    n = n_rows * 128
+    st = np.zeros((n, 8), np.float32)
+    st[:, 0:3] = rng.uniform(-0.3, 0.3, (n, 3))
+    dr = rng.standard_normal((n, 3))
+    st[:, 3:6] = dr / np.linalg.norm(dr, axis=1, keepdims=True)
+    st[:, 6] = np.where(rng.random(n) < 0.5, 3.0e38, rng.uniform(0.5, 4.0, n))
+    live = rng.random(n) > 0.3
+    live[:128] = False
+    live[128:256] = np.arange(128) == 77
+    live[256:384] = True
+    st[~live, 6] = rng.choice([-1.0, 0.0], int((~live).sum()))
+    st[:, 7] = rng.choice([-2.0, 0.0, 1.0], n)
+    row_chunk = rng.integers(0, n_chunks, n_rows).astype(np.int32)
+    row_chunk[:4] = [0, 1, 2, 0]
+    return (torch.as_tensor(row_chunk, device=dev),
+            torch.as_tensor(st, device=dev))
+
+
+@pytest.mark.parametrize("with_skip", [False, True])
+@pytest.mark.parametrize("k", [8, 64, 128, 256])
+def test_slot_closest_edge_shapes(cuda, k, with_skip):
+    """Leaf sizes 8 to 256, rows with no, one and all slots live, chunks
+    whose padding is not a tail, with and without skip: the kernel equals
+    the plain version bit for bit, and slots permuted within their rows
+    give the permuted outputs."""
+    n_chunks, n_rows = 7, 24
+    rows = _synthetic_chunks(k, n_chunks, k, cuda)
+    row_chunk, stream = _slot_stream(n_rows, n_chunks, k + 1, cuda)
+    name = "slot_closest_skip" if with_skip else "slot_closest"
+    ts.reset_launches()
+    got = ts.slot_closest(rows, k, row_chunk, stream, with_skip)
+    assert ts.LAUNCHES[name] == 1
+    ref = ts.slot_closest_plain(rows, k, row_chunk, stream,
+                                with_skip=with_skip)
+    assert torch.equal(got, ref)
+    assert int((got[1] >= 0).sum()) > n_rows * 16
+    perm = torch.argsort(torch.rand((n_rows, 128), device=cuda,
+                                    generator=torch.Generator(device=cuda)
+                                    .manual_seed(k)), dim=1)
+    perm = (perm + 128 * torch.arange(n_rows, device=cuda)[:, None]
+            ).reshape(-1)
+    got_p = ts.slot_closest(rows, k, row_chunk, stream[perm].contiguous(),
+                            with_skip)
+    assert torch.equal(got_p, got[:, perm])

@@ -113,7 +113,7 @@ def _declare(lib: ctypes.CDLL) -> None:
         p, p, p, p, i, p, p,  # o, d, tmax, skip, n, occ, stream
     ]
     lib.yk_cross_words.argtypes = [
-        i, p, i, p, i,  # device, word boxes, n_words, chunk boxes, n_chunks
+        i, p, p, i,  # device, word boxes [6, W], chunk boxes [6, 32 W], W
         p, p, p, i, p, p,  # o, d, tmax, n, words, stream
     ]
     lib.yk_cull.argtypes = [

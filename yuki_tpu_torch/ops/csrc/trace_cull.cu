@@ -58,59 +58,6 @@ namespace {
 
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
-constexpr unsigned FULL = 0xffffffffu;
-
-// Copy the first six columns of an [n, 8] box table into shared memory as
-// [6][stride], zero past n, by all threads of the block (the caller
-// synchronises).
-__device__ __forceinline__ void stage_soa(float* dst, const float* __restrict__ src, int n, int stride) {
-  for (int e = threadIdx.x; e < 6 * stride; e += blockDim.x) {
-    const int a = e / stride, j = e - a * stride;
-    dst[e] = j < n ? __ldg(src + 8 * j + a) : 0.0f;
-  }
-}
-
-// PTX's NaN-propagating min and max (sm_80 and later), one instruction
-// each where jmin/jmax take several: they give the same value on numbers,
-// and a NaN for a NaN operand (the canonical one, where jmin/jmax pass the
-// operand's own through).  A fold's only use is tn <= tf, which any NaN
-// makes false, so every crossing bit is the same as slab_axis's.
-__device__ __forceinline__ float min_nan(float a, float b) {
-  float r;
-  asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
-  return r;
-}
-
-__device__ __forceinline__ float max_nan(float a, float b) {
-  float r;
-  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
-  return r;
-}
-
-// slab_axis (trace_stream.cuh) with those min and max.
-__device__ __forceinline__ void slab_axis_nan(float lo, float hi, float o, float inv, float& tn, float& tf) {
-  const float t0 = (lo - o) * inv;
-  const float t1 = (hi - o) * inv;
-  tn = max_nan(tn, min_nan(t0, t1));
-  tf = min_nan(tf, max_nan(t0, t1));
-}
-
-// crosses() on box k of a [6][stride] table: the same folds in the same
-// order, so the same bits.
-__device__ __forceinline__ bool crosses_soa(const float* t, int stride, int k, const SlabRay& r) {
-  float tn = 0.0f, tf = r.tm;
-  slab_axis_nan(t[k], t[3 * stride + k], r.ox, r.ix, tn, tf);
-  slab_axis_nan(t[stride + k], t[4 * stride + k], r.oy, r.iy, tn, tf);
-  slab_axis_nan(t[2 * stride + k], t[5 * stride + k], r.oz, r.iz, tn, tf);
-  return tn <= tf;
-}
-
-__device__ __forceinline__ SlabRay shfl_ray(const SlabRay& r, int q) {
-  return {__shfl_sync(FULL, r.ox, q), __shfl_sync(FULL, r.oy, q), __shfl_sync(FULL, r.oz, q),
-          __shfl_sync(FULL, r.ix, q), __shfl_sync(FULL, r.iy, q), __shfl_sync(FULL, r.iz, q),
-          __shfl_sync(FULL, r.tm, q)};
-}
-
 size_t shared_bytes(int n_words, int S, int C) {
   return (size_t)(6 * n_words + 6 * 32 * n_words + WARPS * C) * 4 + (size_t)WARPS * S * 32 * 2;
 }

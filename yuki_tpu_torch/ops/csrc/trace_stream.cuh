@@ -1,8 +1,10 @@
 // Device maths shared by the slot-stream kernels (trace_stream.cu), the
 // two-level cull (trace_cull.cu) and the row-union walks (trace_rows.cu):
 // the finite slab reciprocal and axis fold of yuki_tpu/ops/trace_stream.py
-// (:94-114), the chunk-box slab test, the divide-free watertight test of
-// yuki_tpu/ops/trace.py (:57-98) and the closest walk of one chunk.
+// (:94-114) with one-instruction NaN folds, the chunk-box slab test on
+// structure-of-arrays tables, a warp's broadcast of a ray, the
+// divide-free watertight test of yuki_tpu/ops/trace.py (:57-98) and the
+// closest walk of one chunk.
 // Compiled with -fmad=false, like path_fused.cuh, so every product and sum
 // rounds on its own as in the JAX and PyTorch versions.
 #pragma once
@@ -33,28 +35,59 @@ __device__ __forceinline__ SlabRay slab_ray(const float* __restrict__ o, const f
           safe_inv(d[3 * i + 2]), tmax[i]};
 }
 
-// _slab_axis: fold one axis into [tn, tf].
-__device__ __forceinline__ void slab_axis(float lo, float hi, float o, float inv, float& tn, float& tf) {
-  float t0 = (lo - o) * inv;
-  float t1 = (hi - o) * inv;
-  tn = jmax(tn, jmin(t0, t1));
-  tf = jmin(tf, jmax(t0, t1));
+constexpr unsigned FULL = 0xffffffffu;
+
+// Copy the first six columns of an [n, 8] box table into shared memory as
+// [6][stride], zero past n, by all threads of the block (the caller
+// synchronises).
+__device__ __forceinline__ void stage_soa(float* dst, const float* __restrict__ src, int n, int stride) {
+  for (int e = threadIdx.x; e < 6 * stride; e += blockDim.x) {
+    const int a = e / stride, j = e - a * stride;
+    dst[e] = j < n ? __ldg(src + 8 * j + a) : 0.0f;
+  }
 }
 
-// One box (lo xyz at b[0..2], hi xyz at b[3..5]) against a ray: the
-// interval starts at [0, t_max] and folds x, y, z in that order.
-__device__ __forceinline__ bool crosses(const float* b, const SlabRay& r) {
+// PTX's NaN-propagating min and max (sm_80 and later), one instruction
+// each where jmin/jmax take several: they give the same value on numbers,
+// and a NaN for a NaN operand (the canonical one, where jmin/jmax pass the
+// operand's own through).  A fold's only use is tn <= tf, which any NaN
+// makes false, so every crossing bit is the same as with jmin/jmax (and
+// torch.minimum/maximum in the plain versions).
+__device__ __forceinline__ float min_nan(float a, float b) {
+  float r;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+
+__device__ __forceinline__ float max_nan(float a, float b) {
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+
+// _slab_axis: fold one axis into [tn, tf], with those min and max.
+__device__ __forceinline__ void slab_axis_nan(float lo, float hi, float o, float inv, float& tn, float& tf) {
+  const float t0 = (lo - o) * inv;
+  const float t1 = (hi - o) * inv;
+  tn = max_nan(tn, min_nan(t0, t1));
+  tf = min_nan(tf, max_nan(t0, t1));
+}
+
+// Box k of a [6][stride] table (lo xyz, hi xyz; in shared or device
+// memory) against a ray: the interval starts at [0, t_max] and folds x, y,
+// z in that order, as _slab_axis does.
+__device__ __forceinline__ bool crosses_soa(const float* __restrict__ t, int stride, int k, const SlabRay& r) {
   float tn = 0.0f, tf = r.tm;
-  slab_axis(b[0], b[3], r.ox, r.ix, tn, tf);
-  slab_axis(b[1], b[4], r.oy, r.iy, tn, tf);
-  slab_axis(b[2], b[5], r.oz, r.iz, tn, tf);
+  slab_axis_nan(t[k], t[3 * stride + k], r.ox, r.ix, tn, tf);
+  slab_axis_nan(t[stride + k], t[4 * stride + k], r.oy, r.iy, tn, tf);
+  slab_axis_nan(t[2 * stride + k], t[5 * stride + k], r.oz, r.iz, tn, tf);
   return tn <= tf;
 }
 
-// Copy the first six columns of an [n, 8] box table into shared memory as
-// [n, 6], by all threads of the block (the caller synchronises).
-__device__ __forceinline__ void stage_boxes(float* dst, const float* __restrict__ src, int n) {
-  for (int j = threadIdx.x; j < n * 6; j += blockDim.x) dst[j] = __ldg(src + (j / 6) * 8 + j % 6);
+__device__ __forceinline__ SlabRay shfl_ray(const SlabRay& r, int q) {
+  return {__shfl_sync(FULL, r.ox, q), __shfl_sync(FULL, r.oy, q), __shfl_sync(FULL, r.oz, q),
+          __shfl_sync(FULL, r.ix, q), __shfl_sync(FULL, r.iy, q), __shfl_sync(FULL, r.iz, q),
+          __shfl_sync(FULL, r.tm, q)};
 }
 
 // _watertight_scaled: the divide-free test against the ray's shear.  ts and

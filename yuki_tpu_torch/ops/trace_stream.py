@@ -164,6 +164,27 @@ def _check_rays(o, d, t_max, dev):
     return n
 
 
+def cross_tables(ch):
+    """The crossing-words kernel's tables, built once per chunk structure
+    and kept on it: (word boxes [6, W], chunk boxes [6, 32 W]) f32, lo xyz
+    then hi xyz, as structure of arrays.  The word boxes are
+    ``word_boxes(..., inf)``'s; the chunk table ends in lo = hi = +inf
+    boxes up to whole words, as ``_cross_words_xla`` pads it.  Rebuilt
+    when ``ch.treelet_bounds`` is replaced or changed in place."""
+    cb = ch.treelet_bounds
+    kept = getattr(ch, "_cross_tables", None)
+    if kept is not None and kept[0] is cb and kept[1] == cb._version:
+        return kept[2]
+    n_c = ch.n_treelets
+    w = n_words(n_c)
+    chunk = torch.cat([cb[:, 0:6], torch.full((w * 32 - n_c, 6), float("inf"),
+                                              device=cb.device)])
+    tables = (word_boxes(cb, n_c, float("inf"))[:, 0:6].T.contiguous(),
+              chunk.T.contiguous())
+    ch._cross_tables = (cb, cb._version, tables)
+    return tables
+
+
 def cross_words(ch, o, d, t_max):
     """Exact crossing words [N, W] (u32 in int64) of rays o, d [N,3],
     t_max [N] against the chunk boxes of ``ch``."""
@@ -171,20 +192,19 @@ def cross_words(ch, o, d, t_max):
         return cross_words_plain(ch, o, d, t_max)
     dev = o.device
     n = _check_rays(o, d, t_max, dev)
-    n_c = ch.n_treelets
-    w = n_words(n_c)
-    _build.check(ch.treelet_bounds, "treelet_bounds", torch.float32, (n_c, 8),
-                 dev)
-    wb = word_boxes(ch.treelet_bounds, n_c, float("inf"))
-    words = torch.empty((n, w), dtype=torch.int32, device=dev)
+    w = n_words(ch.n_treelets)
+    _build.check(ch.treelet_bounds, "treelet_bounds", torch.float32,
+                 (ch.n_treelets, 8), dev)
+    wsoa, csoa = cross_tables(ch)
+    words = torch.empty((n, w), dtype=torch.int64, device=dev)
     if n:
         err = _build.library().yk_cross_words(
-            dev.index, _build.ptr(wb), w, _build.ptr(ch.treelet_bounds), n_c,
-            _build.ptr(o), _build.ptr(d), _build.ptr(t_max), n,
-            _build.ptr(words), _build.stream(dev))
+            dev.index, _build.ptr(wsoa), _build.ptr(csoa), w, _build.ptr(o),
+            _build.ptr(d), _build.ptr(t_max), n, _build.ptr(words),
+            _build.stream(dev))
         _build.launch_check(err, "cross_words")
         LAUNCHES["cross_words"] += 1
-    return words.to(torch.int64) & 0xFFFFFFFF
+    return words
 
 
 # --------------------------------------------------------------------
@@ -408,6 +428,9 @@ def _check_slots(rows, leaf_size, row_chunk, stream, dev):
     _build.check(stream, "stream", torch.float32, (n_rows * LANES, 8), dev)
     if leaf_size % 8 or not 8 <= leaf_size <= 256:
         raise ValueError(f"leaf_size {leaf_size}: a multiple of 8 in [8, 256]")
+    for t, name in ((rows, "rows"), (stream, "stream")):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} is not 16-byte aligned")
     return n_rows
 
 
