@@ -4,10 +4,18 @@ the crossing words and the slot walks) between two checkouts of this
 repository, on one NVIDIA GPU.
 
     python3 chip_ab.py run ROOT TAG OUT.json [PARTS]   # measure ROOT's port
+    python3 chip_ab.py probe ROOT TAG OUT.json [PARTS] # the same, walks cut
     python3 chip_ab.py compare A.json B.json           # A against B
 
 PARTS is a comma-separated subset of bounce,cull,stream,frames (default:
-all).
+all), or raygen (bounce's raygen measurements alone).
+
+``probe`` copies ROOT's ``yuki_tpu_torch`` to ``build/probe-TAG/``, cuts
+the walks of the occlusion slot walk and of the raygen kernel's sweep to
+zero triangles (and raygen's to zero spheres) by a text edit of the copy's
+sources (``PROBE_EDITS``), and runs ``run`` on the copy: its times are
+those of the kernels' stage, loads and stores alone.  Its digests differ
+from ROOT's by design.
 
 ``run`` imports the ``yuki_tpu_torch`` package of the checkout at ROOT
 (its kernels are built there, at first use) and records, on the card:
@@ -23,6 +31,11 @@ all).
   (state planes, ``ph``, sampler planes) permuted by material class (dead,
   missed, then the hit's material type and surface kind), whose outputs,
   permuted back, must equal the unpermuted ones;
+- the raygen kernel on the same wave under both samplers: its planes
+  against ``raygen_trace_plain``'s (bit for bit or the largest
+  difference), its kernel device time (torch.profiler), how the rays split
+  over the three shear frames (the dominant axis of the direction) and
+  how many distinct frames a block of 128 to 1024 consecutive rays holds;
 - the one-kernel wave on the same Cornell wave;
 - ``stream``: the crossing words on 1, 32 and all (2,217) of the cull's
   overflow rays of that bounce-1 wave, on its first 65,536 rays and on
@@ -32,8 +45,11 @@ all).
   re-run (C_WIDE) and, with_skip, on the combined wave's (the bounce-1
   rays then their shadow rays, as ``chip_smoke.py`` phase 12 makes it),
   with the share of live slots and the real rows of the launched chunks;
-  the occlusion slot walk on the shadow rays' slot rows; each timed a call
-  (CUDA events) and as the kernel's device time (torch.profiler);
+  the occlusion slot walk on the shadow rays' slot rows, with the share
+  of live slots that end occluded, the mean rows a slot tests up to its
+  first occluder and the real rows of the unoccluded slots' chunks (from a
+  plain torch walk); each timed a call (CUDA events) and as the kernel's
+  device time (torch.profiler);
 - the 1080p d5 16 spp Cornell frame and the 1080p d5 1 spp colonnade frame
   on the slot stream and with both walker flags (the median of three
   after one warm-up), and one of each under torch.profiler: device busy
@@ -49,6 +65,7 @@ import hashlib
 import importlib.util
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -66,6 +83,25 @@ KERNEL_NAMES = ("cull_kernel", "bounce_kernel", "wave_kernel",
 COL_KERNELS = ("cull_kernel", "cross_words_kernel", "slot_closest_kernel",
                "slot_any_kernel", "walker_closest_kernel",
                "walker_any_kernel")
+# The probe's edits: for each kernel, alternatives (source, old, new), of
+# which exactly one must occur once in the checkout's source (the code
+# before the kernel's redesign, or after it); each cuts the kernel's walk
+# to zero triangles and leaves its stage, loads and stores.
+PROBE_EDITS = {
+    "slot_any_kernel": (
+        ("trace_stream.cu", "for (int r = 0; r < k; ++r) {",
+         "for (int r = 0; r < 0; ++r) {"),
+        ("trace_stream.cu", "for (int r = 0; r < last; ++r) {",
+         "for (int r = 0; r < 0; ++r) {"),
+    ),
+    "raygen_trace_kernel": (
+        ("path_fused.cu", "seed, ms, sc, spl ? spl + i : nullptr, N, ph);",
+         "seed, ms, Scene{0, 0}, spl ? spl + i : nullptr, N, ph);"),
+        ("path_fused.cu", "camera_sweep(copy, sc.n_tris, sc.sp(), sc.n_spheres,",
+         "camera_sweep(copy, 0, sc.sp(), 0,"),
+    ),
+}
+PROBING = False  # set by ``probe``: the walks are cut, skip their checks
 
 
 def _smoke():
@@ -195,7 +231,7 @@ def run(root, tag, out_path, parts="bounce,cull,stream,frames"):
     n = px.shape[0]
     for sam_name, sam, si in (("uniform", None, 0),
                               ("strat", StratifiedSampler(4, 4), 5)):
-        if "bounce" not in parts:
+        if not parts & {"bounce", "raygen"}:
             break
         spl = tpf.strat_planes(sam, px, py, si, 1, tb.n_lights, DEPTH)
         st, ph = tpf.raygen_trace(px, py, si, 1, tb,
@@ -203,6 +239,23 @@ def run(root, tag, out_path, parts="bounce,cull,stream,frames"):
         res["hashes"][f"raygen {sam_name}"] = digest(st)
         res["ms"][f"raygen {sam_name}"] = ms(lambda: tpf.raygen_trace(
             px, py, si, 1, tb, None if spl is None else spl[:2]))
+        res["ms"][f"raygen {sam_name}: kernel device time"] = \
+            kernel_device_ms(torch, lambda: tpf.raygen_trace(
+                px, py, si, 1, tb, None if spl is None else spl[:2]),
+                "raygen_trace_kernel")
+        st_pl, ph_pl = tpf.raygen_trace_plain(
+            px, py, si, 1, tb, None if spl is None else spl[:2])
+        rs = _raygen_stats(torch, tpf, st, ph, st_pl, ph_pl)
+        res["notes"][f"raygen {sam_name}"] = rs
+        print(f"[{tag}] raygen {sam_name} [{n} rays]: "
+              f"{res['ms'][f'raygen {sam_name}']:.4f} ms a call, kernel "
+              f"device time "
+              f"{res['ms'][f'raygen {sam_name}: kernel device time']:.4f} "
+              f"ms; against the plain version: {rs['plain']}; rays by "
+              f"shear frame (z, x, y) {rs['frames']}; blocks by distinct "
+              f"frames (1, 2, 3) {rs['blocks']}")
+        if "bounce" not in parts:
+            continue
         for b in range(DEPTH):
             planes = tpf._bounce_planes(spl, tb, b)
             out = tpf.bounce(st, ph, b, tb, planes)
@@ -358,6 +411,74 @@ def run(root, tag, out_path, parts="bounce,cull,stream,frames"):
     return _write(res, out_path)
 
 
+def _raygen_stats(torch, tpf, st, ph, st_pl, ph_pl):
+    """The raygen kernel's planes against the plain version's ("equal" or
+    the planes that differ with their largest difference), its rays by
+    shear frame (0: z, 1: x, 2: y, as the watertight test picks the
+    dominant axis) and, for blocks of 128 to 1024 consecutive rays, how
+    many blocks hold 1, 2 and 3 distinct frames."""
+    S = tpf._ST
+    diff = {k: float((st[i] - st_pl[i]).abs().max()) for k, i in S.items()
+            if not torch.equal(st[i].view(torch.int32),
+                               st_pl[i].view(torch.int32))}
+    plain = "equal" if not diff and torch.equal(ph, ph_pl) else diff
+    ad = st[S["dx"]:S["dz"] + 1].abs()
+    x_max = (ad[0] > ad[1]) & (ad[0] > ad[2])
+    y_max = ~x_max & (ad[1] > ad[2])
+    frame = torch.where(x_max, 1, torch.where(y_max, 2, 0))
+    blocks = {}
+    for size in (128, 256, 512, 1024):
+        pad = (-frame.numel()) % size
+        f = torch.cat([frame, frame[-1:].expand(pad)]).reshape(-1, size)
+        seen = torch.stack([(f == a).any(dim=1) for a in range(3)]).sum(0)
+        blocks[size] = torch.bincount(seen, minlength=4)[1:].tolist()
+    return dict(plain=plain,
+                frames=torch.bincount(frame, minlength=3).tolist(),
+                blocks=blocks)
+
+
+def _any_stats(torch, ch, row_chunk, stream, occ):
+    """The occlusion slot walk's work on its slots: the share of live
+    slots that end occluded, the mean rows an occluded slot tests up to
+    and including its first occluder (padding rows counted), and the mean
+    real rows and rows to the last real row of the unoccluded slots'
+    chunks; from a plain torch walk over the rows, which must give the
+    kernel's occlusion."""
+    from yuki_tpu_torch.ops.trace import ray_shear, watertight_scaled
+
+    k = ch.leaf_size
+    tri = ch.rows.reshape(-1, k, ch.rows.shape[1])
+    lanes = torch.nonzero(stream[:, 6] > 0.0).squeeze(1)
+    ray = stream[lanes]
+    chunk = row_chunk.long()[lanes // 128]
+    ox, oy, oz, dx, dy, dz, t0, skip = (ray[:, j] for j in range(8))
+    pre = ray_shear(dx, dy, dz)
+    first = torch.full_like(chunk, k)
+    for r in range(k):
+        c = tri[chunk, r]
+        ok, ts_, det = watertight_scaled(pre, ox, oy, oz,
+                                         [c[:, j] for j in range(9)])
+        blocked = ok & (ts_ <= t0 * det) & (c[:, 9] != skip) & (
+            c[:, 10] >= 0.0)
+        first = torch.where(blocked & (first == k), r, first)
+    hit = first < k
+    if not torch.equal(hit.to(torch.int32), occ[lanes]):
+        raise RuntimeError("slot_any: the plain walk's occlusion differs")
+    pid = tri[:, :, 10]
+    real = (pid >= 0.0).sum(dim=1)[chunk]
+    last = torch.where(pid >= 0.0, torch.arange(1, k + 1, device=pid.device),
+                       0).amax(dim=1)[chunk]
+    n_live, n_occ = int(lanes.numel()), int(hit.sum())
+
+    def mean(x):
+        return float(x.float().mean()) if x.numel() else 0.0
+
+    return dict(live_slots=n_live, occluded_share=n_occ / max(1, n_live),
+                rows_to_first_occluder=mean(first[hit] + 1),
+                unoccluded_real_rows=mean(real[~hit]),
+                unoccluded_rows_to_last_real=mean(last[~hit]))
+
+
 def _crossed_word_stats(torch, ts, ch, o, d, t):
     """Crossed word boxes per live ray (mean, median, 90th percentile,
     max) and, over 32-ray groups in wave order (one thread-per-ray warp),
@@ -384,7 +505,8 @@ def _crossed_word_stats(torch, ts, ch, o, d, t):
 
 def _slot_stats(torch, ch, row_chunk, stream):
     """Live share of the slots, the mean real rows of the launched chunks
-    (rows with prim id >= 0) and their last real row (rounded up to 8),
+    (rows with prim id >= 0) and their last real row (as is, and rounded
+    up to 8),
     and the 32-slot warps of live rows with no live slot."""
     k = ch.leaf_size
     pid = ch.rows.reshape(-1, k, ch.rows.shape[1])[:, :, 10]
@@ -399,6 +521,7 @@ def _slot_stats(torch, ch, row_chunk, stream):
     return dict(rows=int(rc.numel()), slots=int(stream.shape[0]),
                 live_share=float(live.float().mean()),
                 mean_real_rows=float(real[rc].float().mean()),
+                mean_last_real_row=float(last[rc].float().mean()),
                 mean_walked_rows=float(last8[rc].float().mean()),
                 leaf_size=k, dead_rows=int((~row_live).sum()),
                 dead_warps_of_live_rows=dead_warps)
@@ -509,15 +632,51 @@ def _stream(torch, sm, res, tag, scene, bounce1, shadow, ms):
         res["ms"][f"{name} {what}"] = t_k
         res["ms"][f"{name} {what}: kernel device time"] = t_dev
         st = _slot_stats(torch, ch, row_chunk, stream)
+        note = ""
+        if skip is None and not PROBING:
+            st.update(_any_stats(torch, ch, row_chunk, stream, fn()))
+            note = (f"; {st['live_slots']} live slots, "
+                    f"{st['occluded_share']:.4f} of them occluded after "
+                    f"{st['rows_to_first_occluder']:.2f} rows on average; "
+                    f"the unoccluded slots' chunks hold "
+                    f"{st['unoccluded_real_rows']:.2f} real rows, the last "
+                    f"at {st['unoccluded_rows_to_last_real']:.2f}")
         res["notes"][f"{name} {what}"] = st
         print(f"[{tag}] {name} [{what}: {st['rows']} rows, live share "
               f"{st['live_share']:.4f}, {st['dead_rows']} dead rows, "
               f"{st['dead_warps_of_live_rows']} dead warps of live rows, "
               f"real rows of the launched chunks {st['mean_real_rows']:.2f}"
-              f" (to the last real, rounded to 8: "
-              f"{st['mean_walked_rows']:.2f}) of {k}]: {t_k:.4f} ms a call, "
-              f"kernel device time {t_dev:.4f} ms")
+              f" (to the last real {st['mean_last_real_row']:.2f}, rounded "
+              f"to 8 {st['mean_walked_rows']:.2f}) of {k}]: {t_k:.4f} ms a "
+              f"call, kernel device time {t_dev:.4f} ms{note}")
     return 0
+
+
+def probe(root, tag, out_path, parts="bounce,stream"):
+    """``run`` on a copy of ROOT's package whose walks PROBE_EDITS cut."""
+    global PROBING
+    dst = os.path.join(HERE, "build", f"probe-{tag}")
+    shutil.rmtree(dst, ignore_errors=True)
+    shutil.copytree(os.path.join(root, "yuki_tpu_torch"),
+                    os.path.join(dst, "yuki_tpu_torch"),
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    csrc = os.path.join(dst, "yuki_tpu_torch", "ops", "csrc")
+    for kernel, alternatives in PROBE_EDITS.items():
+        done = 0
+        for name, old, new in alternatives:
+            path = os.path.join(csrc, name)
+            with open(path) as f:
+                src = f.read()
+            if src.count(old) == 1:
+                with open(path, "w") as f:
+                    f.write(src.replace(old, new))
+                done += 1
+        if done != 1:
+            print(f"chip_ab: FAIL: probe: {done} edits of {kernel} apply",
+                  file=sys.stderr)
+            return 1
+    PROBING = True
+    return run(dst, tag, out_path, parts)
 
 
 def _write(res, out_path):
@@ -549,8 +708,8 @@ def compare(a_path, b_path):
 
 
 if __name__ == "__main__":
-    if len(sys.argv) in (5, 6) and sys.argv[1] == "run":
-        sys.exit(run(*sys.argv[2:]))
+    if len(sys.argv) in (5, 6) and sys.argv[1] in ("run", "probe"):
+        sys.exit((run if sys.argv[1] == "run" else probe)(*sys.argv[2:]))
     if len(sys.argv) == 4 and sys.argv[1] == "compare":
         sys.exit(compare(*sys.argv[2:]))
     print(__doc__, file=sys.stderr)

@@ -17,12 +17,15 @@ import numpy as np
 import pytest
 import torch
 
+from torch_scenes import wide_camera
+from yuki_tpu_torch import camera as cam_mod
 from yuki_tpu_torch import transforms as tf
 from yuki_tpu_torch.camera import Camera, CameraParameters, FoV
 from yuki_tpu_torch.integrators import PathParams
 from yuki_tpu_torch.ops import path_fused as tpf
 from yuki_tpu_torch.scene.cornell import cornell
 from yuki_tpu_torch.sampling import StratifiedSampler
+from yuki_tpu_torch.scene import data as scene_data
 from yuki_tpu_torch.scene.data import SceneBuilder
 
 pytestmark = pytest.mark.cuda
@@ -111,6 +114,49 @@ def test_raygen_kernel_matches_plain(cuda, name):
     for k in ("ox", "oy", "oz", "dx", "dy", "dz", "t", "b0", "b1"):
         np.testing.assert_allclose(_plane(st_k, k), _plane(st_p, k),
                                    rtol=1e-6, atol=1e-7, err_msg=k)
+
+
+@pytest.mark.parametrize("sampler", ["uniform", "strat"])
+@pytest.mark.parametrize("n_spheres", [0, 1, 5])
+@pytest.mark.parametrize("n_tris", [1, 100, 1024])
+def test_raygen_wide_camera_matches_plain(cuda, n_tris, n_spheres, sampler):
+    """A camera whose rays take x, y and z as their dominant axis (a
+    150-degree field of view along the diagonal), in random pixel order so
+    that every block of the kernel holds rays of all three shear frames;
+    3,001 rays (no multiple of a block); 1, 100 and 1024 triangles (1024:
+    the frames' copies staged one at a time) with 0, 1 and 5 spheres; the
+    uniform sampler's hash and StratifiedSampler(2, 2)'s planes.  Every
+    state plane and the hash equal the plain version's bit for bit."""
+    scene, cam = wide_camera(scene_data, tf, cam_mod, n_tris, n_spheres,
+                             seed=n_tris + n_spheres, device=cuda)
+    tb = tpf.make_tables(scene, Camera.create(cam, *RES), PathParams(DEPTH))
+    rng = np.random.default_rng(n_tris)
+    n = 3001
+    px = torch.as_tensor(rng.integers(0, RES[0], n, dtype=np.int32),
+                         device=cuda)
+    py = torch.as_tensor(rng.integers(0, RES[1], n, dtype=np.int32),
+                         device=cuda)
+    spl = None
+    if sampler == "strat":
+        spl = tpf.strat_planes(StratifiedSampler(2, 2), px, py, 3, 11,
+                               tb.n_lights, DEPTH)[:2].contiguous()
+    tpf.reset_launches()
+    st_k, ph_k = tpf.raygen_trace(px, py, 3, 11, tb, spl)
+    assert tpf.LAUNCHES["raygen_trace"] == 1
+    st_p, ph_p = tpf.raygen_trace_plain(px, py, 3, 11, tb, spl)
+    torch.cuda.synchronize()
+    assert torch.equal(ph_k, ph_p)
+    for k, i in tpf._ST.items():
+        assert torch.equal(st_k[i].view(torch.int32),
+                           st_p[i].view(torch.int32)), k
+    ad = st_p[tpf._ST["dx"]:tpf._ST["dz"] + 1].abs()
+    x_max = (ad[0] > ad[1]) & (ad[0] > ad[2])
+    y_max = ~x_max & (ad[1] > ad[2])
+    for frame in (x_max, y_max, ~x_max & ~y_max):
+        assert int(frame.sum()) > n // 5
+    assert int((st_p[tpf._ST["prim"]] >= 0).sum()) > 0
+    if n_spheres:
+        assert int((st_p[tpf._ST["sph"]] >= 0).sum()) > 0
 
 
 BOUNCE_CASES = [pytest.param(name, clamp, "film", id=f"{name}-{clamp}")

@@ -335,3 +335,52 @@ def test_slot_closest_edge_shapes(cuda, k, with_skip):
     got_p = ts.slot_closest(rows, k, row_chunk, stream[perm].contiguous(),
                             with_skip)
     assert torch.equal(got_p, got[:, perm])
+
+
+@pytest.mark.parametrize("k", [8, 64, 128, 256])
+def test_slot_any_edge_shapes(cuda, k):
+    """Leaf sizes 8 to 256: a chunk whose last real row is row k - 1, one
+    with padding between real rows, rows with no live slot and warps with
+    none, and a chunk whose one real triangle carries light id 1 in front
+    of every slot of its row, which occludes the slots that skip another
+    light and not those that skip light 1.  The occlusion walk equals the
+    plain version bit for bit, and slots permuted within their rows give
+    the permuted occlusion."""
+    n_chunks, n_rows = 7, 24
+    rows = _synthetic_chunks(k, n_chunks, k, cuda)
+    row_chunk, stream = _slot_stream(n_rows, n_chunks, k + 1, cuda)
+    # Chunk n_chunks: row 0 a triangle across z = 0 with light id 1, the
+    # rest padding; slot row n_rows looks at it from z = -1, half its
+    # slots skipping light 1.
+    own = torch.zeros((k, 12), device=cuda)
+    own[:, 9], own[:, 10] = -3.0, -1.0
+    own[0, 0:9] = torch.tensor([-2.0, -2.0, 0.0, 4.0, -2.0, 0.0, -2.0, 4.0,
+                                0.0], device=cuda)
+    own[0, 9], own[0, 10] = 1.0, 5000.0
+    rng = np.random.default_rng(k)
+    extra = np.zeros((128, 8), np.float32)
+    extra[:, 0:2] = rng.uniform(-0.5, 0.5, (128, 2))
+    extra[:, 2] = -1.0
+    extra[:, 5] = 1.0
+    extra[:, 6] = 2.0
+    extra[:, 7] = np.where(np.arange(128) % 2 == 0, 1.0, -2.0)
+    rows = torch.cat([rows, own])
+    row_chunk = torch.cat([row_chunk, torch.tensor([n_chunks], dtype=torch.int32,
+                                                   device=cuda)])
+    stream = torch.cat([stream, torch.as_tensor(extra, device=cuda)])
+    ts.reset_launches()
+    got = ts.slot_any(rows, k, row_chunk, stream)
+    assert ts.LAUNCHES["slot_any"] == 1
+    ref = ts.slot_any_plain(rows, k, row_chunk, stream)
+    assert torch.equal(got, ref)
+    assert int(got[:128].sum()) == 0
+    assert int(got[:n_rows * 128].sum()) > n_rows * 16
+    own_row = got[n_rows * 128:].cpu().numpy()
+    assert (own_row == np.arange(128) % 2).all()
+    perm = torch.argsort(torch.rand((n_rows + 1, 128), device=cuda,
+                                    generator=torch.Generator(device=cuda)
+                                    .manual_seed(k)), dim=1)
+    perm = (perm + 128 * torch.arange(n_rows + 1, device=cuda)[:, None]
+            ).reshape(-1)
+    got_p = ts.slot_any(rows, k, row_chunk, stream[perm].contiguous())
+    assert torch.equal(got_p, got[perm])

@@ -5,7 +5,8 @@ plain versions they are compared with on the card.
 - Padding rows never win: a chunk's padding rows (prim id -1, light -3)
   can be given any geometry, even a closed tetrahedron around every ray's
   origin, and the slot walks' results keep their bits.  So the closest
-  walk may stop at its chunk's last real row.
+  walk may stop at its chunk's last real row, and the occlusion walk too,
+  where it stops (not rounded to 8).
 - Crossing words are per ray: a wave's words are the concatenation of its
   slices' and follow a permutation of its rays, so a kernel may give each
   ray a warp and take the rays in any order.  Dead rays, axis-parallel
@@ -28,7 +29,7 @@ from torch_scenes import REDUCED
 from yuki_tpu.ops import trace_stream as jts
 from yuki_tpu_torch.ops import trace_cull as tcu
 from yuki_tpu_torch.ops import trace_stream as ts
-from yuki_tpu_torch.ops.trace import F32_MAX
+from yuki_tpu_torch.ops.trace import F32_MAX, ray_shear, watertight_scaled
 from yuki_tpu_torch.scene.testscenes import colonnade
 
 torch.set_num_threads(2)
@@ -91,13 +92,39 @@ def _with_padding(rows, k, faces, pid=None):
     return out
 
 
+def _any_to_last_real(rows, k, row_chunk, stream):
+    """The occlusion walk as the kernel walks it: each chunk's rows only
+    up to its last real row (prim id >= 0, not rounded up), with
+    slot_any_plain's test and hit predicate.  [slots] i32."""
+    tri = rows.reshape(-1, k, rows.shape[1])
+    last = torch.where(tri[:, :, 10] >= 0.0, torch.arange(1, k + 1),
+                       0).amax(dim=1)
+    lanes = torch.nonzero(stream[:, 6] > 0.0).squeeze(1)
+    ray = stream[lanes]
+    chunk = row_chunk.long()[lanes // ts.LANES]
+    ox, oy, oz, dx, dy, dz, t0, skip = (ray[:, j] for j in range(8))
+    pre = ray_shear(dx, dy, dz)
+    occ = torch.zeros_like(t0, dtype=torch.bool)
+    for r in range(int(last.max())):
+        c = tri[chunk, r]
+        ok, ts_, det = watertight_scaled(pre, ox, oy, oz,
+                                         [c[:, j] for j in range(9)])
+        occ |= ((r < last[chunk]) & ok & (ts_ <= t0 * det)
+                & (c[:, 9] != skip) & (c[:, 10] >= 0.0))
+    out = torch.zeros(stream.shape[0], dtype=torch.int32)
+    out[lanes] = occ.to(torch.int32)
+    return out
+
+
 @pytest.mark.parametrize("walk", ["closest", "closest_skip", "any"])
 @pytest.mark.parametrize("scene", ["soup", "colonnade"])
 def test_padding_rows_never_win(soup, col, scene, walk):
     """The padding rows' geometry replaced by the faces of a tetrahedron
     around every origin and every triangle, each hit in front of the
-    slot's t: the walks give the bits they give on the original rows.
-    The same faces with prim ids (unmasked) do change most live slots."""
+    slot's t: the walks give the bits they give on the original rows, and
+    the occlusion walk cut at each chunk's last real row gives them on
+    both.  The same faces with prim ids (unmasked) do change most live
+    slots."""
     ch, o, d = _scene(scene, soup, col)
     k = ch.leaf_size
     rows = ch.rows
@@ -123,6 +150,10 @@ def test_padding_rows_never_win(soup, col, scene, walk):
     ref = run(rows)
     got = run(_with_padding(rows, k, faces))
     assert torch.equal(got, ref)
+    if walk == "any":
+        for r in (rows, _with_padding(rows, k, faces)):
+            assert torch.equal(_any_to_last_real(r, k, row_chunk, stream),
+                               ref)
 
     live = stream[:, 6] > 0.0
     pad_rows = (rows.reshape(-1, k, 12)[:, :, 10] < 0.0).sum(dim=1)

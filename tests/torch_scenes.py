@@ -75,3 +75,43 @@ def row_trap():
         o[lane, :2] = xy
         t_max[lane] = 5.0
     return rows, bounds, np.ones((3, 1), np.uint32), o, d, t_max
+
+
+def wide_camera(sd, tf, cam_mod, n_tris, n_spheres, seed=0, **build):
+    """``n_tris`` random triangles (sides up to ~1.5) 2-6 and
+    ``n_spheres`` spheres 4-6 from the origin, on the side that faces (1,
+    1, 1), the first of each 2.5 in front of the camera (the triangle
+    facing it), a point light, and a camera at the origin looking along
+    that diagonal with a 150-degree horizontal field of view: its rays
+    take each of x, y and z as their dominant axis, so they span the
+    watertight test's three shear frames."""
+    rng = np.random.default_rng(seed)
+    b = sd.SceneBuilder("wide-camera")
+    mat = b.add_matte(kd=(0.6, 0.55, 0.5))
+
+    def shell(n, first, r_min):
+        v = rng.standard_normal((n, 3))
+        v *= np.where(v.sum(axis=1, keepdims=True) < 0.0, -1.0, 1.0)
+        v[:1] = first
+        v /= np.linalg.norm(v, axis=1, keepdims=True)
+        r = rng.uniform(r_min, 6.0, (n, 1))
+        r[:1] = 2.5
+        return v * r
+
+    if n_tris:
+        verts = (shell(n_tris, (1.0, 1.0, 1.0), 2.0)[:, None, :]
+                 + rng.uniform(-0.75, 0.75, (n_tris, 3, 3))).reshape(-1, 3)
+        # The first faces the camera.
+        verts[0:3] = 2.5 / np.sqrt(3.0) + np.array(
+            [[0.8, -0.8, 0.0], [0.0, 0.8, -0.8], [-0.8, 0.0, 0.8]])
+        b.add_mesh(tf.Transform.identity(), list(range(3 * n_tris)),
+                   verts.astype(np.float32), material=mat)
+    for c in shell(n_spheres, (1.0, 0.0, 0.2), 4.0):
+        b.add_sphere(tf.translation(tuple(float(x) for x in c)),
+                     float(rng.uniform(0.3, 1.2)), mat)
+    b.add_point_light(tf.translation((0.0, 0.5, 0.0)), (5.0, 5.0, 5.0))
+    cam = cam_mod.CameraParameters(
+        position=(0.0, 0.0, 0.0), target=(1.0, 1.0, 1.0),
+        up=(0.0, 1.0, 0.0), fov=cam_mod.FoV.x(150.0),
+    )
+    return b.build(**build), cam

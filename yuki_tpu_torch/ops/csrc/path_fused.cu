@@ -3,7 +3,8 @@
 //
 //   yk_raygen_trace  replaces _raygen_trace_kernel (path_fused.py:517, body
 //                    _raygen_values :451): pixel hash + jitter, camera ray,
-//                    closest hit over every triangle and sphere.
+//                    closest hit over every triangle and sphere, through a
+//                    camera sweep of its own (below).
 //   yk_bounce        replaces _bounce_kernel (path_fused.py:709, body
 //                    _bounce_values :543 + shade_fused._shade_body :360):
 //                    one whole bounce, including the NEE occlusion sweeps and
@@ -16,9 +17,11 @@
 //                    state in registers, writing only radiance and the ray
 //                    count.
 //
-// The bodies are two device functions, raygen_lane and bounce_lane, which
-// all three kernels call, so the one-kernel wave gives the two-kernel
-// wave's bits.  Each takes a StratifiedSampler's values as planes computed
+// The bodies are device functions that the kernels share: camera_dir
+// (raygen, wave), bounce_lane (bounce, wave), and the closest-hit sweep,
+// trace_scene in the wave and bounce kernels and camera_sweep, which gives
+// its bits, in the raygen kernel; so the one-kernel wave gives the
+// two-kernel wave's bits.  Each takes a StratifiedSampler's values as planes computed
 // beforehand (the TPU kernels' `strat` variants) where the caller passes
 // them, else the uniform sampler's hash.
 //
@@ -54,6 +57,20 @@
 //   the lane's own index, and writes its outputs there.  Warps of dead
 //   lanes skip the sweeps together, and a warp shades one BSDF branch.  A
 //   lane's arithmetic is unchanged, so every output plane keeps its bits.
+// - The raygen kernel's camera sweep (redesigned after the bounce; PERF.md
+//   §6).  Camera rays share their origin (a pinhole), so each block
+//   stages the triangles already translated by it (the same c - o
+//   subtraction, the same bits) in a copy permuted for each shear frame
+//   its rays need (one __syncthreads_or a frame: a block whose rays share
+//   a dominant axis stages one copy), and the spheres' object-space origin
+//   ro and c = |ro|^2 - r^2, computed once in the same operation order.  A
+//   test then makes no translation and no coordinate select, and its
+//   divide and t, b0, b1 only where the sign, det and range tests pass
+//   (the sweep reads them nowhere else).  A block of CAM_THREADS = 256
+//   rays shares one stage (128 to 512 threads and 1 to 4 rays a thread
+//   measured within a few percent, 4 rays slower; PERF.md §6).
+//   Bound: ALU, ~30 operations a triangle test and ~38 a sphere test,
+//   beside the 108 B of state and hash each ray writes.
 // - Grids: one lane a thread (raygen, wave) and one tile a block (bounce),
 //   so the card schedules blocks as they finish.  A persistent grid, which
 //   stages the tables once per block, measured slower here: the tables of
@@ -93,7 +110,8 @@ constexpr int MS_R2C = 0, MS_C2W = 16, MS_CENTER = 32, MS_DIAG = 35, MS_BG = 36,
 
 constexpr int FLAG_SIGMA = 1, FLAG_CLAMP = 2, FLAG_TEX = 4;
 
-constexpr int THREADS = 128;  // raygen and wave kernels
+constexpr int THREADS = 128;  // wave kernel
+constexpr int CAM_THREADS = 256;  // raygen kernel
 constexpr int BOUNCE_THREADS = 256;  // bounce kernel
 constexpr int BOUNCE_MIN_BLOCKS = 2;  // its blocks per SM: at most 128 registers
 constexpr int TILE = 512;  // lanes the bounce kernel sorts together
@@ -307,12 +325,14 @@ __device__ __forceinline__ void store_state(float* s, size_t N, const PathState&
 
 // ---- the two bodies: raygen and one bounce --------------------------------
 
-// Pixel hash + jitter, camera ray, closest hit (_raygen_values,
+// Pixel hash + jitter and the camera ray's direction (_raygen_values,
 // path_fused.py:451).  The jitter is the hash's dimensions 0-1, or, where
 // spl is set, the stratified values spl[0] and spl[stride].
-__device__ __forceinline__ PathState raygen_lane(int px, int py, uint32_t sample_index, uint32_t seed,
-                                                 const float* __restrict__ ms, const Scene& sc,
-                                                 const float* __restrict__ spl, size_t stride, uint32_t& ph) {
+#define R2C(r, c) __ldg(ms + MS_R2C + 4 * (r) + (c))
+#define C2W(r, c) __ldg(ms + MS_C2W + 4 * (r) + (c))
+__device__ __forceinline__ V3 camera_dir(int px, int py, uint32_t sample_index, uint32_t seed,
+                                         const float* __restrict__ ms, const float* __restrict__ spl, size_t stride,
+                                         uint32_t& ph) {
   uint32_t h = pcg(0x9E3779B9u ^ seed);
   uint32_t key = ((uint32_t)px << 16) | (uint32_t)py;
   ph = pcg(pcg(h ^ key) ^ sample_index);
@@ -322,8 +342,6 @@ __device__ __forceinline__ PathState raygen_lane(int px, int py, uint32_t sample
   float x = (float)px + jx;
   float y = (float)py + jy;
 
-#define R2C(r, c) __ldg(ms + MS_R2C + 4 * (r) + (c))
-#define C2W(r, c) __ldg(ms + MS_C2W + 4 * (r) + (c))
   float pcx = R2C(0, 0) * x + R2C(0, 1) * y + R2C(0, 3);
   float pcy = R2C(1, 0) * x + R2C(1, 1) * y + R2C(1, 3);
   float pcz = R2C(2, 0) * x + R2C(2, 1) * y + R2C(2, 3);
@@ -339,11 +357,18 @@ __device__ __forceinline__ PathState raygen_lane(int px, int py, uint32_t sample
   float dy = C2W(1, 0) * pcx + C2W(1, 1) * pcy + C2W(1, 2) * pcz;
   float dz = C2W(2, 0) * pcx + C2W(2, 1) * pcy + C2W(2, 2) * pcz;
   float l2 = sqrtf(dx * dx + dy * dy + dz * dz);
-  V3 d = {dx / l2, dy / l2, dz / l2};
-  V3 o = {C2W(0, 3) + 0.0f, C2W(1, 3) + 0.0f, C2W(2, 3) + 0.0f};
+  return {dx / l2, dy / l2, dz / l2};
+}
+
+// The camera's origin, shared by every ray of a wave (a pinhole).
+__device__ __forceinline__ V3 camera_origin(const float* __restrict__ ms) {
+  return {C2W(0, 3) + 0.0f, C2W(1, 3) + 0.0f, C2W(2, 3) + 0.0f};
+}
 #undef R2C
 #undef C2W
 
+// A camera ray's path state before its first bounce.
+__device__ __forceinline__ PathState camera_state(V3 o, V3 d, const Hit& hit) {
   PathState p;
   p.o = o;
   p.d = d;
@@ -352,8 +377,148 @@ __device__ __forceinline__ PathState raygen_lane(int px, int py, uint32_t sample
   p.alive = 1.0f;
   p.spec = 0.0f;
   p.rc = 1.0f;
-  p.hit = trace_scene(sc, o, d, YK_F32_MAX);
+  p.hit = hit;
   return p;
+}
+
+// Camera ray and its closest hit through the general sweep: the wave
+// kernel's raygen.
+__device__ __forceinline__ PathState raygen_lane(int px, int py, uint32_t sample_index, uint32_t seed,
+                                                 const float* __restrict__ ms, const Scene& sc,
+                                                 const float* __restrict__ spl, size_t stride, uint32_t& ph) {
+  const V3 d = camera_dir(px, py, sample_index, seed, ms, spl, stride, ph);
+  const V3 o = camera_origin(ms);
+  return camera_state(o, d, trace_scene(sc, o, d, YK_F32_MAX));
+}
+
+// ---- the raygen kernel's camera sweep -------------------------------------
+// Its tables in shared memory, staged per block by stage_camera_spheres and
+// stage_camera_copy: `slots` copies of the triangles' corners less the
+// camera origin, each with its coordinates permuted for one shear frame, as
+// [T][3] float4s (p0' xyz p1'x | p1'yz p2'xy | p2'z), then the spheres'
+// camera rows [S][4] float4s: (ro xyz, c), (m0 m1 m2 m4), (m5 m6 m8 m9),
+// (m10).
+struct CamScene {
+  int n_tris, n_spheres, slots;
+  __device__ __forceinline__ float4* copy(int slot) const { return smem + 3 * n_tris * slot; }
+  __device__ __forceinline__ float4* sp() const { return smem + 3 * n_tris * slots; }
+};
+
+__host__ __device__ inline size_t camera_bytes(int n_tris, int n_spheres, int slots) {
+  return (size_t)n_tris * 48 * slots + (size_t)n_spheres * 64;
+}
+
+// The shear frame make_shear picks for d: 0 when z is the dominant axis, 1
+// for x, 2 for y (the permutations (x, y, z), (y, z, x), (z, x, y)).
+__device__ __forceinline__ int shear_frame(V3 d) {
+  const float adx = fabsf(d.x), ady = fabsf(d.y), adz = fabsf(d.z);
+  const bool x_max = (adx > ady) && (adx > adz);
+  return x_max ? 1 : (ady > adz ? 2 : 0);
+}
+
+// The spheres' camera rows: ro and c as sphere_t computes them for a ray
+// from o, and the rows of world_to_obj that rotate a direction.
+__device__ __forceinline__ void stage_camera_spheres(const CamScene& sc, const SceneSrc& src, V3 o) {
+  float4* dst = sc.sp();
+  for (int s = threadIdx.x; s < sc.n_spheres; s += blockDim.x) {
+    const float* m = src.sp + 40 * s;
+    const float4 r0 = make_float4(__ldg(m + 0), __ldg(m + 1), __ldg(m + 2), __ldg(m + 3));
+    const float4 r1 = make_float4(__ldg(m + 4), __ldg(m + 5), __ldg(m + 6), __ldg(m + 7));
+    const float4 r2 = make_float4(__ldg(m + 8), __ldg(m + 9), __ldg(m + 10), __ldg(m + 11));
+    const V3 ro = sphere_origin(r0, r1, r2, o);
+    dst[4 * s] = make_float4(ro.x, ro.y, ro.z, sphere_c(ro, __ldg(m + 32)));
+    dst[4 * s + 1] = make_float4(r0.x, r0.y, r0.z, r1.x);
+    dst[4 * s + 2] = make_float4(r1.y, r1.z, r2.x, r2.y);
+    dst[4 * s + 3] = make_float4(r2.z, 0.0f, 0.0f, 0.0f);
+  }
+}
+
+// Copy `slot`: the triangles less o, permuted for shear frame F.  c - o is
+// the subtraction watertight9 makes, and the permutation is its selects'
+// (permx(c - o) = (c - o) permuted), so the tests see the same values.
+template <int F>
+__device__ __forceinline__ void stage_camera_copy(const CamScene& sc, const SceneSrc& src, V3 o, int slot) {
+  float4* dst = sc.copy(slot);
+  const float4* tri = reinterpret_cast<const float4*>(src.tri);
+  // Corner k's coordinates in frame F: v[3k + (F + j) % 3], j = 0, 1, 2.
+  constexpr int j0 = F, j1 = (F + 1) % 3, j2 = (F + 2) % 3;
+  for (int i = threadIdx.x; i < sc.n_tris; i += blockDim.x) {
+    const float4 a = __ldg(tri + 3 * i), b = __ldg(tri + 3 * i + 1), c = __ldg(tri + 3 * i + 2);
+    const float v[9] = {a.x - o.x, a.y - o.y, a.z - o.z, a.w - o.x, b.x - o.y,
+                        b.y - o.z, b.z - o.x, b.w - o.y, c.x - o.z};
+    dst[3 * i] = make_float4(v[j0], v[j1], v[j2], v[3 + j0]);
+    dst[3 * i + 1] = make_float4(v[3 + j1], v[3 + j2], v[6 + j0], v[6 + j1]);
+    dst[3 * i + 2] = make_float4(v[6 + j2], 0.0f, 0.0f, 0.0f);
+  }
+}
+
+// trace_scene for a camera ray of direction d: the triangle tests on the
+// copy of its shear frame, from the translated and permuted corners, with
+// watertight9's operations in its order; the divide and t, b0, b1 only for
+// a test whose sign, det and range tests pass (on a hit det != 0, so
+// det_safe = det), b0 and b1 only for a closer hit (trace_scene keeps
+// them only then).  Then the spheres from their staged ro and c, as
+// sphere_t.
+__device__ __forceinline__ Hit camera_sweep(const float4* tri, int n_tris, const float4* sp, int n_spheres, V3 d) {
+  const Shear sh = make_shear(d);
+  float t = YK_F32_MAX, b0 = 0.0f, b1 = 0.0f;
+  int prim = -1;
+  for (int i = 0; i < n_tris; ++i) {
+    const float4 q0 = tri[3 * i], q1 = tri[3 * i + 1], q2 = tri[3 * i + 2];
+    const float p0tz = q0.z, p1tz = q1.y, p2tz = q2.x;
+    const float p0tx = q0.x + sh.sx * p0tz;
+    const float p0ty = q0.y + sh.sy * p0tz;
+    const float p1tx = q0.w + sh.sx * p1tz;
+    const float p1ty = q1.x + sh.sy * p1tz;
+    const float p2tx = q1.z + sh.sx * p2tz;
+    const float p2ty = q1.w + sh.sy * p2tz;
+    const float e0 = p1tx * p2ty - p1ty * p2tx;
+    const float e1 = p2tx * p0ty - p2ty * p0tx;
+    const float e2 = p0tx * p1ty - p0ty * p1tx;
+    const bool miss_sign = (e0 < 0.0f || e1 < 0.0f || e2 < 0.0f) && (e0 > 0.0f || e1 > 0.0f || e2 > 0.0f);
+    const float det = e0 + e1 + e2;
+    const float t_scaled = (e0 * p0tz + e1 * p1tz + e2 * p2tz) * sh.inv_dz;
+    const bool negd = det < 0.0f;
+    const float bound = t * det;
+    const bool miss_range = (negd && (t_scaled >= 0.0f || t_scaled < bound)) ||
+                            (!negd && (t_scaled <= 0.0f || t_scaled > bound));
+    if (!(miss_sign || det == 0.0f || miss_range)) {
+      const float inv_det = 1.0f / det;
+      const float ti = t_scaled * inv_det;
+      if (ti < t) {
+        t = ti;
+        prim = i;
+        b0 = e0 * inv_det;
+        b1 = e1 * inv_det;
+      }
+    }
+  }
+  int sph = -1;
+  bool any = prim >= 0;
+  if (n_spheres > 0) {
+    float best_t = YK_F32_MAX;
+    int best_i = -1;
+    for (int s = 0; s < n_spheres; ++s) {
+      const float4 q0 = sp[4 * s], q1 = sp[4 * s + 1], q2 = sp[4 * s + 2];
+      const float m10 = sp[4 * s + 3].x;
+      const V3 rd = {q1.x * d.x + q1.y * d.y + q1.z * d.z, q1.w * d.x + q2.x * d.y + q2.y * d.z,
+                     q2.z * d.x + q2.w * d.y + m10 * d.z};
+      bool hit;
+      const float ts = sphere_root(v3(q0.x, q0.y, q0.z), rd, q0.w, YK_F32_MAX, hit);
+      if (hit && ts < best_t) {
+        best_t = ts;
+        best_i = s;
+      }
+    }
+    const bool sphere_wins = best_i >= 0 && best_t < t;
+    any = any || sphere_wins;
+    if (sphere_wins) {
+      t = best_t;
+      prim = -1;
+      sph = best_i;
+    }
+  }
+  return {t, b0, b1, (float)prim, (float)sph, any ? 1.0f : 0.0f};
 }
 
 // The bounce's NEE sink: occlusion sweep per worthwhile light, folded into
@@ -471,18 +636,50 @@ __device__ __forceinline__ int lane_class(const Tables& a, const float* __restri
 // Each block stages the scene, then runs one lane a thread (raygen, wave)
 // or one tile of TILE lanes (bounce).
 
-__global__ void __launch_bounds__(THREADS)
+// The camera wave, one ray a thread.  A thread makes its ray and notes its
+// shear frame; the block finds which frames its rays need (one
+// __syncthreads_or a frame) and stages their copies, `slots` at a time (a
+// block whose rays share a frame stages one copy), traces the rays whose
+// frame is staged, and stages the next frames if any are left.
+__global__ void __launch_bounds__(CAM_THREADS)
     raygen_trace_kernel(const int* __restrict__ px_in, const int* __restrict__ py_in, int n, uint32_t sample_index,
-                        uint32_t seed, const float* __restrict__ ms, SceneSrc src, const float* __restrict__ spl,
-                        float* __restrict__ st, int* __restrict__ ph_out) {
-  const Scene sc = stage_scene(src);
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
+                        uint32_t seed, const float* __restrict__ ms, SceneSrc src, int slots,
+                        const float* __restrict__ spl, float* __restrict__ st, int* __restrict__ ph_out) {
   const size_t N = (size_t)n;
-  uint32_t ph;
-  const PathState p = raygen_lane(px_in[i], py_in[i], sample_index, seed, ms, sc, spl ? spl + i : nullptr, N, ph);
-  store_state(st + i, N, p);
-  ph_out[i] = (int)ph;
+  const int i = blockIdx.x * CAM_THREADS + threadIdx.x;
+  const V3 o = camera_origin(ms);
+  V3 d = zero3();
+  int frame = -1;
+  if (i < n) {
+    uint32_t ph;
+    d = camera_dir(px_in[i], py_in[i], sample_index, seed, ms, spl ? spl + i : nullptr, N, ph);
+    frame = shear_frame(d);
+    ph_out[i] = (int)ph;
+  }
+  int todo = 0;
+#pragma unroll
+  for (int f = 0; f < 3; ++f) todo |= __syncthreads_or(frame == f) ? 1 << f : 0;
+  const CamScene sc = {src.n_tris, src.n_spheres, slots};
+  stage_camera_spheres(sc, src, o);
+  while (todo) {
+    int staged = 0;
+#pragma unroll
+    for (int f = 0; f < 3; ++f) {
+      if ((todo >> f & 1) && __popc(staged) < slots) {
+        if (f == 0) stage_camera_copy<0>(sc, src, o, __popc(staged));
+        if (f == 1) stage_camera_copy<1>(sc, src, o, __popc(staged));
+        if (f == 2) stage_camera_copy<2>(sc, src, o, __popc(staged));
+        staged |= 1 << f;
+      }
+    }
+    __syncthreads();
+    if (frame >= 0 && (staged >> frame & 1)) {
+      const float4* copy = sc.copy(__popc(staged & ((1 << frame) - 1)));
+      store_state(st + i, N, camera_state(o, d, camera_sweep(copy, sc.n_tris, sc.sp(), sc.n_spheres, d)));
+    }
+    todo &= ~staged;
+    if (todo) __syncthreads();  // the copies are staged anew
+  }
 }
 
 // One bounce of TILE lanes a block.  The tile's lanes are sorted by
@@ -615,11 +812,15 @@ extern "C" int yk_raygen_trace(int device, const int* px, const int* py, int n, 
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const SceneSrc src = {tri, trs, n_tris, sp, n_spheres};
-  const size_t shmem = scene_bytes(n_tris, n_spheres);
+  // Three frame copies where they fit beside other blocks on an SM without
+  // the opt-in; else one at a time (a block whose rays span frames stages
+  // and traces them in turn).
+  const int slots = camera_bytes(n_tris, n_spheres, 3) <= 48 * 1024 ? 3 : 1;
+  const size_t shmem = camera_bytes(n_tris, n_spheres, slots);
   err = allow_shared((const void*)raygen_trace_kernel, shmem);
   if (err != cudaSuccess) return (int)err;
-  raygen_trace_kernel<<<(n + THREADS - 1) / THREADS, THREADS, shmem, (cudaStream_t)stream>>>(
-      px, py, n, sample_index, seed, ms, src, spl, st, ph);
+  raygen_trace_kernel<<<(n + CAM_THREADS - 1) / CAM_THREADS, CAM_THREADS, shmem, (cudaStream_t)stream>>>(
+      px, py, n, sample_index, seed, ms, src, slots, spl, st, ph);
   return (int)cudaGetLastError();
 }
 

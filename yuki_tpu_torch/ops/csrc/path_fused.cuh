@@ -185,21 +185,22 @@ __device__ __forceinline__ bool watertight_row(const Shear& s, V3 o, float t_cur
 
 // ---- object-space sphere test (stable-q quadratic, sphere.rs:37-89) -----
 
-// m: one sphere's test row staged in shared memory as four float4s:
-// world_to_obj's first three rows (m0..m11), then the radius.  Returns the
-// hit distance or a miss through `hit`.
-__device__ __forceinline__ float sphere_t(const float4* m, V3 o, V3 d, float t_max, bool& hit) {
-  const float4 r0 = m[0], r1 = m[1], r2 = m[2];
-  const float m0 = r0.x, m1 = r0.y, m2 = r0.z, m3 = r0.w;
-  const float m4 = r1.x, m5 = r1.y, m6 = r1.z, m7 = r1.w;
-  const float m8 = r2.x, m9 = r2.y, m10 = r2.z, m11 = r2.w;
-  V3 ro = {m0 * o.x + m1 * o.y + m2 * o.z + m3, m4 * o.x + m5 * o.y + m6 * o.z + m7,
-           m8 * o.x + m9 * o.y + m10 * o.z + m11};
-  V3 rd = {m0 * d.x + m1 * d.y + m2 * d.z, m4 * d.x + m5 * d.y + m6 * d.z, m8 * d.x + m9 * d.y + m10 * d.z};
-  float radius = m[3].x;
+// A ray's object-space origin ro from o and world_to_obj's first three
+// rows r0-r2, and c = |ro|^2 - r^2: what a camera wave's rays share
+// (path_fused.cu's raygen kernel stages them once a block).
+__device__ __forceinline__ V3 sphere_origin(const float4& r0, const float4& r1, const float4& r2, V3 o) {
+  return {r0.x * o.x + r0.y * o.y + r0.z * o.z + r0.w, r1.x * o.x + r1.y * o.y + r1.z * o.z + r1.w,
+          r2.x * o.x + r2.y * o.y + r2.z * o.z + r2.w};
+}
+__device__ __forceinline__ float sphere_c(V3 ro, float radius) {
+  return ro.x * ro.x + ro.y * ro.y + ro.z * ro.z - radius * radius;
+}
+
+// The quadratic of a sphere test from the object-space ray (ro, rd) and
+// c = sphere_c(ro, radius): the hit distance or a miss through `hit`.
+__device__ __forceinline__ float sphere_root(V3 ro, V3 rd, float c, float t_max, bool& hit) {
   float a = rd.x * rd.x + rd.y * rd.y + rd.z * rd.z;
   float b = 2.0f * (rd.x * ro.x + rd.y * ro.y + rd.z * ro.z);
-  float c = ro.x * ro.x + ro.y * ro.y + ro.z * ro.z - radius * radius;
   float discrim = b * b - 4.0f * a * c;
   bool has_root = discrim >= 0.0f;
   float rt = sqrtf(jmax(discrim, 0.0f));
@@ -213,6 +214,19 @@ __device__ __forceinline__ float sphere_t(const float4* m, V3 o, V3 d, float t_m
   miss = miss || (t > t_max) || !has_root;
   hit = !miss;
   return t;
+}
+
+// m: one sphere's test row staged in shared memory as four float4s:
+// world_to_obj's first three rows (m0..m11), then the radius.  Returns the
+// hit distance or a miss through `hit`.
+__device__ __forceinline__ float sphere_t(const float4* m, V3 o, V3 d, float t_max, bool& hit) {
+  const float4 r0 = m[0], r1 = m[1], r2 = m[2];
+  const float m0 = r0.x, m1 = r0.y, m2 = r0.z;
+  const float m4 = r1.x, m5 = r1.y, m6 = r1.z;
+  const float m8 = r2.x, m9 = r2.y, m10 = r2.z;
+  V3 ro = sphere_origin(r0, r1, r2, o);
+  V3 rd = {m0 * d.x + m1 * d.y + m2 * d.z, m4 * d.x + m5 * d.y + m6 * d.z, m8 * d.x + m9 * d.y + m10 * d.z};
+  return sphere_root(ro, rd, sphere_c(ro, m[3].x), t_max, hit);
 }
 
 

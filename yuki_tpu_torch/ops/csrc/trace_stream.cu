@@ -63,14 +63,24 @@
 // operations per live slot and real triangle; traffic is the 32 B ray and
 // 12 B result per slot plus 6 KB of triangles per row.
 //
-// slot_any: one 128-thread block per slot row and one thread per slot;
-// the row's chunk (128 triangle rows x 12 floats, 6 KB) is staged in
-// shared memory and each thread reads its slot's ray (8 floats) from the
-// packed stream.  A row with no live slot writes occlusion 0.  The
-// occlusion walk leaves a slot at its first occluder (OR is monotone; the
-// TPU kernel leaves a row when all its live slots are occluded).  Bound:
-// ALU, ~39 operations per slot and triangle; traffic is the 32 B ray and
-// 4 B result per slot plus 6 KB of triangles per row.
+// slot_any (redesigned for the card the same way): one 128-thread block
+// per slot row and one thread per slot.  The first port staged the chunk
+// with scalar loads (also for rows with no live slot), walked all k rows
+// for every unoccluded slot and made the 18 coordinate selects of the
+// shear frame in every test.  Now a row with no live slot writes
+// occlusion 0 before it stages anything; the chunk is staged as
+// slot_closest stages it (three copies permuted for the shear frames,
+// 16-byte loads), and a slot walks its copy only to the chunk's last real
+// row, leaving at its first occluder (OR is monotone: the TPU kernel
+// leaves a row when all its live slots are occluded).  Occlusion keeps no
+// carries, so the walk needs no rounding to 8; a padding row between real
+// rows stays a no-op through the prim id test.  Dead slots skip the walk,
+// and with them warps whose slots are all dead.  The hit predicate is the
+// first port's: ok, ts <= t * det, light id != the slot's skip id, prim
+// id >= 0.  The walk is unrolled by 4 (left to itself, ptxas held the
+// kernel to 40 registers and spilled 12 bytes).  Bound: ALU, ~39
+// operations per slot and real triangle up to its first occluder; traffic
+// is the 32 B ray and 4 B result per slot plus 6 KB of triangles per row.
 //
 // Numerics: built with -fmad=false and without fast-math.
 
@@ -171,6 +181,38 @@ __device__ __forceinline__ bool watertight_framed(const Shear& s, V3 o, const fl
   return !miss_sign && det != 0.0f && ts > 0.0f;
 }
 
+// Stage a slot row's chunk, by all threads of the block: thread r loads
+// triangle row r with three 16-byte loads and writes it into the three
+// copies (copy_stride4(k) float4s apart), permuted for the three shear
+// frames.  Returns, to every thread, one past the chunk's last row with
+// prim id >= 0 (0 when it has none).  The caller's block has ROW threads.
+__device__ __forceinline__ int stage_framed(float4* tri4, int* last_w, const float* __restrict__ rows,
+                                            const int* __restrict__ row_chunk, int k) {
+  const float4* src = reinterpret_cast<const float4*>(rows) + (size_t)__ldg(row_chunk + blockIdx.x) * k * 3;
+  const int stride = copy_stride4(k);
+  int last = 0;
+  for (int r = threadIdx.x; r < k; r += ROW) {
+    const float4 a = __ldg(src + 3 * r), b = __ldg(src + 3 * r + 1), c = __ldg(src + 3 * r + 2);
+    if (c.z >= 0.0f) last = r + 1;
+    permuted_row<0>(a, b, c, tri4 + 3 * r);
+    permuted_row<1>(a, b, c, tri4 + stride + 3 * r);
+    permuted_row<2>(a, b, c, tri4 + 2 * stride + 3 * r);
+  }
+  last = __reduce_max_sync(FULL, last);
+  if ((threadIdx.x & 31) == 0) last_w[threadIdx.x >> 5] = last;
+  __syncthreads();
+  return max(max(last_w[0], last_w[1]), max(last_w[2], last_w[3]));
+}
+
+// The staged copy in a ray's shear frame, and the ray's origin (r0.xyz of
+// its stream row) in that frame.
+__device__ __forceinline__ const float4* framed_copy(const float4* tri4, int k, const Shear& sh) {
+  return tri4 + (sh.x_max ? copy_stride4(k) : (sh.y_max ? 2 * copy_stride4(k) : 0));
+}
+__device__ __forceinline__ V3 framed_origin(const Shear& sh, const float4& r0) {
+  return v3(permx(sh, r0.x, r0.y, r0.z), permy(sh, r0.x, r0.y, r0.z), permz(sh, r0.x, r0.y, r0.z));
+}
+
 template <bool WITH_SKIP>
 __global__ void __launch_bounds__(ROW)
     slot_closest_kernel(const float* __restrict__ rows, int k, const int* __restrict__ row_chunk,
@@ -187,28 +229,14 @@ __global__ void __launch_bounds__(ROW)
     out[2 * n_slots + i] = 1.0f;
     return;
   }
-  // Stage row r into the three copies; note the last real row.
-  const float4* src = reinterpret_cast<const float4*>(rows) + (size_t)__ldg(row_chunk + blockIdx.x) * k * 3;
-  const int stride = copy_stride4(k);
-  int last = 0;
-  for (int r = threadIdx.x; r < k; r += ROW) {
-    const float4 a = __ldg(src + 3 * r), b = __ldg(src + 3 * r + 1), c = __ldg(src + 3 * r + 2);
-    if (c.z >= 0.0f) last = r + 1;
-    permuted_row<0>(a, b, c, tri4 + 3 * r);
-    permuted_row<1>(a, b, c, tri4 + stride + 3 * r);
-    permuted_row<2>(a, b, c, tri4 + 2 * stride + 3 * r);
-  }
-  last = __reduce_max_sync(FULL, last);
-  if ((threadIdx.x & 31) == 0) last_w[threadIdx.x >> 5] = last;
-  __syncthreads();
+  const int last = stage_framed(tri4, last_w, rows, row_chunk, k);
 
   float ts = jmax(tm, 0.0f), det = 1.0f, prim = -1.0f;
   if (__any_sync(FULL, tm > 0.0f)) {
-    const int n_walk = (max(max(last_w[0], last_w[1]), max(last_w[2], last_w[3])) + 7) & ~7;
+    const int n_walk = (last + 7) & ~7;
     const Shear sh = make_shear(v3(r0.w, r1.x, r1.y));
-    const V3 ow = v3(r0.x, r0.y, r0.z);
-    const V3 o = v3(permx(sh, ow.x, ow.y, ow.z), permy(sh, ow.x, ow.y, ow.z), permz(sh, ow.x, ow.y, ow.z));
-    const float4* tri = tri4 + (sh.x_max ? stride : (sh.y_max ? 2 * stride : 0));
+    const V3 o = framed_origin(sh, r0);
+    const float4* tri = framed_copy(tri4, k, sh);
     const float sk = WITH_SKIP ? r1.w : 0.0f;
     float ts_b[8], det_b[8], prim_b[8];
 #pragma unroll
@@ -254,32 +282,33 @@ __global__ void __launch_bounds__(ROW)
   out[2 * n_slots + i] = det;
 }
 
-// Stage the slot row's chunk: its k triangle rows, [k, 12] floats.
-__device__ __forceinline__ void stage_chunk(float* tri_s, const float* __restrict__ rows,
-                                            const int* __restrict__ row_chunk, int k) {
-  stage_floats(tri_s, rows + (size_t)__ldg(row_chunk + blockIdx.x) * k * 12, k * 12);
-}
-
 __global__ void __launch_bounds__(ROW)
     slot_any_kernel(const float* __restrict__ rows, int k, const int* __restrict__ row_chunk,
                     const float* __restrict__ stream, int* __restrict__ occ_out) {
-  extern __shared__ float tri_s[];
+  extern __shared__ float4 tri4[];  // three permuted copies of the chunk
+  __shared__ int last_w[ROW / 32];
   const int i = blockIdx.x * ROW + threadIdx.x;
-  const float* ray = stream + (size_t)i * 8;
-  const V3 o = v3(ray[0], ray[1], ray[2]);
-  const V3 dr = v3(ray[3], ray[4], ray[5]);
-  const float tm = ray[6];
-  const float skip = ray[7];
-  stage_chunk(tri_s, rows, row_chunk, k);
-  __syncthreads();
+  const float4* ray = reinterpret_cast<const float4*>(stream) + (size_t)i * 2;
+  const float4 r0 = __ldg(ray), r1 = __ldg(ray + 1);
+  const float tm = r1.z;
+  if (!__syncthreads_or(tm > 0.0f)) {
+    occ_out[i] = 0;
+    return;
+  }
+  const int last = stage_framed(tri4, last_w, rows, row_chunk, k);
   int occ = 0;
-  if (tm > 0.0f) {
-    const Shear sh = make_shear(dr);
-    for (int r = 0; r < k; ++r) {
-      const float* c = tri_s + 12 * r;
+  if (tm > 0.0f) {  // a warp whose slots are all dead passes by together
+    const Shear sh = make_shear(v3(r0.w, r1.x, r1.y));
+    const V3 o = framed_origin(sh, r0);
+    const float4* tri = framed_copy(tri4, k, sh);
+    const float sk = r1.w;
+#pragma unroll 4
+    for (int r = 0; r < last; ++r) {
+      const float4* t = tri + 3 * r;
+      const float4 a = t[0], b = t[1], c = t[2];
       float ts, det;
-      const bool ok = watertight_scaled(sh, o, c, ts, det);
-      if (ok && ts <= tm * det && c[9] != skip && c[10] >= 0.0f) {
+      const bool ok = watertight_framed(sh, o, a, b, c, ts, det);
+      if (ok && ts <= tm * det && c.y != sk && c.z >= 0.0f) {
         occ = 1;
         break;
       }
@@ -330,7 +359,9 @@ extern "C" int yk_slot_any(int device, const float* rows, int leaf_size, const i
                            const float* stream_in, int* occ, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  slot_any_kernel<<<n_rows, ROW, (size_t)leaf_size * 12 * sizeof(float), (cudaStream_t)stream>>>(
-      rows, leaf_size, row_chunk, stream_in, occ);
+  const size_t shmem = (size_t)3 * copy_stride4(leaf_size) * sizeof(float4);
+  err = allow_shared((const void*)slot_any_kernel, shmem);
+  if (err != cudaSuccess) return (int)err;
+  slot_any_kernel<<<n_rows, ROW, shmem, (cudaStream_t)stream>>>(rows, leaf_size, row_chunk, stream_in, occ);
   return (int)cudaGetLastError();
 }

@@ -29,11 +29,15 @@ the hand-written kernel in ``csrc/path_fused.cu`` (or raises); a CPU
 tensor runs the plain PyTorch version beside it (``raygen_trace_plain``,
 ``bounce_plain``), which the CPU tests hold against ``yuki_tpu``.  Each
 kernel launch adds one to ``LAUNCHES``.  The kernels stage the scene's
-sweep tables in shared memory, and the bounce kernel runs each 512-lane
-tile's lanes grouped by material class (dead, missed, the hit's material
-type and surface); a lane still reads and writes its own index, so no
-output depends on that order (``bounce_plain`` is lane-permutation
-equivariant bit for bit).
+sweep tables in shared memory; the raygen kernel stages them for its
+camera rays, which share an origin: the triangles already translated by
+it and permuted for each shear frame its rays need, and each sphere's
+object-space origin and ``c``, with the same operations as
+``raygen_trace_plain``'s sweep, so the same bits.  The bounce kernel
+runs each 512-lane tile's lanes grouped by material class (dead, missed,
+the hit's material type and surface); a lane still reads and writes its
+own index, so no output depends on that order (``bounce_plain`` is
+lane-permutation equivariant bit for bit).
 
 The TPU-only tricks are gone: the MXU one-hot row selects
 (``_select_row_mxu``) are row loads at ``max(idx, 0)``, and the MXU texel
@@ -681,6 +685,8 @@ def raygen_trace(px: torch.Tensor, py: torch.Tensor, sample_index: int,
     _build.check(px, "px", torch.int32, (n,), dev)
     _build.check(py, "py", torch.int32, (n,), dev)
     _check_tables(tb, dev)
+    if tb.tri.data_ptr() % 16:
+        raise ValueError("tri is not 16-byte aligned")
     spl_p = _check_spl(spl, 2, n, dev)
     st = torch.empty((_N_ST, n), dtype=torch.float32, device=dev)
     ph = torch.empty((n,), dtype=torch.int32, device=dev)
