@@ -1,21 +1,23 @@
 #!/usr/bin/env python3
 """A/B of the redesigned kernels (the two-level cull, the dense bounce,
-the crossing words and the slot walks) between two checkouts of this
-repository, on one NVIDIA GPU.
+the crossing words, the slot walks, raygen, the row-union closest walk
+and the dense closest sweep) between two checkouts of this repository, on
+one NVIDIA GPU.
 
     python3 chip_ab.py run ROOT TAG OUT.json [PARTS]   # measure ROOT's port
     python3 chip_ab.py probe ROOT TAG OUT.json [PARTS] # the same, walks cut
     python3 chip_ab.py compare A.json B.json           # A against B
 
-PARTS is a comma-separated subset of bounce,cull,stream,frames (default:
-all), or raygen (bounce's raygen measurements alone).
+PARTS is a comma-separated subset of bounce,cull,stream,frames,rows,dense
+(default: all), or raygen (bounce's raygen measurements alone).
 
 ``probe`` copies ROOT's ``yuki_tpu_torch`` to ``build/probe-TAG/``, cuts
-the walks of the occlusion slot walk and of the raygen kernel's sweep to
-zero triangles (and raygen's to zero spheres) by a text edit of the copy's
-sources (``PROBE_EDITS``), and runs ``run`` on the copy: its times are
-those of the kernels' stage, loads and stores alone.  Its digests differ
-from ROOT's by design.
+the walks of the occlusion slot walk, the row-union closest walk, the
+dense closest sweep and the raygen kernel's sweep to zero triangles (and
+raygen's to zero spheres) by a text edit of the copy's sources
+(``PROBE_EDITS``), and runs ``run`` on the copy: its times are those of
+the kernels' stage, rechecks, barriers, loads and stores alone.  Its
+digests differ from ROOT's by design.
 
 ``run`` imports the ``yuki_tpu_torch`` package of the checkout at ROOT
 (its kernels are built there, at first use) and records, on the card:
@@ -50,10 +52,22 @@ from ROOT's by design.
   first occluder and the real rows of the unoccluded slots' chunks (from a
   plain torch walk); each timed a call (CUDA events) and as the kernel's
   device time (torch.profiler);
-- the 1080p d5 16 spp Cornell frame and the 1080p d5 1 spp colonnade frame
-  on the slot stream and with both walker flags (the median of three
-  after one warm-up), and one of each under torch.profiler: device busy
-  time, idle share and the redesigned kernels' device time;
+- ``rows``: the row-union closest walk on the colonnade wave's camera
+  rays (524,288, the probe's own lists, as ``chip_smoke.py`` phase 8a
+  makes them) and, with and without skip, on phase 12's sorted combined
+  wave (camera + bounce-0 shadow lanes, 1,572,864); ``dense``: the dense
+  closest sweep on Cornell's 1080p camera wave (1,048,576 rays), on the
+  path_li frame's bounce-1 rays, on a 4096-triangle soup (65,536 rays,
+  ``chip_smoke.py``'s) and, with and without skip, on phase 12a's
+  combined wave (2,097,152 lanes); each timed a call and as the kernel's
+  device time, with the statistics of its work from a plain torch walk
+  that must give the kernel's output (``_rows_stats``, ``_dense_stats``);
+- the 1080p d5 16 spp Cornell frame, the 1080p d5 1 spp Cornell frame
+  through path_li (the dense sweeps' main path) and the 1080p d5 1 spp
+  colonnade frame on the slot stream and with both walker flags (the
+  median of three after one warm-up), and one of each under
+  torch.profiler: device busy time, idle share and the redesigned
+  kernels' device time;
 - each of those kernels' ``-Xptxas -v`` lines;
 
 and writes the times with a SHA-256 digest of every kernel output to
@@ -79,10 +93,12 @@ COL_TILES = 2048
 SLICE_RAYS = 65536  # the crossing words' slice of the bounce-1 wave
 KERNEL_NAMES = ("cull_kernel", "bounce_kernel", "wave_kernel",
                 "raygen_trace_kernel", "cross_words_kernel",
-                "slot_closest_kernel", "slot_any_kernel")
+                "slot_closest_kernel", "slot_any_kernel",
+                "rows_closest_kernel", "dense_closest_kernel")
+DENSE_KERNELS = ("dense_closest_kernel", "dense_any_kernel")
 COL_KERNELS = ("cull_kernel", "cross_words_kernel", "slot_closest_kernel",
-               "slot_any_kernel", "walker_closest_kernel",
-               "walker_any_kernel")
+               "slot_any_kernel", "rows_closest_kernel",
+               "walker_closest_kernel", "walker_any_kernel")
 # The probe's edits: for each kernel, alternatives (source, old, new), of
 # which exactly one must occur once in the checkout's source (the code
 # before the kernel's redesign, or after it); each cuts the kernel's walk
@@ -99,6 +115,24 @@ PROBE_EDITS = {
          "seed, ms, Scene{0, 0}, spl ? spl + i : nullptr, N, ph);"),
         ("path_fused.cu", "camera_sweep(copy, sc.n_tris, sc.sp(), sc.n_spheres,",
          "camera_sweep(copy, 0, sc.sp(), 0,"),
+    ),
+    "rows_closest_kernel": (
+        ("trace_rows.cu",
+         "closest_chunk<WITH_SKIP>(sh, r.o, tri_s, k, ts, det, prim, sk);",
+         "closest_chunk<WITH_SKIP>(sh, r.o, tri_s, 0, ts, det, prim, sk);"),
+        ("trace_rows.cu",
+         "closest_framed<WITH_SKIP>(sh, of, copy, (last + 7) & ~7, ts,",
+         "closest_framed<WITH_SKIP>(sh, of, copy, 0, ts,"),
+    ),
+    "dense_closest_kernel": (
+        ("trace_dense.cu",
+         "for (int r = 0; r < m; ++r) {\n      float ti, bi0, bi1;\n"
+         "      if (hit9(sh, ro, t,",
+         "for (int r = 0; r < 0; ++r) {\n      float ti, bi0, bi1;\n"
+         "      if (hit9(sh, ro, t,"),
+        ("trace_dense.cu",
+         "for (int r = 0; r < m; ++r) {\n      // Row r of the frame's copy",
+         "for (int r = 0; r < 0; ++r) {\n      // Row r of the frame's copy"),
     ),
 }
 PROBING = False  # set by ``probe``: the walks are cut, skip their checks
@@ -177,7 +211,7 @@ def device_times(torch, prof, names):
     return busy, {k: tuple(v) for k, v in parts.items()}
 
 
-def run(root, tag, out_path, parts="bounce,cull,stream,frames"):
+def run(root, tag, out_path, parts="bounce,cull,stream,frames,rows,dense"):
     parts = set(parts.split(","))
     sys.path.insert(0, os.path.abspath(root))
     import numpy as np  # noqa: F401
@@ -290,8 +324,12 @@ def run(root, tag, out_path, parts="bounce,cull,stream,frames"):
         print(f"[{tag}] wave {sam_name}: {res['ms'][f'wave {sam_name}']:.4f}"
               " ms")
 
+    # ---- the dense closest sweep on Cornell's waves and a soup ----------
+    if "dense" in parts:
+        _dense(torch, sm, res, tag, ms)
+
     # ---- the cull on the colonnade's bounce-1 and shadow rays -------------
-    if not parts & {"cull", "stream", "frames"}:
+    if not parts & {"cull", "stream", "frames", "rows"}:
         return _write(res, out_path)
     scene, cam, _ = colonnade(device=dev)
     ctx, o, d = sm._camera_wave(torch, dev, cam, COL_TILES)
@@ -302,9 +340,9 @@ def run(root, tag, out_path, parts="bounce,cull,stream,frames"):
     tables = tsf.make_shade_tables(scene, PathParams(DEPTH))
     ph = _ph_i32(ctx)
     ones = torch.ones_like(o)
-    (o2, d2, beta2, alive2, spec2, *_rest) = tsf.shade_fused(
-        tables, hit, o, d, ones, hit.hit, torch.zeros_like(hit.hit), ph, 2,
-        0)
+    out0 = tsf.shade_fused(tables, hit, o, d, ones, hit.hit,
+                           torch.zeros_like(hit.hit), ph, 2, 0)
+    o2, d2, beta2, alive2, spec2 = out0[:5]
     t2 = torch.where(alive2, F32_MAX, 0.0).to(torch.float32)
     hit2 = traverse.intersect(scene.data, scene.meta, o2, d2, t2,
                               skip_sort=True)
@@ -350,9 +388,22 @@ def run(root, tag, out_path, parts="bounce,cull,stream,frames"):
         if rc:
             return rc
 
+    # ---- the row-union closest walk ------------------------------------
+    if "rows" in parts:
+        _rows(torch, sm, res, tag, scene, (o, d, t_max, *out0[5:9]), ms)
+
     # ---- frames ---------------------------------------------------------
     fs = FilmSettings(res=(1920, 1080), tile_dim=16)
     cscene, ccam, _ = cornell(device=dev)
+
+    def cornell_path_li():
+        tpf.PATH_FUSED_MODE = "off"
+        try:
+            return render_frame(cscene, ccam, fs, UniformSampler(1),
+                                PathParams(DEPTH), wave_tiles=CORNELL_TILES,
+                                seed=1)
+        finally:
+            tpf.PATH_FUSED_MODE = "auto"
 
     def colonnade_frame(walker):
         def frame():
@@ -370,6 +421,7 @@ def run(root, tag, out_path, parts="bounce,cull,stream,frames"):
             cscene, ccam, fs, UniformSampler(SPP), PathParams(DEPTH),
             wave_tiles=CORNELL_TILES, samples_per_launch=SPP, seed=1),
             ("bounce_kernel",)),
+        "cornell 1080p d5 1 spp, path_li": (cornell_path_li, DENSE_KERNELS),
         "colonnade 1080p d5 1 spp": (colonnade_frame(False), COL_KERNELS),
         "colonnade 1080p d5 1 spp, walker": (colonnade_frame(True),
                                              COL_KERNELS),
@@ -422,19 +474,202 @@ def _raygen_stats(torch, tpf, st, ph, st_pl, ph_pl):
             if not torch.equal(st[i].view(torch.int32),
                                st_pl[i].view(torch.int32))}
     plain = "equal" if not diff and torch.equal(ph, ph_pl) else diff
-    ad = st[S["dx"]:S["dz"] + 1].abs()
-    x_max = (ad[0] > ad[1]) & (ad[0] > ad[2])
-    y_max = ~x_max & (ad[1] > ad[2])
-    frame = torch.where(x_max, 1, torch.where(y_max, 2, 0))
-    blocks = {}
-    for size in (128, 256, 512, 1024):
-        pad = (-frame.numel()) % size
-        f = torch.cat([frame, frame[-1:].expand(pad)]).reshape(-1, size)
-        seen = torch.stack([(f == a).any(dim=1) for a in range(3)]).sum(0)
-        blocks[size] = torch.bincount(seen, minlength=4)[1:].tolist()
+    frame = shear_frames(torch, st[S["dx"]:S["dz"] + 1].T)
     return dict(plain=plain,
                 frames=torch.bincount(frame, minlength=3).tolist(),
-                blocks=blocks)
+                blocks={size: distinct_frames(torch, frame, size)
+                        for size in (128, 256, 512, 1024)})
+
+
+def shear_frames(torch, d):
+    """Each ray's shear frame from its direction [N, 3]: 0 when z is the
+    dominant axis, 1 for x, 2 for y, as the watertight test picks it."""
+    ad = d.abs()
+    x_max = (ad[:, 0] > ad[:, 1]) & (ad[:, 0] > ad[:, 2])
+    y_max = ~x_max & (ad[:, 1] > ad[:, 2])
+    return torch.where(x_max, 1, torch.where(y_max, 2, 0))
+
+
+def distinct_frames(torch, frame, size):
+    """How many blocks of ``size`` consecutive rays hold 1, 2 and 3
+    distinct shear frames."""
+    pad = (-frame.numel()) % size
+    f = torch.cat([frame, frame[-1:].expand(pad)]).reshape(-1, size)
+    seen = torch.stack([(f == a).any(dim=1) for a in range(3)]).sum(0)
+    return torch.bincount(seen, minlength=4)[1:].tolist()
+
+
+def _rows_stats(torch, trw, ch, lists, o, d, t, skip, out):
+    """The row-union closest walk's work on a wave: list entries per row
+    (mean, max), the share of entries whose block-wide decision walks the
+    chunk, the real rows and the rows to the last real one of the walked
+    chunks, distinct shear frames per 128-ray row and per 32-ray warp, dead
+    lanes (t_max <= 0 or NaN) and warps whose 32 lanes are all dead.  The
+    walked chunks are those ROOT's plain walk hands to ``_chunk_groups``;
+    that walk must give the kernel's output ``out``."""
+    k = ch.leaf_size
+    walked = []
+    groups = trw._chunk_groups
+
+    def spy(ch_, tt):
+        walked.append(tt)
+        return groups(ch_, tt)
+
+    trw._chunk_groups = spy
+    try:
+        ref = trw.rows_closest_walk_plain(ch, lists, o, d, t, skip=skip)
+    finally:
+        trw._chunk_groups = groups
+    if not PROBING and not torch.equal(ref, out):
+        raise RuntimeError("rows_closest: the plain walk differs")
+    pid = ch.rows[:, 10].reshape(-1, k)
+    real = (pid >= 0.0).sum(dim=1)
+    last = torch.where(pid >= 0.0, torch.arange(1, k + 1, device=pid.device),
+                       0).amax(dim=1)
+    tt = torch.cat(walked).long() if walked else lists.new_zeros(0).long()
+    entries = (lists >= 0).sum(dim=1)
+    frame = shear_frames(torch, d)
+    dead = ~(t > 0.0)
+    return dict(rows=int(lists.shape[0]),
+                entries_mean=float(entries.float().mean()),
+                entries_max=int(entries.max()),
+                walked_share=int(tt.numel()) / max(1, int(entries.sum())),
+                walked_real_rows=float(real[tt].float().mean()),
+                walked_last_real_row=float(last[tt].float().mean()),
+                frames_per_row=distinct_frames(torch, frame, 128),
+                frames_per_warp=distinct_frames(torch, frame, 32),
+                dead_lanes=int(dead.sum()),
+                dead_warps=int(dead.reshape(-1, 32).all(dim=1).sum()),
+                pad_not_tail=int((last != real).sum()))
+
+
+def _dense_stats(torch, ttr, tris, o, d, t, light, skip, out, threads=256):
+    """The dense closest sweep's work on a wave: the share of its tests
+    (every lane against every triangle) that pass the sign, det and range
+    tests (the divides a test takes only on a pass) and the share that
+    take the hit, distinct shear frames per block of ``threads`` rays and
+    dead lanes; from a plain sweep with watertight's operations, which must
+    give the kernel's t."""
+    ox, oy, oz, dx, dy, dz = (o[:, 0], o[:, 1], o[:, 2], d[:, 0], d[:, 1],
+                              d[:, 2])
+    pre = ttr.ray_shear(dx, dy, dz)
+    tc = t.clone()
+    passes = takes = torch.zeros((), dtype=torch.int64, device=t.device)
+    for i, row in enumerate(tris[:, :9].unbind(0)):
+        hit, ti, _, _ = ttr.watertight(ox, oy, oz, dx, dy, dz, tc,
+                                       row.unbind(0), pre)
+        closer = hit & (ti < tc)
+        if skip is not None:
+            closer = closer & (light[i] != skip)
+        passes = passes + hit.sum()
+        takes = takes + closer.sum()
+        tc = torch.where(closer, ti, tc)
+    if not PROBING and not torch.equal(tc, out[0]):
+        raise RuntimeError("dense_closest: the plain sweep differs")
+    tests = t.numel() * tris.shape[0]
+    return dict(rays=int(t.numel()), triangles=int(tris.shape[0]),
+                pass_share=int(passes) / max(1, tests),
+                take_share=int(takes) / max(1, tests),
+                frames_per_block=distinct_frames(
+                    torch, shear_frames(torch, d), threads),
+                dead_lanes=int((~(t > 0.0)).sum()))
+
+
+def _hits_digest(torch, out):
+    """One digest of a closest query's (t, prim, b0, b1)."""
+    return digest(torch.cat([x.reshape(-1).view(torch.int32) for x in out]))
+
+
+def _dense(torch, sm, res, tag, ms):
+    """The dense closest sweep (see the module's docstring)."""
+    from yuki_tpu_torch import traverse
+    from yuki_tpu_torch.integrators import PathParams, _ph_i32
+    from yuki_tpu_torch.ops import shade_fused as tsf
+    from yuki_tpu_torch.ops import trace as ttr
+    from yuki_tpu_torch.ops.trace import F32_MAX, pack_triangles
+    from yuki_tpu_torch.scene.cornell import cornell
+
+    dev = torch.device("cuda")
+    scene, cam, _ = cornell(device=dev)
+    data = scene.data
+    ctx, o, d = sm._camera_wave(torch, dev, cam, CORNELL_TILES)
+    t_max = torch.full((o.shape[0],), F32_MAX, device=dev)
+    tris = pack_triangles(data.tris.p0, data.tris.p1, data.tris.p2)
+    light = data.tris.area_light
+    hit = traverse.intersect(data, scene.meta, o, d, t_max, skip_sort=True)
+    out0 = tsf.shade_fused(tsf.make_shade_tables(scene, PathParams(DEPTH)),
+                           hit, o, d, torch.ones_like(o), hit.hit,
+                           torch.zeros_like(hit.hit), _ph_i32(ctx), 2, 0)
+    t1 = torch.where(out0[3], F32_MAX, 0.0).to(torch.float32)
+    co, cd, ct, cs = sm._combine(torch, o, d, t_max, *out0[5:9])
+    soup, _, so, sd, st_, _ = sm._soup(torch, dev)
+    cases = (("Cornell camera wave", tris, o, d, t_max, None),
+             ("Cornell bounce-1 rays", tris, out0[0], out0[1], t1, None),
+             (f"{soup.shape[0]}-triangle soup", soup, so, sd, st_, None),
+             ("Cornell combined wave", tris, co, cd, ct, cs),
+             ("Cornell combined wave, without skip", tris, co, cd, ct, None))
+    for what, tp, ro, rd, rt, sk in cases:
+        if sk is None:
+            def fn():
+                return ttr.dense_trace(tp, ro, rd, rt)
+        else:
+            def fn():
+                return ttr.dense_trace_skip(tp, light, ro, rd, rt, sk)
+        name = "dense_closest" if sk is None else "dense_closest_skip"
+        out = fn()
+        res["hashes"][f"{name} {what}"] = _hits_digest(torch, out)
+        t_k = ms(fn)
+        t_dev = kernel_device_ms(torch, fn, "dense_closest_kernel")
+        res["ms"][f"{name} {what}"] = t_k
+        res["ms"][f"{name} {what}: kernel device time"] = t_dev
+        st = _dense_stats(torch, ttr, tp, ro, rd, rt, light, sk, out)
+        res["notes"][f"{name} {what}"] = st
+        print(f"[{tag}] {name} [{what}: {st['rays']} rays, {st['dead_lanes']}"
+              f" dead, {st['triangles']} triangles; tests passing sign, det "
+              f"and range {st['pass_share']:.5f}, taking the hit "
+              f"{st['take_share']:.5f}; 256-ray blocks by distinct frames "
+              f"(1, 2, 3) {st['frames_per_block']}]: {t_k:.4f} ms a call, "
+              f"kernel device time {t_dev:.4f} ms")
+
+
+def _rows(torch, sm, res, tag, scene, wave0, ms):
+    """The row-union closest walk (see the module's docstring)."""
+    from yuki_tpu_torch import traverse
+    from yuki_tpu_torch.ops import trace_rows as trw
+
+    ch = scene.data.chunks
+    o, d, t_max = wave0[:3]
+    co, cd, ct, cs = sm._sort_rays(torch, scene.data,
+                                   *sm._combine(torch, *wave0))
+    cases = (("camera rays", o, d, t_max, None),
+             ("sorted combined wave", co, cd, ct, cs.to(torch.float32)),
+             ("sorted combined wave, without skip", co, cd, ct, None))
+    for what, ro, rd, rt, sk in cases:
+        lists, _ = trw.kept_lists(trw.row_words_interval(ch, ro, rd, rt),
+                                  traverse._ROWS_C, traverse._ROWS_MULT)
+
+        def fn():
+            return trw.rows_closest_walk(ch, lists, ro, rd, rt, sk)
+        name = "rows_closest" if sk is None else "rows_closest_skip"
+        out = fn()
+        res["hashes"][f"{name} {what}"] = digest(out)
+        t_k = ms(fn)
+        t_dev = kernel_device_ms(torch, fn, "rows_closest_kernel")
+        res["ms"][f"{name} {what}"] = t_k
+        res["ms"][f"{name} {what}: kernel device time"] = t_dev
+        st = _rows_stats(torch, trw, ch, lists, ro, rd, rt, sk, out)
+        res["notes"][f"{name} {what}"] = st
+        print(f"[{tag}] {name} [{what}: {ro.shape[0]} rays, {st['rows']} "
+              f"rows; list entries a row mean {st['entries_mean']:.2f}, max "
+              f"{st['entries_max']}; walked {st['walked_share']:.4f} of them;"
+              f" walked chunks' real rows {st['walked_real_rows']:.2f}, to "
+              f"the last real {st['walked_last_real_row']:.2f} of "
+              f"{ch.leaf_size} ({st['pad_not_tail']} chunks whose padding is "
+              f"not a tail); rows by distinct frames (1, 2, 3) "
+              f"{st['frames_per_row']}, warps {st['frames_per_warp']}; "
+              f"{st['dead_lanes']} dead lanes, {st['dead_warps']} dead "
+              f"warps]: {t_k:.4f} ms a call, kernel device time "
+              f"{t_dev:.4f} ms")
 
 
 def _any_stats(torch, ch, row_chunk, stream, occ):

@@ -30,7 +30,9 @@ beside this file.  It imports no JAX.  Phases:
   4a. the dense trace kernels against their plain versions on Cornell's
      1,048,576-ray camera wave (closest) and its bounce-0 shadow rays
      (occlusion), and on a 4096-triangle soup with 65,536 rays, t_max 0
-     lanes and skip ids; with the bounds at 43 operations a test;
+     lanes and skip ids; with the bounds from the plain versions'
+     tallies (dense_ops for the closest sweep, 43 operations an occlusion
+     test);
   4b. the dense path_li main path: the same Cornell film at 1 spp with
      the fused wave off (PATH_FUSED_MODE "off"), through camera rays,
      path_li and the dense trace kernels, at depth 5 and depth 2, each
@@ -209,6 +211,14 @@ OPS_CAM_SPHERE = 38  # rd 15, a 5, b 6, discriminant 4, max and root 2,
 # q 2, two divides, min and max
 OPS_CAM_WAVE_TRI = 9  # a triangle's corners less the origin, once a wave
 OPS_CAM_WAVE_SPHERE = 25  # a sphere's ro 18 and c 7, once a wave
+# The dense closest sweep: a test up to its range test, the reciprocal of
+# det and ti only on a pass, b0 and b1 only on a take
+# (tests/test_torch_dense_redesign.py counts these on a plain rendering of
+# the sweep; dense_ops sums them over the plain sweep's tally):
+OPS_DENSE_TEST = 39  # 9 translate, 12 shear, 9 edges, 2 det, 6 t_scaled,
+# 1 bound
+OPS_DENSE_PASS = 2  # the reciprocal of det and ti
+OPS_DENSE_TAKE = 2  # b0 and b1
 OPS_SCALED = 40  # slot walks' scaled test: 9 translate, 12 shear, 9 edges,
 # 2 det, 6 ts, 2 for the cross-multiplied compare (occlusion: 39, one bound)
 CLOSEST_RAY_BYTES = 12 + 12 + 4 + 16  # o, d, t_max in; t, prim, b0, b1 out
@@ -276,6 +286,14 @@ def raygen_ops(n, n_tris, n_spheres, hits):
     return (n * (OPS_CAMERA + n_tris * OPS_CAM_TEST
                  + n_spheres * OPS_CAM_SPHERE) + hits * OPS_CAM_HIT
             + n_tris * OPS_CAM_WAVE_TRI + n_spheres * OPS_CAM_WAVE_SPHERE)
+
+
+def dense_ops(stats):
+    """Operations the dense closest sweep needs, from dense_trace_plain's
+    tally: each live lane's test of every triangle, each passing test's
+    divide and each taken hit's barycentrics."""
+    return (stats["tests"] * OPS_DENSE_TEST + stats["passes"] * OPS_DENSE_PASS
+            + stats["takes"] * OPS_DENSE_TAKE)
 
 
 def bounce_bound(tb, state_bytes, stats):
@@ -568,10 +586,11 @@ def phase_dense_kernels(torch, np, dev, card):
     """The dense trace kernels against their plain versions: closest on
     Cornell's 1080p 4096-tile camera wave, occlusion on that wave's
     bounce-0 shadow rays (path_li's own shading), both on a 4096-triangle
-    soup.  Bounds: 43 operations a watertight test; closest tests every
-    triangle for each lane with t_max > 0, occlusion up to its first
-    occluder (the plain version's tally); bytes: rays in, results out,
-    the triangle rows once."""
+    soup.  Bounds from the plain versions' tallies: closest, dense_ops
+    (each lane with t_max > 0 tests every triangle, the divide only on a
+    pass, b0 and b1 only on a take); occlusion, 43 operations a test up to
+    the lane's first occluder; bytes: rays in, results out, the triangle
+    rows once."""
     from yuki_tpu_torch import traverse
     from yuki_tpu_torch.integrators import PathParams, _ph_i32
     from yuki_tpu_torch.ops import shade_fused as tsf
@@ -609,7 +628,7 @@ def phase_dense_kernels(torch, np, dev, card):
                     return ttr.dense_trace(tp, ro, rd, rt)
 
                 def plain(stats=None):
-                    return ttr.dense_trace_plain(tp, ro, rd, rt)
+                    return ttr.dense_trace_plain(tp, ro, rd, rt, stats)
             else:
                 def kern():
                     return ttr.any_trace(tp, lt, ro, rd, rt, sk)
@@ -624,16 +643,19 @@ def phase_dense_kernels(torch, np, dev, card):
                 for g, r, k in zip(got, ref, ("t", "prim", "b0", "b1")):
                     check(torch.equal(g, r), f"{name} on the {what}: {k} "
                           "differs")
-                tests, nb = live * t, m * (28 + 16) + t * 48
-                found = f"{int((got[1] >= 0).sum())} hits"
+                tests, nb = stats["tests"], m * (28 + 16) + t * 48
+                ops = dense_ops(stats)
+                found = (f"{int((got[1] >= 0).sum())} hits, "
+                         f"{stats['passes']} tests passing to the divide")
             else:
                 check(torch.equal(got, ref), f"{name} on the {what}: "
                       "occlusion differs")
                 tests, nb = stats["tests"], m * (32 + 1) + t * 52
+                ops = tests * OPS_WATERTIGHT
                 found = f"{int(got.sum())} occluded"
             ms_k = cuda_ms(torch, kern, 10)
             ms_p = cuda_ms(torch, plain, 1)
-            b_ms, b_by = bound(nb, tests * OPS_WATERTIGHT)
+            b_ms, b_by = bound(nb, ops)
             print(f"{name} [{what}: {m} rays, {live} with t_max > 0, {t} "
                   f"triangles, {found}]: kernel {ms_k:.4f} ms, plain "
                   f"{ms_p:.4f} ms, bound {b_ms:.4f} ms ({b_by}; {tests} "
@@ -2192,8 +2214,7 @@ def phase_dense_combined(torch, dev, card):
     against its plain version bit for bit; skip -2 against dense_trace,
     the shadow lanes' hits against any_trace; its time beside
     dense_trace's on the same lanes and the two separate sweeps.  Bound:
-    43 operations a test, each lane with t_max > 0 against every
-    triangle."""
+    dense_ops of the plain version's tally."""
     from yuki_tpu_torch import traverse
     from yuki_tpu_torch.integrators import PathParams, _ph_i32
     from yuki_tpu_torch.ops import shade_fused as tsf
@@ -2223,8 +2244,9 @@ def phase_dense_combined(torch, dev, card):
     check(launches["dense_closest_skip"] == 1,
           f"Cornell combined wave: launches {launches}")
     got = ttr.dense_trace_skip(tris, light, co, cd, ct, cs)
+    stats = {}
     ref, ms_p = timed_once(torch, lambda: ttr.dense_trace_skip_plain(
-        tris, light, co, cd, ct, cs))
+        tris, light, co, cd, ct, cs, stats))
     for g, r, f in zip(got, ref, ("t", "prim", "b0", "b1")):
         check(torch.equal(g, r), f"dense_closest_skip: {f} differs from the "
               "plain version")
@@ -2247,8 +2269,8 @@ def phase_dense_combined(torch, dev, card):
     ms_s = cuda_ms(torch, lambda: (
         ttr.dense_trace(tris, co[:n], cd[:n], ct[:n]),
         ttr.any_trace(tris, light, co[n:], cd[n:], ct[n:], cs[n:])), 10)
-    tests = int((ct > 0.0).sum()) * nt
-    b_ms, b_by = bound(m * (28 + 4 + 16) + nt * 52, tests * OPS_WATERTIGHT)
+    tests = stats["tests"]
+    b_ms, b_by = bound(m * (28 + 4 + 16) + nt * 52, dense_ops(stats))
     print(f"dense_closest_skip [Cornell combined wave: {m} lanes, {n} "
           f"closest, {m - n} shadow, {int(occ.sum())} occluded, {nt} "
           f"triangles]: kernel {ms_k:.4f} ms (dense_closest on the same "

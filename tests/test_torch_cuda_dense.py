@@ -81,3 +81,38 @@ def test_dense_wrappers_validate(cuda):
         ttr.any_trace(packed, light, o, d, t_max, skip.float())
     with pytest.raises(ValueError, match="tri_light"):
         ttr.any_trace(packed, light[:10], o, d, t_max, skip)
+
+
+@pytest.mark.parametrize("skip", [False, True])
+@pytest.mark.parametrize("n_tris", [1, 36, 1024, 1025, 4096])
+def test_dense_closest_edge_shapes(cuda, n_tris, skip):
+    """dense_trace (and dense_trace_skip) against its plain version on 3001
+    rays (not a multiple of the block) from random origins in every
+    direction, so that blocks hold all three shear frames, at 1 to 4096
+    triangles (one, several and a ragged last shared-memory tile); every
+    fifth triangle (and its light id) a copy of the one before, so exact
+    ties go to the lower index."""
+    packed, light, o, d, t_max, sk = soup_inputs(n_tris, 3001, 7 + n_tris,
+                                                 cuda)
+    packed[5::5] = packed[4:-1:5]
+    light[5::5] = light[4:-1:5]
+    ad = d.abs()
+    x_max = (ad[:, 0] > ad[:, 1]) & (ad[:, 0] > ad[:, 2])
+    y_max = ~x_max & (ad[:, 1] > ad[:, 2])
+    assert min(int(x_max.sum()), int(y_max.sum()),
+               int((~x_max & ~y_max).sum())) > 3001 // 5
+    ttr.reset_launches()
+    if skip:
+        got = ttr.dense_trace_skip(packed, light, o, d, t_max, sk)
+        ref = ttr.dense_trace_skip_plain(packed, light, o, d, t_max, sk)
+    else:
+        got = ttr.dense_trace(packed, o, d, t_max)
+        ref = ttr.dense_trace_plain(packed, o, d, t_max)
+    for g, r in zip(got, ref):
+        assert torch.equal(g.view(torch.int32), r.view(torch.int32))
+    assert int((got[1] >= 0).sum()) > 0
+    if n_tris >= 36:
+        assert int(((got[1] % 5 == 4) & (got[1] >= 0)).sum()) > 0
+        assert int((got[1] % 5 == 0)[got[1] > 0].sum()) == 0
+    name = "dense_closest_skip" if skip else "dense_closest"
+    assert ttr.LAUNCHES[name] == 1

@@ -147,3 +147,89 @@ def test_rows_wrappers_validate(scene):
         trw.rows_any_walk(ch, lists, o, d, t_max,
                           torch.zeros(o.shape[0], dtype=torch.int32,
                                       device=o.device))
+
+
+@pytest.fixture(scope="module")
+def leaf_chunks(scene):
+    """The reduced colonnade cut into flat chunks of 8, 128 and 256
+    triangle rows ({leaf size: chunks}), as the scene builder cuts its
+    128-row chunks."""
+    from yuki_tpu_torch.treelets import build_treelets
+
+    sc = scene[0]
+    tris = sc.data.tris
+    tri_p = torch.stack([tris.p0, tris.p1, tris.p2], dim=1).cpu().numpy()
+    light = tris.area_light.cpu().numpy()
+    return {k: build_treelets(sc.bvh_host, tri_p, light, leaf_size=k,
+                              super_size=k, device="cuda")
+            for k in (8, 128, 256)}
+
+
+def _shuffled(ch, seed):
+    """ch with each chunk's rows in a seeded order, so that its padding
+    rows sit between real ones (not a tail)."""
+    import dataclasses
+
+    k = ch.leaf_size
+    g = torch.Generator().manual_seed(seed)
+    perm = torch.argsort(torch.rand((ch.n_treelets, k), generator=g), dim=1)
+    rows = ch.rows.reshape(-1, k, 12)
+    idx = perm.to(rows.device)[:, :, None].expand(-1, -1, 12)
+    return dataclasses.replace(ch, rows=torch.gather(rows, 1, idx).reshape(
+        -1, 12).contiguous())
+
+
+@pytest.mark.parametrize("skip", [False, True])
+@pytest.mark.parametrize("case", ["k8", "k128", "k256", "k128-shuffled",
+                                  "dead-rows", "one-entry",
+                                  "one-entry-axis"])
+def test_rows_closest_edge_shapes(scene, leaf_chunks, case, skip):
+    """rows_closest_walk against its plain version, with and without skip,
+    at leaf sizes 8, 128 and 256 (at 8 some rows' lists are cut at 160
+    entries), on chunks whose padding is not a tail, on rows whose lanes
+    are all dead (t_max 0, -1 or NaN) beside rows with dead warps, and on
+    lists of one entry (each row's last).  Axis-parallel lanes make their
+    rows list every chunk, whose last alone may take no hit, so
+    "one-entry-axis", the one case with such lanes, holds the bits
+    alone."""
+    k = int(case.split("-")[0][1:]) if case.startswith("k") else 128
+    ch = leaf_chunks[k]
+    if case.endswith("shuffled"):
+        ch = _shuffled(ch, 5)
+        pid = ch.rows[:, 10].reshape(-1, k)
+        last = torch.where(pid >= 0.0, torch.arange(1, k + 1,
+                                                    device=pid.device), 0)
+        assert bool((last.amax(dim=1) > (pid >= 0.0).sum(dim=1)).any())
+    o, d, t_max = _camera_rays(scene, axis_parallel=case != "one-entry")
+    n = o.shape[0]
+    if case == "dead-rows":
+        lane = torch.arange(n, device=o.device)
+        row = lane // 128
+        t_max = torch.where(row % 3 == 0, torch.tensor(
+            [0.0, -1.0, float("nan")], device=o.device)[lane % 3], t_max)
+        t_max = torch.where((row % 3 == 1) & (lane % 128 < 64), 0.0, t_max)
+    lists, _ = trw.kept_lists(trw.row_words_interval(ch, o, d, t_max), 160,
+                              160)
+    if case.startswith("one-entry"):  # each row's last listed chunk alone
+        last = lists[torch.arange(lists.shape[0], device=o.device),
+                     (lists >= 0).sum(dim=1) - 1]
+        lists[:, 1:] = -1
+        lists[:, 0] = last
+    if case == "k8":
+        assert bool((lists[:, -1] >= 0).any())
+    sk = None
+    if skip:
+        rng = np.random.default_rng(3)
+        sk = torch.as_tensor(rng.choice([-2.0, -1.0, 0.0], n).astype(
+            np.float32), device=o.device)
+    trw.reset_launches()
+    got = trw.rows_closest_walk(ch, lists, o, d, t_max, sk)
+    ref = trw.rows_closest_walk_plain(ch, lists, o, d, t_max, skip=sk)
+    assert torch.equal(got.view(torch.int32), ref.view(torch.int32))
+    if case != "one-entry-axis":
+        assert int((got[1] >= 0).sum()) > 0
+    if case == "dead-rows":
+        dead = ~(t_max > 0.0)
+        assert bool((got[1][dead] == -1.0).all())
+    name = "rows_closest_skip" if skip else "rows_closest"
+    assert trw.LAUNCHES[name] == 1

@@ -16,8 +16,9 @@ headers, so the build takes seconds):
   trace_pairs.cu     the block-pair treelet walks (closest, any)
 
 ``path_fused.cuh`` holds the device maths they share, ``trace_stream.cuh``
-the slab and scaled watertight tests and the chunk walk of the stream,
-cull, row and walker kernels, ``trace_treelets.cuh`` the lanes, box test
+the slab and scaled watertight tests of the stream, cull, row and walker
+kernels and the framed chunk copies (and their closest walk) of the
+stream, row and dense kernels, ``trace_treelets.cuh`` the lanes, box test
 and row staging of the treelet and pair walks.  The library lands
 in ``build/yuki_tpu_torch/`` at the repository root, named by a hash of
 the sources and flags, so an edited source is rebuilt and an unchanged
@@ -247,6 +248,13 @@ def check(t, name: str, dtype, shape, device) -> None:
         raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
     if not t.is_contiguous():
         raise ValueError(f"{name} is not contiguous")
+
+
+def check_aligned(t, name: str) -> None:
+    """Raise unless ``t``'s data starts on a 16-byte boundary: a kernel
+    reads it in 16-byte loads."""
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name} is not 16-byte aligned")
 
 
 def dispatch(t) -> bool:

@@ -453,45 +453,17 @@ __device__ __forceinline__ void stage_camera_copy(const CamScene& sc, const Scen
 }
 
 // trace_scene for a camera ray of direction d: the triangle tests on the
-// copy of its shear frame, from the translated and permuted corners, with
-// watertight9's operations in its order; the divide and t, b0, b1 only for
-// a test whose sign, det and range tests pass (on a hit det != 0, so
-// det_safe = det), b0 and b1 only for a closer hit (trace_scene keeps
-// them only then).  Then the spheres from their staged ro and c, as
-// sphere_t.
+// copy of its shear frame, from the translated and permuted corners
+// (sweep_take: the divide only on a passing test, b0 and b1 only for a
+// closer hit, which is all trace_scene keeps).  Then the spheres from
+// their staged ro and c, as sphere_t.
 __device__ __forceinline__ Hit camera_sweep(const float4* tri, int n_tris, const float4* sp, int n_spheres, V3 d) {
   const Shear sh = make_shear(d);
   float t = YK_F32_MAX, b0 = 0.0f, b1 = 0.0f;
   int prim = -1;
   for (int i = 0; i < n_tris; ++i) {
     const float4 q0 = tri[3 * i], q1 = tri[3 * i + 1], q2 = tri[3 * i + 2];
-    const float p0tz = q0.z, p1tz = q1.y, p2tz = q2.x;
-    const float p0tx = q0.x + sh.sx * p0tz;
-    const float p0ty = q0.y + sh.sy * p0tz;
-    const float p1tx = q0.w + sh.sx * p1tz;
-    const float p1ty = q1.x + sh.sy * p1tz;
-    const float p2tx = q1.z + sh.sx * p2tz;
-    const float p2ty = q1.w + sh.sy * p2tz;
-    const float e0 = p1tx * p2ty - p1ty * p2tx;
-    const float e1 = p2tx * p0ty - p2ty * p0tx;
-    const float e2 = p0tx * p1ty - p0ty * p1tx;
-    const bool miss_sign = (e0 < 0.0f || e1 < 0.0f || e2 < 0.0f) && (e0 > 0.0f || e1 > 0.0f || e2 > 0.0f);
-    const float det = e0 + e1 + e2;
-    const float t_scaled = (e0 * p0tz + e1 * p1tz + e2 * p2tz) * sh.inv_dz;
-    const bool negd = det < 0.0f;
-    const float bound = t * det;
-    const bool miss_range = (negd && (t_scaled >= 0.0f || t_scaled < bound)) ||
-                            (!negd && (t_scaled <= 0.0f || t_scaled > bound));
-    if (!(miss_sign || det == 0.0f || miss_range)) {
-      const float inv_det = 1.0f / det;
-      const float ti = t_scaled * inv_det;
-      if (ti < t) {
-        t = ti;
-        prim = i;
-        b0 = e0 * inv_det;
-        b1 = e1 * inv_det;
-      }
-    }
+    if (sweep_take(sh, q0.x, q0.y, q0.z, q0.w, q1.x, q1.y, q1.z, q1.w, q2.x, true, t, b0, b1)) prim = i;
   }
   int sph = -1;
   bool any = prim >= 0;

@@ -134,6 +134,26 @@ __device__ __forceinline__ Shear make_shear(V3 d) {
   return s;
 }
 
+// The staged copy a ray's shear frame reads: 0 (z largest), 1 (x), 2 (y).
+__device__ __forceinline__ int frame_of(const Shear& sh) { return sh.x_max ? 1 : (sh.y_max ? 2 : 0); }
+
+// The shear frames (bit f: frame f) of the `frame`s of a block of THREADS
+// threads, to every thread (frame -1: none); w: THREADS / 32 ints of
+// shared memory.  A warp OR and a plain barrier: with one __syncthreads_or
+// a frame, ptxas repeated a barrier of the three inside a later staging
+// loop whose trip count differs between threads, an illegal instruction
+// on the card.
+template <int THREADS>
+__device__ __forceinline__ int block_frames(int frame, int* w) {
+  const int bits = __reduce_or_sync(0xffffffffu, frame >= 0 ? 1 << frame : 0);
+  if ((threadIdx.x & 31) == 0) w[threadIdx.x >> 5] = bits;
+  __syncthreads();
+  int frames = 0;
+#pragma unroll
+  for (int k = 0; k < THREADS / 32; ++k) frames |= w[k];
+  return frames;
+}
+
 // One triangle (corners p0, p1, p2) against one ray.  Returns hit; t
 // (F32_MAX on a miss), b0, b1 through the references.
 __device__ __forceinline__ bool watertight9(const Shear& s, V3 o, float t_cur, float c0, float c1, float c2,
@@ -181,6 +201,42 @@ __device__ __forceinline__ bool watertight_row(const Shear& s, V3 o, float t_cur
                                               float& b0, float& b1) {
   const float4 c0 = c[0], c1 = c[1], c2 = c[2];
   return watertight9(s, o, t_cur, c0.x, c0.y, c0.z, c0.w, c1.x, c1.y, c1.z, c1.w, c2.x, t, b0, b1);
+}
+
+// One step of a closest sweep (the raygen kernel's camera sweep, the dense
+// closest sweep) on a triangle whose corners are already translated to the
+// ray's origin and permuted into its shear frame, the values watertight9
+// selects: watertight9's operations in its order against the running t,
+// the divide only for a test that passes its sign, det and range tests
+// (then det != 0, so det_safe = det), and b0, b1 only when ti < t and
+// `eligible` take the hit.  Returns whether it took it.
+__device__ __forceinline__ bool sweep_take(const Shear& s, float p0tx, float p0ty, float p0tz, float p1tx,
+                                           float p1ty, float p1tz, float p2tx, float p2ty, float p2tz,
+                                           bool eligible, float& t, float& b0, float& b1) {
+  p0tx = p0tx + s.sx * p0tz;
+  p0ty = p0ty + s.sy * p0tz;
+  p1tx = p1tx + s.sx * p1tz;
+  p1ty = p1ty + s.sy * p1tz;
+  p2tx = p2tx + s.sx * p2tz;
+  p2ty = p2ty + s.sy * p2tz;
+  const float e0 = p1tx * p2ty - p1ty * p2tx;
+  const float e1 = p2tx * p0ty - p2ty * p0tx;
+  const float e2 = p0tx * p1ty - p0ty * p1tx;
+  const bool miss_sign = (e0 < 0.0f || e1 < 0.0f || e2 < 0.0f) && (e0 > 0.0f || e1 > 0.0f || e2 > 0.0f);
+  const float det = e0 + e1 + e2;
+  const float t_scaled = (e0 * p0tz + e1 * p1tz + e2 * p2tz) * s.inv_dz;
+  const bool negd = det < 0.0f;
+  const float bound = t * det;
+  const bool miss_range = (negd && (t_scaled >= 0.0f || t_scaled < bound)) ||
+                          (!negd && (t_scaled <= 0.0f || t_scaled > bound));
+  if (miss_sign || det == 0.0f || miss_range) return false;
+  const float inv_det = 1.0f / det;
+  const float ti = t_scaled * inv_det;
+  if (!(ti < t && eligible)) return false;
+  t = ti;
+  b0 = e0 * inv_det;
+  b1 = e1 * inv_det;
+  return true;
 }
 
 // ---- object-space sphere test (stable-q quadratic, sphere.rs:37-89) -----

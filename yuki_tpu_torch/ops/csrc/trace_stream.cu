@@ -33,6 +33,10 @@
 // tests a live ray plus 32 per crossed word, 24 operations each); the
 // words it writes (8W bytes a ray) are the only traffic that scales.
 //
+// The framed-copy helpers of both slot walks (stage_framed, framed_copy,
+// framed_origin, watertight_framed, closest_framed) are in
+// trace_stream.cuh, shared with the row-union closest walk.
+//
 // slot_closest (redesigned for the card): one 128-thread block per slot
 // row and one thread per slot, as the TPU kernel has one (1, 128) lane
 // group per row.  The first port staged the row's whole chunk (k rows of
@@ -127,92 +131,6 @@ __global__ void __launch_bounds__(CROSS_THREADS)
   }
 }
 
-// A staged copy of a chunk: k rows of three float4s, then one float4 of
-// padding, so copy p + 1 starts 12k + 4 floats after copy p.
-__host__ __device__ constexpr int copy_stride4(int k) { return 3 * k + 1; }
-
-// The three float4s of a triangle row (p0 xyz p1x | p1yz p2xy | p2z light
-// pid pad) with each vertex's coordinates reordered by PERM: 0 = (x, y,
-// z), 1 = (y, z, x), 2 = (z, x, y), the order permx, permy, permz pick for
-// a ray whose largest direction component is z, x or y.
-template <int PERM>
-__device__ __forceinline__ void permuted_row(const float4& a, const float4& b, const float4& c, float4* dst) {
-  if (PERM == 0) {
-    dst[0] = a;
-    dst[1] = b;
-    dst[2] = c;
-  } else if (PERM == 1) {
-    dst[0] = make_float4(a.y, a.z, a.x, b.x);
-    dst[1] = make_float4(b.y, a.w, b.w, c.x);
-    dst[2] = make_float4(b.z, c.y, c.z, c.w);
-  } else {
-    dst[0] = make_float4(a.z, a.x, a.y, b.y);
-    dst[1] = make_float4(a.w, b.x, c.x, b.z);
-    dst[2] = make_float4(b.w, c.y, c.z, c.w);
-  }
-}
-
-// watertight_scaled on a row already in the ray's shear frame (corners
-// p0' = a.xyz, p1' = (a.w, b.x, b.y), p2' = (b.z, b.w, c.x)) from the
-// origin in the same frame: the same operations in the same order.
-__device__ __forceinline__ bool watertight_framed(const Shear& s, V3 o, const float4& a, const float4& b,
-                                                  const float4& c, float& ts, float& det) {
-  float p0tx = a.x - o.x, p0ty = a.y - o.y, p0tz = a.z - o.z;
-  float p1tx = a.w - o.x, p1ty = b.x - o.y, p1tz = b.y - o.z;
-  float p2tx = b.z - o.x, p2ty = b.w - o.y, p2tz = c.x - o.z;
-  p0tx = p0tx + s.sx * p0tz;
-  p0ty = p0ty + s.sy * p0tz;
-  p1tx = p1tx + s.sx * p1tz;
-  p1ty = p1ty + s.sy * p1tz;
-  p2tx = p2tx + s.sx * p2tz;
-  p2ty = p2ty + s.sy * p2tz;
-
-  float e0 = p1tx * p2ty - p1ty * p2tx;
-  float e1 = p2tx * p0ty - p2ty * p0tx;
-  float e2 = p0tx * p1ty - p0ty * p1tx;
-
-  bool miss_sign = (e0 < 0.0f || e1 < 0.0f || e2 < 0.0f) && (e0 > 0.0f || e1 > 0.0f || e2 > 0.0f);
-  det = e0 + e1 + e2;
-  ts = (e0 * p0tz + e1 * p1tz + e2 * p2tz) * s.inv_dz;
-  if (det < 0.0f) {
-    ts = -ts;
-    det = -det;
-  }
-  return !miss_sign && det != 0.0f && ts > 0.0f;
-}
-
-// Stage a slot row's chunk, by all threads of the block: thread r loads
-// triangle row r with three 16-byte loads and writes it into the three
-// copies (copy_stride4(k) float4s apart), permuted for the three shear
-// frames.  Returns, to every thread, one past the chunk's last row with
-// prim id >= 0 (0 when it has none).  The caller's block has ROW threads.
-__device__ __forceinline__ int stage_framed(float4* tri4, int* last_w, const float* __restrict__ rows,
-                                            const int* __restrict__ row_chunk, int k) {
-  const float4* src = reinterpret_cast<const float4*>(rows) + (size_t)__ldg(row_chunk + blockIdx.x) * k * 3;
-  const int stride = copy_stride4(k);
-  int last = 0;
-  for (int r = threadIdx.x; r < k; r += ROW) {
-    const float4 a = __ldg(src + 3 * r), b = __ldg(src + 3 * r + 1), c = __ldg(src + 3 * r + 2);
-    if (c.z >= 0.0f) last = r + 1;
-    permuted_row<0>(a, b, c, tri4 + 3 * r);
-    permuted_row<1>(a, b, c, tri4 + stride + 3 * r);
-    permuted_row<2>(a, b, c, tri4 + 2 * stride + 3 * r);
-  }
-  last = __reduce_max_sync(FULL, last);
-  if ((threadIdx.x & 31) == 0) last_w[threadIdx.x >> 5] = last;
-  __syncthreads();
-  return max(max(last_w[0], last_w[1]), max(last_w[2], last_w[3]));
-}
-
-// The staged copy in a ray's shear frame, and the ray's origin (r0.xyz of
-// its stream row) in that frame.
-__device__ __forceinline__ const float4* framed_copy(const float4* tri4, int k, const Shear& sh) {
-  return tri4 + (sh.x_max ? copy_stride4(k) : (sh.y_max ? 2 * copy_stride4(k) : 0));
-}
-__device__ __forceinline__ V3 framed_origin(const Shear& sh, const float4& r0) {
-  return v3(permx(sh, r0.x, r0.y, r0.z), permy(sh, r0.x, r0.y, r0.z), permz(sh, r0.x, r0.y, r0.z));
-}
-
 template <bool WITH_SKIP>
 __global__ void __launch_bounds__(ROW)
     slot_closest_kernel(const float* __restrict__ rows, int k, const int* __restrict__ row_chunk,
@@ -229,53 +147,13 @@ __global__ void __launch_bounds__(ROW)
     out[2 * n_slots + i] = 1.0f;
     return;
   }
-  const int last = stage_framed(tri4, last_w, rows, row_chunk, k);
+  const int last = stage_framed<ROW>(tri4, last_w, rows, __ldg(row_chunk + blockIdx.x), k, 7);
 
   float ts = jmax(tm, 0.0f), det = 1.0f, prim = -1.0f;
   if (__any_sync(FULL, tm > 0.0f)) {
-    const int n_walk = (last + 7) & ~7;
     const Shear sh = make_shear(v3(r0.w, r1.x, r1.y));
-    const V3 o = framed_origin(sh, r0);
-    const float4* tri = framed_copy(tri4, k, sh);
-    const float sk = WITH_SKIP ? r1.w : 0.0f;
-    float ts_b[8], det_b[8], prim_b[8];
-#pragma unroll
-    for (int s = 0; s < 8; ++s) {
-      ts_b[s] = ts;
-      det_b[s] = det;
-      prim_b[s] = prim;
-    }
-    for (int g = 0; g < n_walk; g += 8) {
-#pragma unroll
-      for (int s = 0; s < 8; ++s) {
-        const float4* t = tri + 3 * (g + s);
-        const float4 a = t[0], b = t[1], c = t[2];
-        float ts_c, det_c;
-        const bool ok = watertight_framed(sh, o, a, b, c, ts_c, det_c);
-        if (ok && c.z >= 0.0f && ts_c * det_b[s] < ts_b[s] * det_c && (!WITH_SKIP || c.y != sk)) {
-          ts_b[s] = ts_c;
-          det_b[s] = det_c;
-          prim_b[s] = c.z;
-        }
-      }
-    }
-    // _scaled_min8: carry a against carry a + h, h = 4, 2, 1.
-#pragma unroll
-    for (int h = 4; h >= 1; h /= 2) {
-#pragma unroll
-      for (int a = 0; a < h; ++a) {
-        const float lhs = ts_b[a + h] * det_b[a];
-        const float rhs = ts_b[a] * det_b[a + h];
-        if (lhs < rhs || (lhs == rhs && prim_b[a + h] < prim_b[a])) {
-          ts_b[a] = ts_b[a + h];
-          det_b[a] = det_b[a + h];
-          prim_b[a] = prim_b[a + h];
-        }
-      }
-    }
-    ts = ts_b[0];
-    det = det_b[0];
-    prim = prim_b[0];
+    closest_framed<WITH_SKIP>(sh, framed_origin(sh, r0.x, r0.y, r0.z), framed_copy(tri4, k, sh),
+                              (last + 7) & ~7, ts, det, prim, WITH_SKIP ? r1.w : 0.0f);
   }
   out[i] = ts;
   out[n_slots + i] = prim;
@@ -295,11 +173,11 @@ __global__ void __launch_bounds__(ROW)
     occ_out[i] = 0;
     return;
   }
-  const int last = stage_framed(tri4, last_w, rows, row_chunk, k);
+  const int last = stage_framed<ROW>(tri4, last_w, rows, __ldg(row_chunk + blockIdx.x), k, 7);
   int occ = 0;
   if (tm > 0.0f) {  // a warp whose slots are all dead passes by together
     const Shear sh = make_shear(v3(r0.w, r1.x, r1.y));
-    const V3 o = framed_origin(sh, r0);
+    const V3 o = framed_origin(sh, r0.x, r0.y, r0.z);
     const float4* tri = framed_copy(tri4, k, sh);
     const float sk = r1.w;
 #pragma unroll 4

@@ -685,8 +685,7 @@ def raygen_trace(px: torch.Tensor, py: torch.Tensor, sample_index: int,
     _build.check(px, "px", torch.int32, (n,), dev)
     _build.check(py, "py", torch.int32, (n,), dev)
     _check_tables(tb, dev)
-    if tb.tri.data_ptr() % 16:
-        raise ValueError("tri is not 16-byte aligned")
+    _build.check_aligned(tb.tri, "tri")
     spl_p = _check_spl(spl, 2, n, dev)
     st = torch.empty((_N_ST, n), dtype=torch.float32, device=dev)
     ph = torch.empty((n,), dtype=torch.int32, device=dev)

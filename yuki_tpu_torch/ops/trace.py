@@ -160,39 +160,53 @@ def _ray_planes(o, d):
     return (o[:, 0], o[:, 1], o[:, 2], d[:, 0], d[:, 1], d[:, 2])
 
 
-def _sweep_plain(tris_packed, o, d, t_max, tri_light, skip_light):
+def _sweep_plain(tris_packed, o, d, t_max, tri_light, skip_light, stats):
     ox, oy, oz, dx, dy, dz = _ray_planes(o, d)
     pre = ray_shear(dx, dy, dz)
     t = t_max.clone()
     prim = torch.full_like(t_max, -1, dtype=torch.int32)
     b0, b1 = torch.zeros_like(t_max), torch.zeros_like(t_max)
+    live = t_max > 0.0
+    passes = takes = 0
     for i, row in enumerate(tris_packed[:, :9].unbind(0)):
         hit, ti, bi0, bi1 = watertight(ox, oy, oz, dx, dy, dz, t,
                                        row.unbind(0), pre)
         closer = hit & (ti < t)
         if skip_light is not None:
             closer = closer & (tri_light[i] != skip_light)
+        if stats is not None:
+            passes = passes + (hit & live).sum()
+            takes = takes + closer.sum()
         t = torch.where(closer, ti, t)
         prim = torch.where(closer, i, prim)
         b0 = torch.where(closer, bi0, b0)
         b1 = torch.where(closer, bi1, b1)
+    if stats is not None:
+        for key, value in (("tests", live.sum() * tris_packed.shape[0]),
+                           ("passes", passes), ("takes", takes)):
+            stats[key] = stats.get(key, 0) + int(value)
     return t, prim, b0, b1
 
 
-def dense_trace_plain(tris_packed, o, d, t_max):
+def dense_trace_plain(tris_packed, o, d, t_max, stats=None):
     """Plain version of the closest sweep (``_dense_kernel``): triangles in
     ascending order, each taken when it hits within the running t and
     ti < t, so the lowest index wins an exact tie.  Returns (t, prim i32,
-    b0, b1), t = t_max and prim -1 on a miss."""
-    return _sweep_plain(tris_packed, o, d, t_max, None, None)
+    b0, b1), t = t_max and prim -1 on a miss.  ``stats`` receives "tests"
+    (lanes with t_max > 0 against every triangle), "passes" (those tests
+    that pass the sign, det and range tests) and "takes" (the hits
+    taken)."""
+    return _sweep_plain(tris_packed, o, d, t_max, None, None, stats)
 
 
-def dense_trace_skip_plain(tris_packed, tri_light, o, d, t_max, skip_light):
+def dense_trace_skip_plain(tris_packed, tri_light, o, d, t_max, skip_light,
+                           stats=None):
     """Plain version of the skip sweep (``_dense_skip_kernel``): as
     dense_trace_plain, but a triangle whose area-light id (``tri_light``
     [T] i32) equals the lane's ``skip_light`` [N] i32 is never taken; -2
     skips nothing."""
-    return _sweep_plain(tris_packed, o, d, t_max, tri_light, skip_light)
+    return _sweep_plain(tris_packed, o, d, t_max, tri_light, skip_light,
+                        stats)
 
 
 def any_trace_plain(tris_packed, tri_light, o, d, t_max, skip_light,
@@ -226,6 +240,7 @@ def _check_dense(tris_packed, o, d, t_max, dev):
     _build.check(o, "o", f32, (n, 3), dev)
     _build.check(d, "d", f32, (n, 3), dev)
     _build.check(t_max, "t_max", f32, (n,), dev)
+    _build.check_aligned(tris_packed, "tris_packed")
     return n
 
 

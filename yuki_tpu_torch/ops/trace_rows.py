@@ -299,6 +299,7 @@ def _check_rows(ch, lists, o, d, t_max, dev):
     _build.check(o, "o", f32, (n, 3), dev)
     _build.check(d, "d", f32, (n, 3), dev)
     _build.check(t_max, "t_max", f32, (n,), dev)
+    _build.check_aligned(ch.rows, "rows")
     return n
 
 

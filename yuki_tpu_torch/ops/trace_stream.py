@@ -428,9 +428,8 @@ def _check_slots(rows, leaf_size, row_chunk, stream, dev):
     _build.check(stream, "stream", torch.float32, (n_rows * LANES, 8), dev)
     if leaf_size % 8 or not 8 <= leaf_size <= 256:
         raise ValueError(f"leaf_size {leaf_size}: a multiple of 8 in [8, 256]")
-    for t, name in ((rows, "rows"), (stream, "stream")):
-        if t.data_ptr() % 16:
-            raise ValueError(f"{name} is not 16-byte aligned")
+    _build.check_aligned(rows, "rows")
+    _build.check_aligned(stream, "stream")
     return n_rows
 
 
