@@ -1,23 +1,25 @@
 #!/usr/bin/env python3
 """A/B of the redesigned kernels (the two-level cull, the dense bounce,
-the crossing words, the slot walks, raygen, the row-union closest walk
-and the dense closest sweep) between two checkouts of this repository, on
-one NVIDIA GPU.
+the crossing words, the slot walks, raygen, the row-union closest walk,
+the dense closest and occlusion sweeps and the shade kernel) between two
+checkouts of this repository, on one NVIDIA GPU.
 
     python3 chip_ab.py run ROOT TAG OUT.json [PARTS]   # measure ROOT's port
     python3 chip_ab.py probe ROOT TAG OUT.json [PARTS] # the same, walks cut
     python3 chip_ab.py compare A.json B.json           # A against B
 
-PARTS is a comma-separated subset of bounce,cull,stream,frames,rows,dense
-(default: all), or raygen (bounce's raygen measurements alone).
+PARTS is a comma-separated subset of
+bounce,cull,stream,frames,rows,dense,shade (default: all), or raygen
+(bounce's raygen measurements alone).
 
 ``probe`` copies ROOT's ``yuki_tpu_torch`` to ``build/probe-TAG/``, cuts
 the walks of the occlusion slot walk, the row-union closest walk, the
-dense closest sweep and the raygen kernel's sweep to zero triangles (and
-raygen's to zero spheres) by a text edit of the copy's sources
-(``PROBE_EDITS``), and runs ``run`` on the copy: its times are those of
-the kernels' stage, rechecks, barriers, loads and stores alone.  Its
-digests differ from ROOT's by design.
+dense closest and occlusion sweeps and the raygen kernel's sweep to zero
+triangles (and raygen's to zero spheres) and the shade kernel's shading
+body to its loads, row gathers and one draw, by a text edit of the copy's
+sources (``PROBE_EDITS``), and runs ``run`` on the copy: its times are
+those of the kernels' stage, sort, rechecks, barriers, loads and stores
+alone.  Its digests differ from ROOT's by design.
 
 ``run`` imports the ``yuki_tpu_torch`` package of the checkout at ROOT
 (its kernels are built there, at first use) and records, on the card:
@@ -59,9 +61,19 @@ digests differ from ROOT's by design.
   closest sweep on Cornell's 1080p camera wave (1,048,576 rays), on the
   path_li frame's bounce-1 rays, on a 4096-triangle soup (65,536 rays,
   ``chip_smoke.py``'s) and, with and without skip, on phase 12a's
-  combined wave (2,097,152 lanes); each timed a call and as the kernel's
-  device time, with the statistics of its work from a plain torch walk
-  that must give the kernel's output (``_rows_stats``, ``_dense_stats``);
+  combined wave (2,097,152 lanes); the dense occlusion sweep on the
+  shadow rays of bounces 0 and 1 of the first wave of Cornell's 1080p
+  path_li frame (as path_li hands them over) and on the soup; each timed
+  a call and as the kernel's device time, with the statistics of its work
+  from a plain torch walk that must give the kernel's output
+  (``_rows_stats``, ``_dense_stats``, ``_any_dense_stats``);
+- ``shade``: the shade kernel at every bounce of the first wave of
+  Cornell's 1080p d5 1 spp path_li frame and of the colonnade's 1080p d5
+  frame under UniformSampler(1) and StratifiedSampler(2, 2) (its planes),
+  on the lanes path_li hands it (chip_smoke.py's ``_capture``): a call's time, the
+  kernel's device time, the same lanes permuted by class (dead, then the
+  material type and surface) with the outputs permuted back bit for bit,
+  the share of dead lanes and the warps by distinct classes;
 - the 1080p d5 16 spp Cornell frame, the 1080p d5 1 spp Cornell frame
   through path_li (the dense sweeps' main path) and the 1080p d5 1 spp
   colonnade frame on the slot stream and with both walker flags (the
@@ -94,11 +106,13 @@ SLICE_RAYS = 65536  # the crossing words' slice of the bounce-1 wave
 KERNEL_NAMES = ("cull_kernel", "bounce_kernel", "wave_kernel",
                 "raygen_trace_kernel", "cross_words_kernel",
                 "slot_closest_kernel", "slot_any_kernel",
-                "rows_closest_kernel", "dense_closest_kernel")
-DENSE_KERNELS = ("dense_closest_kernel", "dense_any_kernel")
+                "rows_closest_kernel", "dense_closest_kernel",
+                "dense_any_kernel", "shade_kernel")
+DENSE_KERNELS = ("dense_closest_kernel", "dense_any_kernel", "shade_kernel")
 COL_KERNELS = ("cull_kernel", "cross_words_kernel", "slot_closest_kernel",
                "slot_any_kernel", "rows_closest_kernel",
-               "walker_closest_kernel", "walker_any_kernel")
+               "walker_closest_kernel", "walker_any_kernel", "shade_kernel")
+N_CLASSES = 9  # the shade kernel's lane classes: dead, then 2 mtype + sphere
 # The probe's edits: for each kernel, alternatives (source, old, new), of
 # which exactly one must occur once in the checkout's source (the code
 # before the kernel's redesign, or after it); each cuts the kernel's walk
@@ -133,6 +147,25 @@ PROBE_EDITS = {
         ("trace_dense.cu",
          "for (int r = 0; r < m; ++r) {\n      // Row r of the frame's copy",
          "for (int r = 0; r < 0; ++r) {\n      // Row r of the frame's copy"),
+    ),
+    "dense_any_kernel": (
+        ("trace_dense.cu",
+         "for (int r = 0; r < m; ++r) {\n      float ti, bi0, bi1;\n"
+         "      if (hit9(sh, ro, tm,",
+         "for (int r = 0; r < 0; ++r) {\n      float ti, bi0, bi1;\n"
+         "      if (hit9(sh, ro, tm,"),
+        ("trace_dense.cu",
+         "for (int r = 0; r < m; ++r) {\n      // Row r in the lane's frame",
+         "for (int r = 0; r < 0; ++r) {\n      // Row r in the lane's frame"),
+    ),
+    # The shading body: the lane keeps its plane loads, its row gathers
+    # and one draw, and writes the fixed planes (not the lights').
+    "shade_kernel": (
+        ("shade_fused.cu",
+         "ShadeOut so = shade_lane(tb, in, r, mt, urand, bounce, sink);",
+         "ShadeOut so = {in.o, add(in.d, v3(in.t_hit + in.b0 + in.b1, "
+         "r.trp[0] + r.mrow[0] + mt.s0, urand(0))), in.beta, in.alive, "
+         "in.spec > 0.0f};"),
     ),
 }
 PROBING = False  # set by ``probe``: the walks are cut, skip their checks
@@ -211,7 +244,8 @@ def device_times(torch, prof, names):
     return busy, {k: tuple(v) for k, v in parts.items()}
 
 
-def run(root, tag, out_path, parts="bounce,cull,stream,frames,rows,dense"):
+def run(root, tag, out_path,
+        parts="bounce,cull,stream,frames,rows,dense,shade"):
     parts = set(parts.split(","))
     sys.path.insert(0, os.path.abspath(root))
     import numpy as np  # noqa: F401
@@ -324,14 +358,58 @@ def run(root, tag, out_path, parts="bounce,cull,stream,frames,rows,dense"):
         print(f"[{tag}] wave {sam_name}: {res['ms'][f'wave {sam_name}']:.4f}"
               " ms")
 
-    # ---- the dense closest sweep on Cornell's waves and a soup ----------
+    # ---- the dense sweeps on Cornell's waves and a soup -----------------
+    fs = FilmSettings(res=(1920, 1080), tile_dim=16)
+    cscene, ccam, _ = cornell(device=dev)
+
+    def cornell_path_li(sampler=None):
+        tpf.PATH_FUSED_MODE = "off"
+        try:
+            return render_frame(cscene, ccam, fs, sampler or UniformSampler(1),
+                                PathParams(DEPTH), wave_tiles=CORNELL_TILES,
+                                seed=1)
+        finally:
+            tpf.PATH_FUSED_MODE = "auto"
+
+    if parts & {"dense", "shade"}:
+        # The first wave's shade and dense occlusion calls, as path_li
+        # makes them.
+        cornell_calls = sm._capture(torch, cornell_path_li, {
+            (tsf, "shade_planes"): DEPTH, (traverse, "any_trace"): 2})
     if "dense" in parts:
-        _dense(torch, sm, res, tag, ms)
+        _dense(torch, sm, res, tag, ms, cornell_calls["any_trace"])
 
     # ---- the cull on the colonnade's bounce-1 and shadow rays -------------
-    if not parts & {"cull", "stream", "frames", "rows"}:
+    if not parts & {"cull", "stream", "frames", "rows", "shade"}:
         return _write(res, out_path)
     scene, cam, _ = colonnade(device=dev)
+
+    def colonnade_frame(walker, sampler=None):
+        def frame():
+            sm._walker_flags(walker)
+            try:
+                return render_frame(scene, cam, fs,
+                                    sampler or UniformSampler(1),
+                                    PathParams(DEPTH), wave_tiles=COL_TILES,
+                                    seed=1)
+            finally:
+                sm._walker_flags(False)
+        return frame
+
+    # ---- the shade kernel at every bounce of the first wave -------------
+    if "shade" in parts:
+        cases = [("Cornell path_li uniform",
+                  cornell_calls["shade_planes"])]
+        for sam_name, sam in (("uniform", None),
+                              ("strat", StratifiedSampler(2, 2))):
+            calls = sm._capture(torch, colonnade_frame(False, sam),
+                             {(tsf, "shade_planes"): DEPTH})
+            cases.append((f"colonnade {sam_name}", calls["shade_planes"]))
+        rc = _shade(torch, tsf, res, tag, ms, cases)
+        if rc:
+            return rc
+    if not parts & {"cull", "stream", "frames", "rows"}:
+        return _write(res, out_path)
     ctx, o, d = sm._camera_wave(torch, dev, cam, COL_TILES)
     t_max = torch.full((o.shape[0],), F32_MAX, device=dev)
     n_lights = len(scene.meta.light_types)
@@ -393,29 +471,6 @@ def run(root, tag, out_path, parts="bounce,cull,stream,frames,rows,dense"):
         _rows(torch, sm, res, tag, scene, (o, d, t_max, *out0[5:9]), ms)
 
     # ---- frames ---------------------------------------------------------
-    fs = FilmSettings(res=(1920, 1080), tile_dim=16)
-    cscene, ccam, _ = cornell(device=dev)
-
-    def cornell_path_li():
-        tpf.PATH_FUSED_MODE = "off"
-        try:
-            return render_frame(cscene, ccam, fs, UniformSampler(1),
-                                PathParams(DEPTH), wave_tiles=CORNELL_TILES,
-                                seed=1)
-        finally:
-            tpf.PATH_FUSED_MODE = "auto"
-
-    def colonnade_frame(walker):
-        def frame():
-            sm._walker_flags(walker)
-            try:
-                return render_frame(scene, cam, fs, UniformSampler(1),
-                                    PathParams(DEPTH), wave_tiles=COL_TILES,
-                                    seed=1)
-            finally:
-                sm._walker_flags(False)
-        return frame
-
     frames = {
         "cornell 1080p d5 16 spp": (lambda: render_frame(
             cscene, ccam, fs, UniformSampler(SPP), PathParams(DEPTH),
@@ -580,8 +635,132 @@ def _hits_digest(torch, out):
     return digest(torch.cat([x.reshape(-1).view(torch.int32) for x in out]))
 
 
-def _dense(torch, sm, res, tag, ms):
-    """The dense closest sweep (see the module's docstring)."""
+def _shade_class(torch, tsf, tb, rh, prim):
+    """Each lane's class for the shade kernel: 0 dead (not alive and
+    hit), else 1 + 2 mtype + 1 on a sphere's surface, from the wave's
+    tables as select_rows reads them."""
+    alive = rh[tsf._RH["alive"]] > 0.0
+    sph = rh[tsf._RH["sph"]]
+    mid = tb.trs[prim.clamp(min=0).long(), 26]
+    on_sphere = torch.zeros_like(alive)
+    if tb.n_spheres:
+        si = sph.clamp(0, tb.n_spheres - 1).long()
+        on_sphere = (sph >= 0.0) & (sph < tb.n_spheres) & (si.float() == sph)
+        mid = torch.where(on_sphere, tb.sp[si, 34], mid)
+    mtype = tb.mat[mid.clamp(min=0.0).long(), 0].long().clamp(0, 3)
+    return torch.where(alive, 1 + 2 * mtype + on_sphere.long(), 0)
+
+
+def _warp_classes(torch, cls, size=32):
+    """How many groups of ``size`` consecutive lanes hold 1, 2, ...
+    N_CLASSES distinct classes."""
+    pad = (-cls.numel()) % size
+    c = torch.cat([cls, cls[-1:].expand(pad)]).reshape(-1, size)
+    seen = torch.stack([(c == k).any(dim=1) for k in range(N_CLASSES)]).sum(0)
+    return torch.bincount(seen, minlength=N_CLASSES + 1)[1:].tolist()
+
+
+def _shade(torch, tsf, res, tag, ms, cases):
+    """The shade kernel on the lanes path_li handed it at each bounce of
+    a first wave: its output's digest, a call's time and the kernel's
+    device time; the same lanes permuted by class (the outputs permuted
+    back must keep their bits) and their device time; the share of dead
+    lanes, the lanes by class and the warps by distinct classes."""
+    for what, calls in cases:
+        for args in calls:
+            tb, rh, prim, ph, texp, dim0, bounce = args[:7]
+            spl = args[7] if len(args) > 7 else None
+
+            def fn():
+                return tsf.shade_planes(tb, rh, prim, ph, texp, dim0, bounce,
+                                        spl)
+            out = fn()
+            key = f"shade {what} bounce {bounce}"
+            res["hashes"][key] = digest(out)
+            t_k = ms(fn)
+            t_dev = kernel_device_ms(torch, fn, "shade_kernel")
+            cls = _shade_class(torch, tsf, tb, rh, prim)
+            perm = torch.argsort(cls, stable=True)
+            inv = torch.argsort(perm)
+
+            def cols(x):
+                return None if x is None else x[..., perm].contiguous()
+            p_args = (cols(rh), cols(prim), cols(ph), cols(texp))
+
+            def fn_sorted():
+                return tsf.shade_planes(tb, *p_args, dim0, bounce, cols(spl))
+            out_p = fn_sorted()
+            torch.cuda.synchronize()
+            if not PROBING and not torch.equal(
+                    out_p[:, inv].view(torch.int32), out.view(torch.int32)):
+                print(f"chip_ab: FAIL: {key}: permuted lanes give other "
+                      "bits", file=sys.stderr)
+                return 1
+            t_sorted = kernel_device_ms(torch, fn_sorted, "shade_kernel")
+            n = int(cls.numel())
+            counts = torch.bincount(cls, minlength=N_CLASSES).tolist()
+            warps = _warp_classes(torch, cls)
+            mean_distinct = sum((k + 1) * w for k, w in enumerate(warps)) / max(
+                1, sum(warps))
+            res["ms"][key] = t_k
+            res["ms"][f"{key}: kernel device time"] = t_dev
+            res["ms"][f"{key}, lanes by class: kernel device time"] = t_sorted
+            res["notes"][key] = dict(
+                lanes=n, dead_share=counts[0] / max(1, n), classes=counts,
+                warps_by_distinct_classes=warps,
+                mean_distinct_classes=mean_distinct,
+                strat=spl is not None)
+            print(f"[{tag}] {key} [{n} lanes, dead {counts[0] / max(1, n):.4f}"
+                  f", classes {counts}, warps by distinct classes {warps} "
+                  f"(mean {mean_distinct:.3f})]: {t_k:.4f} ms a call, kernel "
+                  f"device time {t_dev:.4f} ms; lanes by class "
+                  f"{t_sorted:.4f} ms ({t_sorted / max(t_dev, 1e-9):.3f}x)")
+    return 0
+
+
+def _any_dense_stats(torch, ttr, tris, light, o, d, t, skip, occ,
+                     threads=256):
+    """The dense occlusion sweep's work on a wave: of the lanes with
+    t_max > 0, the share occluded, the mean triangles each tests up to
+    and including its first occluder (all when none), the same without
+    the triangles of the lane's skip light, and over the occluded lanes
+    alone; shear frames per block of ``threads`` rays; from a plain sweep
+    with watertight's operations, which must give the kernel's
+    occlusion."""
+    ox, oy, oz, dx, dy, dz = (o[:, 0], o[:, 1], o[:, 2], d[:, 0], d[:, 1],
+                              d[:, 2])
+    pre = ttr.ray_shear(dx, dy, dz)
+    n_tris = tris.shape[0]
+    found = torch.zeros_like(t, dtype=torch.bool)
+    first = torch.full_like(t, n_tris, dtype=torch.int64)
+    skipped = torch.zeros_like(t, dtype=torch.int64)
+    for i, row in enumerate(tris[:, :9].unbind(0)):
+        mine = light[i] == skip
+        skipped = skipped + (mine & ~found).long()
+        hit = ttr.watertight(ox, oy, oz, dx, dy, dz, t, row.unbind(0), pre)[0]
+        blocked = hit & ~mine & ~found
+        first = torch.where(blocked, i + 1, first)
+        found = found | blocked
+    if not PROBING and not torch.equal(found, occ):
+        raise RuntimeError("dense_any: the plain sweep differs")
+    live = t > 0.0
+    n_live = max(1, int(live.sum()))
+    lo = live & found
+
+    def mean(x, m):
+        return float(x[m].float().mean()) if int(m.sum()) else 0.0
+    return dict(rays=int(t.numel()), triangles=n_tris, live=int(live.sum()),
+                occluded_share=int(lo.sum()) / n_live,
+                tests_to_first=mean(first, live),
+                tests_to_first_without_skip=mean(first - skipped, live),
+                tests_to_first_occluded=mean(first, lo),
+                frames_per_block=distinct_frames(
+                    torch, shear_frames(torch, d), threads))
+
+
+def _dense(torch, sm, res, tag, ms, any_calls):
+    """The dense sweeps (see the module's docstring); ``any_calls``: the
+    arguments of path_li's first two occlusion queries on Cornell."""
     from yuki_tpu_torch import traverse
     from yuki_tpu_torch.integrators import PathParams, _ph_i32
     from yuki_tpu_torch.ops import shade_fused as tsf
@@ -602,7 +781,7 @@ def _dense(torch, sm, res, tag, ms):
                            torch.zeros_like(hit.hit), _ph_i32(ctx), 2, 0)
     t1 = torch.where(out0[3], F32_MAX, 0.0).to(torch.float32)
     co, cd, ct, cs = sm._combine(torch, o, d, t_max, *out0[5:9])
-    soup, _, so, sd, st_, _ = sm._soup(torch, dev)
+    soup, soup_light, so, sd, st_, soup_skip = sm._soup(torch, dev)
     cases = (("Cornell camera wave", tris, o, d, t_max, None),
              ("Cornell bounce-1 rays", tris, out0[0], out0[1], t1, None),
              (f"{soup.shape[0]}-triangle soup", soup, so, sd, st_, None),
@@ -630,6 +809,31 @@ def _dense(torch, sm, res, tag, ms):
               f"{st['take_share']:.5f}; 256-ray blocks by distinct frames "
               f"(1, 2, 3) {st['frames_per_block']}]: {t_k:.4f} ms a call, "
               f"kernel device time {t_dev:.4f} ms")
+
+    any_cases = [("Cornell bounce-0 shadow rays", any_calls[0]),
+                 ("Cornell bounce-1 shadow rays", any_calls[1]),
+                 (f"{soup.shape[0]}-triangle soup",
+                  (soup, soup_light, so, sd, st_, soup_skip))]
+    for what, (tp, lt, ro, rd, rt, sk) in any_cases:
+        def fn():
+            return ttr.any_trace(tp, lt, ro, rd, rt, sk)
+        out = fn()
+        res["hashes"][f"dense_any {what}"] = digest(out)
+        t_k = ms(fn)
+        t_dev = kernel_device_ms(torch, fn, "dense_any_kernel")
+        res["ms"][f"dense_any {what}"] = t_k
+        res["ms"][f"dense_any {what}: kernel device time"] = t_dev
+        st = _any_dense_stats(torch, ttr, tp, lt, ro, rd, rt, sk, out)
+        res["notes"][f"dense_any {what}"] = st
+        print(f"[{tag}] dense_any [{what}: {st['rays']} rays, {st['live']} "
+              f"with t_max > 0, {st['triangles']} triangles; occluded "
+              f"{st['occluded_share']:.4f} of them; triangles to the first "
+              f"occluder {st['tests_to_first']:.2f} ("
+              f"{st['tests_to_first_without_skip']:.2f} without the skip "
+              f"light's, {st['tests_to_first_occluded']:.2f} on occluded "
+              f"lanes); 256-ray blocks by distinct frames (1, 2, 3) "
+              f"{st['frames_per_block']}]: {t_k:.4f} ms a call, kernel "
+              f"device time {t_dev:.4f} ms")
 
 
 def _rows(torch, sm, res, tag, scene, wave0, ms):

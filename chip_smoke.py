@@ -31,8 +31,8 @@ beside this file.  It imports no JAX.  Phases:
      1,048,576-ray camera wave (closest) and its bounce-0 shadow rays
      (occlusion), and on a 4096-triangle soup with 65,536 rays, t_max 0
      lanes and skip ids; with the bounds from the plain versions'
-     tallies (dense_ops for the closest sweep, 43 operations an occlusion
-     test);
+     tallies (dense_ops for the closest sweep, any_ops for the occlusion
+     sweep);
   4b. the dense path_li main path: the same Cornell film at 1 spp with
      the fused wave off (PATH_FUSED_MODE "off"), through camera rays,
      path_li and the dense trace kernels, at depth 5 and depth 2, each
@@ -56,8 +56,11 @@ beside this file.  It imports no JAX.  Phases:
   6. the treelet path's kernels against their plain versions on one
      2048-tile wave of the 1080p colonnade (524,288 camera rays, seed 1),
      with inputs packed by the main path's own code: treelet_closest on
-     the camera rays, shade on their hits (and its stratified variant
-     with StratifiedSampler(2, 2)'s planes), treelet_any on the bounce-0
+     the camera rays, shade at every bounce 0-4 of the first wave on the
+     lanes path_li hands it (a frame's first calls, recorded), under
+     UniformSampler and StratifiedSampler(2, 2)'s planes, each bounce
+     timed, with its bound from the bytes and shade_ops' tally of the
+     shading operations; treelet_any on the bounce-0
      shadow rays, resolve, then treelet_closest on the bounce-1 rays and
      treelet_any on their shadow rays; the walks' plain versions run on
      stated slices of whole 1024-ray blocks (on bounce 1, blocks holding
@@ -219,6 +222,9 @@ OPS_DENSE_TEST = 39  # 9 translate, 12 shear, 9 edges, 2 det, 6 t_scaled,
 # 1 bound
 OPS_DENSE_PASS = 2  # the reciprocal of det and ti
 OPS_DENSE_TAKE = 2  # b0 and b1
+# The dense occlusion sweep makes the same test and no divide, on each
+# live lane's triangles up to its first occluder, its skip light's passed
+# over (tests/test_torch_dense_any_redesign.py; any_ops).
 OPS_SCALED = 40  # slot walks' scaled test: 9 translate, 12 shear, 9 edges,
 # 2 det, 6 ts, 2 for the cross-multiplied compare (occlusion: 39, one bound)
 CLOSEST_RAY_BYTES = 12 + 12 + 4 + 16  # o, d, t_max in; t, prim, b0, b1 out
@@ -294,6 +300,116 @@ def dense_ops(stats):
     divide and each taken hit's barycentrics."""
     return (stats["tests"] * OPS_DENSE_TEST + stats["passes"] * OPS_DENSE_PASS
             + stats["takes"] * OPS_DENSE_TAKE)
+
+
+def any_ops(stats):
+    """Operations the dense occlusion sweep needs, from any_trace_plain's
+    tally: each live lane's tests up to its first occluder."""
+    return stats["tests"] * OPS_DENSE_TEST
+
+
+def shade_ops(torch, tsf, tb, rh, prim, ph, texp, dim0, bounce, spl=None):
+    """Operations the shade kernel needs for these lanes, dead ones too:
+    each lane shades its own branch (its material type, sigma or not, its
+    sphere's surface or its triangle's).  Counted on one lane of each such
+    group by the plain version with the group's statics alone (a
+    TorchFunctionMode: FP32 adds, subtracts, multiplies, divides,
+    reciprocals, square roots, min/max and clamps (one each) and the
+    transcendentals, one for each element of each result), times the
+    group's lanes.  The plain version makes a sphere lane's triangle
+    surface too and both lobes of a glass lane, and a light's local frame
+    once a light: those lanes are counted high."""
+    import dataclasses
+
+    from torch.overrides import TorchFunctionMode
+
+    class Tally(TorchFunctionMode):
+        OPS = {"add", "sub", "mul", "div", "__radd__", "__rsub__", "__rmul__",
+               "__rdiv__", "__rtruediv__", "reciprocal", "sqrt", "minimum",
+               "maximum", "clamp", "log", "sin", "cos"}
+
+        def __init__(self):
+            super().__init__()
+            self.n = 0
+
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if (getattr(func, "__name__", "") in self.OPS
+                    and isinstance(out, torch.Tensor)
+                    and out.is_floating_point()):
+                self.n += out.numel()
+            return out
+
+    sph = rh[tsf._RH["sph"]]
+    mid = tb.trs[prim.clamp(min=0).long(), 26]
+    sid = torch.full_like(prim, -1, dtype=torch.int64)
+    if tb.n_spheres:
+        si = sph.clamp(0, tb.n_spheres - 1).long()
+        on = (sph >= 0.0) & (sph < tb.n_spheres) & (si.float() == sph)
+        mid = torch.where(on, tb.sp[si, 34], mid)
+        sid = torch.where(on, si, -1)
+    mrow = tb.mat[mid.clamp(min=0.0).long()]
+    mtype = mrow[:, 0].long().clamp(0, 3)
+    s0 = mrow[:, 7] if texp is None else texp[3]
+    sigma = (s0 != 0.0).long() if tb.has_sigma else torch.zeros_like(mtype)
+    key = (mtype * 2 + sigma) * (tb.n_spheres + 1) + sid + 1
+    keys, counts = torch.unique(key, return_counts=True)
+    total = 0
+    for k, c in zip(keys.tolist(), counts.tolist()):
+        j = int(torch.nonzero(key == k)[0])
+        m_sig, s = divmod(k, tb.n_spheres + 1)
+        m, sig = divmod(m_sig, 2)
+        s -= 1
+        one = dataclasses.replace(
+            tb, present=frozenset({m}), has_sigma=bool(sig),
+            n_spheres=1 if s >= 0 else 0,
+            sp=tb.sp[s:s + 1] if s >= 0 else tb.sp[:1])
+        r1 = rh[:, j:j + 1].clone()
+        if s >= 0:
+            r1[tsf._RH["sph"]] = 0.0
+        with Tally() as tally:
+            tsf.shade_planes_plain(
+                one, r1, prim[j:j + 1], ph[j:j + 1],
+                None if texp is None else texp[:, j:j + 1], dim0, bounce,
+                None if spl is None else spl[:, j:j + 1])
+        total += tally.n * c
+    return total
+
+
+class _Enough(Exception):
+    """Raised by ``_capture``'s spies once every call it waits for is
+    recorded: the frame stops there."""
+
+
+def _capture(torch, frame, spies):
+    """Run ``frame`` with the functions ``spies`` names, {(module, name):
+    count}, wrapped: each records the arguments of its first ``count``
+    calls (tensors cloned), and the frame stops once all are recorded.
+    Returns {name: [args]}."""
+    got = {name: [] for _, name in spies}
+    saved = {key: getattr(*key) for key in spies}
+
+    def spy(key, fn):
+        def call(*args):
+            if len(got[key[1]]) < spies[key]:
+                got[key[1]].append(tuple(
+                    a.clone() if isinstance(a, torch.Tensor) else a
+                    for a in args))
+                if all(len(got[k[1]]) >= c for k, c in spies.items()):
+                    raise _Enough
+            return fn(*args)
+        return call
+
+    for key, fn in saved.items():
+        setattr(*key, spy(key, fn))
+    try:
+        frame()
+    except _Enough:
+        pass
+    finally:
+        for key, fn in saved.items():
+            setattr(*key, fn)
+    return got
 
 
 def bounce_bound(tb, state_bytes, stats):
@@ -588,8 +704,9 @@ def phase_dense_kernels(torch, np, dev, card):
     bounce-0 shadow rays (path_li's own shading), both on a 4096-triangle
     soup.  Bounds from the plain versions' tallies: closest, dense_ops
     (each lane with t_max > 0 tests every triangle, the divide only on a
-    pass, b0 and b1 only on a take); occlusion, 43 operations a test up to
-    the lane's first occluder; bytes: rays in, results out, the triangle
+    pass, b0 and b1 only on a take); occlusion, any_ops (the same test
+    without a divide, up to the lane's first occluder, its skip light's
+    triangles passed over); bytes: rays in, results out, the triangle
     rows once."""
     from yuki_tpu_torch import traverse
     from yuki_tpu_torch.integrators import PathParams, _ph_i32
@@ -651,7 +768,7 @@ def phase_dense_kernels(torch, np, dev, card):
                 check(torch.equal(got, ref), f"{name} on the {what}: "
                       "occlusion differs")
                 tests, nb = stats["tests"], m * (32 + 1) + t * 52
-                ops = tests * OPS_WATERTIGHT
+                ops = any_ops(stats)
                 found = f"{int(got.sum())} occluded"
             ms_k = cuda_ms(torch, kern, 10)
             ms_p = cuda_ms(torch, plain, 1)
@@ -1075,6 +1192,90 @@ def _per_light(n, n_lights, a, m, fn):
     return run
 
 
+def phase_shade_bounces(torch, tsf, scene, cam):
+    """The shade kernel against its plain version at every bounce 0-4 of
+    the colonnade's first 2048-tile wave, on the lanes path_li hands it
+    (the first frame's calls, recorded by _capture), under UniformSampler
+    and StratifiedSampler(2, 2) (the sampler's planes): the flag planes
+    bit for bit, the others within rtol 2e-6 / atol 1e-7 (the
+    transcendentals); each bounce's time beside the plain version's and
+    its bound: bytes (the 15 ray/hit/carry planes, prim and ph, the
+    sampler's and texture planes in; the 14 + 11L planes out; the shading
+    rows of the distinct triangles hit; the tables) against shade_ops.
+    Returns the kernels line's entry: the uniform frame's means over the
+    bounces, and each bounce's time and bound."""
+    from yuki_tpu_torch.film import FilmSettings
+    from yuki_tpu_torch.integrators import PathParams
+    from yuki_tpu_torch.renderer import render_frame
+    from yuki_tpu_torch.sampling import StratifiedSampler, UniformSampler
+
+    fs = FilmSettings(res=RES, tile_dim=16)
+    n_lights = len(scene.meta.light_types)
+    flags = [tsf._OUT["alive2"], tsf._OUT["spec2"]] + [
+        tsf._N_FIXED_OUT + tsf._N_PER_LIGHT * li + 7
+        for li in range(n_lights)]
+    entry = None
+    for sam_name, sam in (("uniform", UniformSampler(1)),
+                          ("strat", StratifiedSampler(2, 2))):
+        calls = _capture(torch, lambda: render_frame(
+            scene, cam, fs, sam, PathParams(DEPTH), wave_tiles=COL_WAVE_TILES,
+            seed=1), {(tsf, "shade_planes"): DEPTH})["shade_planes"]
+        check(len(calls) == DEPTH, f"shade {sam_name}: {len(calls)} calls")
+        rows = []
+        for args in calls:
+            tb, rh, prim, ph, texp, dim0, bounce = args[:7]
+            spl = args[7] if len(args) > 7 else None
+
+            def kern():
+                return tsf.shade_planes(tb, rh, prim, ph, texp, dim0, bounce,
+                                        spl)
+
+            def plain():
+                return tsf.shade_planes_plain(tb, rh, prim, ph, texp, dim0,
+                                              bounce, spl)
+            out_k, out_p = kern(), plain()
+            torch.cuda.synchronize()
+            what = f"shade {sam_name} bounce {bounce}"
+            for p in flags:
+                check(torch.equal(out_k[p], out_p[p]),
+                      f"{what}: flag plane {p} differs")
+            err = float((out_k - out_p).abs().max())
+            check(torch.allclose(out_k, out_p, rtol=2e-6, atol=1e-7),
+                  f"{what}: planes outside rtol 2e-6 / atol 1e-7 (max "
+                  f"{err:.3g})")
+            ms_k = cuda_ms(torch, kern, 10)
+            ms_p = cuda_ms(torch, plain, 1)
+            n = rh.shape[1]
+            hit_rows = int(torch.unique(prim[prim >= 0]).numel())
+            planes_in = 15 + 2 + (0 if spl is None else spl.shape[0]) + (
+                0 if texp is None else texp.shape[0])
+            nb = (n * 4 * (planes_in + 14 + 11 * n_lights)
+                  + hit_rows * tb.trs.shape[1] * 4
+                  + nbytes(tb.mat, tb.lt, tb.sp))
+            ops = shade_ops(torch, tsf, tb, rh, prim, ph, texp, dim0, bounce,
+                            spl)
+            b_ms, b_by = bound(nb, ops)
+            dead = int((rh[tsf._RH["alive"]] <= 0.0).sum())
+            print(f"{what} [{n} lanes, {dead} dead, {hit_rows} distinct "
+                  f"triangles]: kernel {ms_k:.4f} ms, plain {ms_p:.4f} ms, "
+                  f"bound {b_ms:.4f} ms ({b_by}; {ops} operations, {nb} "
+                  f"bytes), max_abs_err {err:.3g}")
+            rows.append((ms_k, ms_p, nb / PEAK_BYTES * 1e3,
+                         ops / PEAK_OPS * 1e3, err))
+        if entry is None:
+            t_bytes = sum(r[2] for r in rows) / len(rows)
+            t_ops = sum(r[3] for r in rows) / len(rows)
+            entry = dict(
+                max_abs_err=max(r[4] for r in rows),
+                ms=sum(r[0] for r in rows) / len(rows),
+                plain_ms=sum(r[1] for r in rows) / len(rows),
+                bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bounce_ms=[r[0] for r in rows],
+                bounce_bound_ms=[max(r[2], r[3]) for r in rows])
+    return entry
+
+
 def phase_colonnade_kernels(torch, np, dev, scene, cam):
     """The treelet path's four kernels against their plain versions at
     the main path's shapes, on inputs made by the main path's own code:
@@ -1129,74 +1330,16 @@ def phase_colonnade_kernels(torch, np, dev, scene, cam):
                                      bound_ms=b_ms, bound_by=b_by,
                                      wave_ms=ms_full)
 
-    # shade on the bounce-0 hits, whole wave both ways.
+    # shade at bounces 0-4 of the first wave, on the lanes path_li hands
+    # it, whole wave both ways, under both samplers.
     hit = traverse.intersect(scene.data, scene.meta, o, d, t_max,
                              skip_sort=True)
     tables = tsf.make_shade_tables(scene, PathParams(DEPTH))
     ph = _ph_i32(ctx)
     ones = torch.ones_like(o)
     no_spec = torch.zeros_like(hit.hit)
-    rh, prim = tsf.pack_shade(hit, o, d, ones, hit.hit, no_spec)
     dim0 = 2
-    out_k = tsf.shade_planes(tables, rh, prim, ph, None, dim0, 0)
-    out_p = tsf.shade_planes_plain(tables, rh, prim, ph, None, dim0, 0)
-    torch.cuda.synchronize()
-    flags = [tsf._OUT["alive2"], tsf._OUT["spec2"]] + [
-        tsf._N_FIXED_OUT + tsf._N_PER_LIGHT * li + 7
-        for li in range(n_lights)]
-    for p in flags:
-        check(torch.equal(out_k[p], out_p[p]), f"shade: flag plane {p} differs")
-    check(torch.allclose(out_k, out_p, rtol=2e-6, atol=1e-7),
-          "shade: planes outside rtol 2e-6 / atol 1e-7 (max "
-          f"{float((out_k - out_p).abs().max()):.3g})")
-    err = float((out_k - out_p).abs().max())
-    ms_k = cuda_ms(torch, lambda: tsf.shade_planes(tables, rh, prim, ph, None,
-                                                   dim0, 0), 10)
-    ms_p = cuda_ms(torch, lambda: tsf.shade_planes_plain(
-        tables, rh, prim, ph, None, dim0, 0), 3)
-    # Bytes: the 15 ray/hit/carry planes, prim and ph in; the 14 + 11L
-    # planes written out (no padding planes); the shading rows of the
-    # distinct triangles hit; the material, light and sphere tables.  The
-    # shading arithmetic is not tallied (operations: a bound of zero).
-    hit_rows = int(torch.unique(prim[prim >= 0]).numel())
-    b_ms, b_by = bound(
-        n * 4 * (15 + 2 + 14 + 11 * n_lights)
-        + hit_rows * tables.trs.shape[1] * 4
-        + nbytes(tables.mat, tables.lt, tables.sp), 0)
-    print(f"shade [{n} rays, {int(hit.hit.sum())} hit, {hit_rows} distinct "
-          f"triangles]: kernel {ms_k:.4f} ms, plain {ms_p:.4f} ms, bound "
-          f"{b_ms:.4f} ms ({b_by}), max_abs_err {err:.3g}")
-    result["shade"] = dict(max_abs_err=err, ms=ms_k, plain_ms=ms_p,
-                           bound_ms=b_ms, bound_by=b_by)
-
-    # The shade kernel's stratified variant: StratifiedSampler(2, 2)'s
-    # 2L+3 values of bounce 0 as planes, computed by the sampler.
-    from yuki_tpu_torch.ops.path_fused import bounce_draws
-    from yuki_tpu_torch.sampling import StratifiedSampler
-
-    spl = torch.stack(bounce_draws(StratifiedSampler(2, 2), ctx, dim0,
-                                   n_lights)).contiguous()
-    out_k = tsf.shade_planes(tables, rh, prim, ph, None, dim0, 0, spl)
-    out_p = tsf.shade_planes_plain(tables, rh, prim, ph, None, dim0, 0, spl)
-    torch.cuda.synchronize()
-    for p in flags:
-        check(torch.equal(out_k[p], out_p[p]),
-              f"strat shade: flag plane {p} differs")
-    check(torch.allclose(out_k, out_p, rtol=2e-6, atol=1e-7),
-          "strat shade: planes outside rtol 2e-6 / atol 1e-7 (max "
-          f"{float((out_k - out_p).abs().max()):.3g})")
-    err = float((out_k - out_p).abs().max())
-    ms_k = cuda_ms(torch, lambda: tsf.shade_planes(tables, rh, prim, ph, None,
-                                                   dim0, 0, spl), 10)
-    ms_p = cuda_ms(torch, lambda: tsf.shade_planes_plain(
-        tables, rh, prim, ph, None, dim0, 0, spl), 3)
-    b_ms, b_by = bound(
-        n * 4 * (15 + 2 + spl.shape[0] + 14 + 11 * n_lights)
-        + hit_rows * tables.trs.shape[1] * 4
-        + nbytes(tables.mat, tables.lt, tables.sp), 0)
-    print(f"shade strat [{n} rays, StratifiedSampler(2, 2)'s {spl.shape[0]} "
-          f"planes]: kernel {ms_k:.4f} ms, plain {ms_p:.4f} ms, bound "
-          f"{b_ms:.4f} ms ({b_by}), max_abs_err {err:.3g}")
+    result["shade"] = phase_shade_bounces(torch, tsf, scene, cam)
 
     # treelet_any on the bounce-0 shadow rays (light-major, 2N), plain on
     # the first blocks of each light's rays.

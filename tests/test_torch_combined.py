@@ -151,13 +151,17 @@ def test_bundle_engine_raises(soups):
     co, cd, ct, cs = combined_wave(scene, 7, True)
     data = scene.data
     meta = dataclasses.replace(scene.meta, bun_closest=2)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+    with pytest.raises(NotImplementedError,
+                       match=r"bundle engine \(ops/trace_bundles\.py.*is not "
+                       r"ported"):
         traverse.intersect(data, meta, o[:N], d[:N], t[:N], skip_sort=True)
     traverse.intersect(data, meta, o, d, t, skip, skip_sort=True)
     traverse.intersect(data, meta, co[:N], cd[:N], ct[:N], skip_sort=True)
     traverse.any_intersect(data, meta, o[N:], d[N:], t[N:], skip[N:])
     meta = dataclasses.replace(scene.meta, bun_any=2)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+    with pytest.raises(NotImplementedError,
+                       match=r"bundle engine \(ops/trace_bundles\.py.*is not "
+                       r"ported"):
         traverse.any_intersect(data, meta, o[N:], d[N:], t[N:], skip[N:],
                                skip_sort=True)
     traverse.intersect(data, meta, o[:N], d[:N], t[:N], skip_sort=True)

@@ -116,3 +116,44 @@ def test_dense_closest_edge_shapes(cuda, n_tris, skip):
         assert int((got[1] % 5 == 0)[got[1] > 0].sum()) == 0
     name = "dense_closest_skip" if skip else "dense_closest"
     assert ttr.LAUNCHES[name] == 1
+
+
+@pytest.mark.parametrize("case", ["rays", "one-ray", "all-dead",
+                                  "all-at-first", "nan-t-max"])
+@pytest.mark.parametrize("n_tris", [1, 36, 4096])
+def test_dense_any_edge_shapes(cuda, n_tris, case):
+    """any_trace against its plain version bit for bit on 3001 rays (not
+    a multiple of the block) in every direction, or one ray, at 1, 36 and
+    4096 triangles (one, one and sixteen shared-memory tiles): as made;
+    every lane dead (t_max 0 or -1); every lane aimed at triangle 0's
+    centroid, so occluded at the first test; a third of the lanes with a
+    NaN t_max, which misses no range compare and stays live."""
+    n = 1 if case == "one-ray" else 3001
+    packed, light, o, d, t_max, skip = soup_inputs(n_tris, n, 11 + n_tris,
+                                                   cuda)
+    if case == "all-dead":
+        t_max[:] = 0.0
+        t_max[::2] = -1.0
+    elif case == "all-at-first":
+        light[0] = -1
+        c = packed[0, :9].reshape(3, 3).mean(dim=0)
+        d = torch.nn.functional.normalize(torch.randn(
+            (n, 3), generator=torch.Generator().manual_seed(n_tris)).to(cuda),
+            dim=1)
+        o = (c - 3.0 * d).contiguous()
+        t_max = torch.full((n,), F32_MAX, device=cuda)
+    elif case == "nan-t-max":
+        t_max[::3] = float("nan")
+    ttr.reset_launches()
+    got = ttr.any_trace(packed, light, o, d, t_max, skip)
+    ref = ttr.any_trace_plain(packed, light, o, d, t_max, skip)
+    assert torch.equal(got, ref)
+    assert ttr.LAUNCHES["dense_any"] == 1
+    if case == "all-dead":
+        assert not bool(got.any())
+    elif case == "all-at-first":
+        assert bool(got.all())
+    elif case == "nan-t-max" and n_tris >= 36:
+        assert bool(got[::3].any()) and not bool(got[::3].all())
+    elif case == "rays" and n_tris >= 36:
+        assert bool(got.any()) and not bool(got.all())

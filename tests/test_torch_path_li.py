@@ -91,7 +91,9 @@ def test_gates_raise():
     assert float(rays) >= tp.TD * tp.TD
     textured_sphere = _soup_scene(DENSE_TRI_THRESHOLD + 10, sphere_tex=True)
     assert textured_sphere.meta.traversal == "treelet"
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+    with pytest.raises(NotImplementedError,
+                       match=r"the XLA shading chain \(surface\.py, "
+                       r"bsdf\.py, lights\.py\), which is not ported"):
         mwr(textured_sphere)
     # The stratified sampler is accepted: path_li hands the shade kernel
     # its values as planes.

@@ -9,10 +9,10 @@ closest-hit query, the shade kernel, one light-major occlusion query for
 every light's shadow rays, and the resolve kernel.  Both samplers run
 there; a StratifiedSampler's values of each bounce are computed first
 and read by the shade kernel as planes.  yuki_tpu's XLA shading chain
-(:316-377: make_surface, gather_materials, _nee, bsdf_sample), which runs
-where the fused gate fails, is not ported yet: ``path_li`` raises there
-(ROADMAP Queue 1 item 5: ``surface.py``, ``bsdf.py``, ``lights.py``).
-Whitted and the debug integrators come later (Queue 1 item 10).
+(:316-377: make_surface, gather_materials, _nee, bsdf_sample, built on
+``surface.py``, ``bsdf.py`` and ``lights.py``), which runs where the fused
+gate fails, is not ported: ``path_li`` raises there.  Whitted and the
+debug integrators are not ported either.
 """
 
 from __future__ import annotations
@@ -45,9 +45,8 @@ def check_path_li_supported(meta, sampler) -> None:
         raise NotImplementedError(
             "path_li outside the fused-shade gate (a lightless scene, a "
             "textured sphere, or a sampler other than UniformSampler and "
-            "StratifiedSampler) runs yuki_tpu's XLA shading chain, not "
-            "ported yet (ROADMAP Queue 1 item 5: surface.py, bsdf.py, "
-            "lights.py)"
+            "StratifiedSampler) runs on the XLA shading chain (surface.py, "
+            "bsdf.py, lights.py), which is not ported"
         )
 
 

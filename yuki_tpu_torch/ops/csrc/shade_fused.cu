@@ -10,7 +10,12 @@
 //               clamp past bounce 0, and the radiance update.
 //
 // Design.  One thread per ray (128-thread blocks; lanes are independent, so
-// the TPU's 1024-ray blocks carry no meaning here).  The sample values are
+// the TPU's 1024-ray blocks carry no meaning here).  Lanes stay in wave
+// order: sorting each tile's lanes by material class, as the dense wave's
+// bounce kernel does, measured slower on an H100 at every bounce, sorted
+// in place and with the tile's planes staged through shared memory, and
+// staging the material, light and sphere rows in shared memory gained
+// nothing (PERF.md §6).  The sample values are
 // the uniform sampler's hash, or a StratifiedSampler's 2L+3 planes of the
 // bounce, computed beforehand by the sampler (the TPU kernel's `strat`
 // variant, shade_fused.py:1157-1180).  The shade kernel reads

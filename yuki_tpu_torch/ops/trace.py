@@ -214,21 +214,26 @@ def any_trace_plain(tris_packed, tri_light, o, d, t_max, skip_light,
     """Plain version of the occlusion sweep (``_any_kernel``): [N] bool, a
     hit within (0, t_max] by a triangle whose light id differs from the
     lane's ``skip_light``.  ``stats`` receives "tests": per lane with
-    t_max > 0, the triangles up to its first occluder (all if none)."""
+    t_max > 0, the triangles up to and including its first occluder (all
+    if none), less those of its skip light, which the kernel passes over
+    untested."""
     ox, oy, oz, dx, dy, dz = _ray_planes(o, d)
     pre = ray_shear(dx, dy, dz)
     occ = torch.zeros_like(t_max, dtype=torch.bool)
     n_tris = tris_packed.shape[0]
     first = torch.full_like(t_max, n_tris, dtype=torch.int64)
+    skipped = torch.zeros_like(first)
     for i, (row, light) in enumerate(zip(tris_packed[:, :9].unbind(0),
                                          tri_light.unbind(0))):
         hit = watertight(ox, oy, oz, dx, dy, dz, t_max, row.unbind(0), pre)[0]
-        blocked = hit & (light != skip_light)
+        mine = light == skip_light
+        skipped = skipped + (mine & ~occ).to(torch.int64)
+        blocked = hit & ~mine
         first = torch.where(blocked & ~occ, i + 1, first)
         occ = occ | blocked
     if stats is not None:
         stats["tests"] = stats.get("tests", 0) + int(
-            first[t_max > 0.0].sum())
+            (first - skipped)[t_max > 0.0].sum())
     return occ
 
 

@@ -10,8 +10,7 @@ rays + ``integrators.path_li`` (:122-128), over the dense queries or the
 treelet dispatch, where ``check_path_li_supported`` accepts it; anything
 else raises ``NotImplementedError`` naming what is missing rather than
 running another path.  The threaded ``Renderer`` facade (launch /
-check_status / kill, progress and ETA) comes later (ROADMAP Queue 1
-item 9).
+check_status / kill, progress and ETA, accumulate mode) is not ported.
 """
 
 from __future__ import annotations
@@ -46,7 +45,7 @@ def make_wave_renderer(scene, camera: Camera, sampler, integrator,
     if not isinstance(integrator, PathParams):
         raise NotImplementedError(
             f"integrator {integrator!r}: only PathParams is ported "
-            "(Whitted and debug integrators: ROADMAP Queue 1 item 10)"
+            "(Whitted and the debug integrators are not ported)"
         )
     if wave_tiles < 1 or samples_per_launch < 1:
         raise ValueError("wave_tiles and samples_per_launch must be >= 1")
@@ -118,8 +117,7 @@ def render_frame(scene, camera_params: CameraParameters,
     branch, synchronous).  Film and kernels run on the scene's device."""
     if film_settings.accumulate:
         raise NotImplementedError(
-            "accumulate mode belongs to the threaded Renderer (ROADMAP "
-            "Queue 1 item 9)"
+            "accumulate mode belongs to the threaded Renderer, not ported"
         )
     rx, ry = film_settings.effective_res()
     camera = Camera.create(camera_params, rx, ry)
@@ -138,7 +136,11 @@ def render_frame(scene, camera_params: CameraParameters,
     spp_t = torch.tensor(float(spp), dtype=torch.float32, device=dev)
 
     start = time.monotonic()
-    total_rays = torch.zeros((), dtype=torch.float64, device=dev)
+    # The ray count sums as yuki_tpu's loop does (:424-431): a wave's
+    # launches in float32 on the device, int() of that sum once a wave,
+    # the frame's total as a Python int.  A wave's running sum rounds once
+    # it passes 2^24.
+    ray_count = 0
     for w0 in range(0, len(tiles), wave_tiles):
         wave = tiles[w0: w0 + wave_tiles]
         ids = np.asarray([t.index for t in wave], dtype=np.int64)
@@ -150,12 +152,14 @@ def render_frame(scene, camera_params: CameraParameters,
             ids = np.concatenate([ids, np.full(pad, film.n_tiles, np.int64)])
             origins = np.concatenate([origins, np.zeros((pad, 2), np.int32)])
         origins_t = torch.as_tensor(origins, device=dev)
-        acc = None
+        acc = rays_acc = None
         for s in range(0, spp, spl):
             px, rays = render_fn(origins_t, s, seed)
             acc = px if acc is None else acc + px
-            total_rays += rays.to(torch.float64)
+            rays_acc = rays if rays_acc is None else rays_acc + rays
         film.add_tiles(torch.as_tensor(ids, device=dev), acc / spp_t)
-    ray_count = int(total_rays.item())  # synchronises with the device
+        # One read a wave; add_tiles' masked index already waits for the
+        # device.
+        ray_count += int(rays_acc.item())
     return FrameResult(film=film, ray_count=ray_count,
                        elapsed_s=time.monotonic() - start)

@@ -27,7 +27,7 @@ origin, direction bits) and the results unsorted (``_sorted_call``):
    bundle's words, one walk per bundle, no sort, pack or merge.  Both flags
    keep yuki_tpu's default, False.  A scene built with ``bun_closest`` or
    ``bun_any`` above 1 would take yuki_tpu's bundle engine there, which is
-   not ported (ROADMAP Queue 1 item 6): that raises.
+   not ported: that raises.
 4. Rays that any engine flags overflow re-run through the wide pass at
    C_WIDE (occlusion: only those not yet occluded, since occlusion is
    monotone in the candidate set), with the slot budget of the overflow
@@ -197,8 +197,9 @@ def _sorted_call(scene, o, d, t_max, extra, fn, skip_sort: bool = False):
 def _no_bundle_engine(which: str):
     return NotImplementedError(
         f"meta.{which} > 1 selects yuki_tpu's bundle engine "
-        "(ops/trace_bundles.py), which the port does not have yet (ROADMAP "
-        f"Queue 1 item 6); build the scene with {which} = 1")
+        "(ops/trace_bundles.py: the slot layout, _pack_bundles, "
+        "bundles_closest_w and bundles_any_w), which is not ported; build "
+        f"the scene with {which} = 1")
 
 
 def _rows_demand(row_words):
