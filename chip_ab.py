@@ -1,22 +1,24 @@
 #!/usr/bin/env python3
 """A/B of the redesigned kernels (the two-level cull, the dense bounce,
-the crossing words, the slot walks, raygen, the row-union closest walk,
-the dense closest and occlusion sweeps and the shade kernel) between two
-checkouts of this repository, on one NVIDIA GPU.
+the crossing words, the slot walks, raygen, the row-union walks, the dense
+closest and occlusion sweeps, the shade kernel and the one-kernel wave)
+between two checkouts of this repository, on one NVIDIA GPU.
 
     python3 chip_ab.py run ROOT TAG OUT.json [PARTS]   # measure ROOT's port
     python3 chip_ab.py probe ROOT TAG OUT.json [PARTS] # the same, walks cut
     python3 chip_ab.py compare A.json B.json           # A against B
 
 PARTS is a comma-separated subset of
-bounce,cull,stream,frames,rows,dense,shade (default: all), or raygen
-(bounce's raygen measurements alone).
+bounce,wave,cull,stream,frames,rows,dense,shade (default: all), or raygen
+(bounce's raygen measurements alone) or rows_any (rows' occlusion walk
+alone).
 
 ``probe`` copies ROOT's ``yuki_tpu_torch`` to ``build/probe-TAG/``, cuts
-the walks of the occlusion slot walk, the row-union closest walk, the
+the walks of the occlusion slot walk, the row-union walks, the
 dense closest and occlusion sweeps and the raygen kernel's sweep to zero
-triangles (and raygen's to zero spheres) and the shade kernel's shading
-body to its loads, row gathers and one draw, by a text edit of the copy's
+triangles (and raygen's to zero spheres), the shade kernel's shading
+body to its loads, row gathers and one draw and the wave kernel's bounces
+to none (its raygen alone), by a text edit of the copy's
 sources (``PROBE_EDITS``), and runs ``run`` on the copy: its times are
 those of the kernels' stage, sort, rechecks, barriers, loads and stores
 alone.  Its digests differ from ROOT's by design.
@@ -40,7 +42,14 @@ alone.  Its digests differ from ROOT's by design.
   difference), its kernel device time (torch.profiler), how the rays split
   over the three shear frames (the dominant axis of the direction) and
   how many distinct frames a block of 128 to 1024 consecutive rays holds;
-- the one-kernel wave on the same Cornell wave;
+- ``wave``: the one-kernel wave on the same Cornell wave under both
+  samplers, timed a call and as the kernel's device time, beside the
+  two-kernel wave (raygen + 5 bounce launches) in the same call, with the
+  live lanes entering each bounce and, at each bounce, the 32-lane warps
+  by distinct classes (dead lanes left out) in film order (one thread a
+  lane, the first port's warps) and in the order of 512-lane tiles sorted
+  by class, dead lanes dropped (the redesign's warps), from the two-kernel
+  wave's state (``_wave_stats``);
 - ``stream``: the crossing words on 1, 32 and all (2,217) of the cull's
   overflow rays of that bounce-1 wave, on its first 65,536 rays and on
   the whole wave (524,288 rays), with each wave's crossed word boxes per
@@ -57,7 +66,13 @@ alone.  Its digests differ from ROOT's by design.
 - ``rows``: the row-union closest walk on the colonnade wave's camera
   rays (524,288, the probe's own lists, as ``chip_smoke.py`` phase 8a
   makes them) and, with and without skip, on phase 12's sorted combined
-  wave (camera + bounce-0 shadow lanes, 1,572,864); ``dense``: the dense
+  wave (camera + bounce-0 shadow lanes, 1,572,864); the occlusion row walk
+  on the wave's bounce-0 shadow rays (1,048,576, light-major) forced
+  through the rows engine, as phase 8a forces them, with its work from a
+  plain walk (``_rows_any_stats``: walked chunks, the groups a row walks
+  (G + 1) against the chunk's, rows each lane tests up to its first
+  occluder, the non-crossing lanes the walk occludes, rows with no live
+  lane, barriers per list entry in both designs); ``dense``: the dense
   closest sweep on Cornell's 1080p camera wave (1,048,576 rays), on the
   path_li frame's bounce-1 rays, on a 4096-triangle soup (65,536 rays,
   ``chip_smoke.py``'s) and, with and without skip, on phase 12a's
@@ -74,7 +89,8 @@ alone.  Its digests differ from ROOT's by design.
   kernel's device time, the same lanes permuted by class (dead, then the
   material type and surface) with the outputs permuted back bit for bit,
   the share of dead lanes and the warps by distinct classes;
-- the 1080p d5 16 spp Cornell frame, the 1080p d5 1 spp Cornell frame
+- the 1080p d5 16 spp Cornell frame, by the two-kernel and the one-kernel
+  wave, the 1080p d5 1 spp Cornell frame
   through path_li (the dense sweeps' main path) and the 1080p d5 1 spp
   colonnade frame on the slot stream and with both walker flags (the
   median of three after one warm-up), and one of each under
@@ -106,11 +122,11 @@ SLICE_RAYS = 65536  # the crossing words' slice of the bounce-1 wave
 KERNEL_NAMES = ("cull_kernel", "bounce_kernel", "wave_kernel",
                 "raygen_trace_kernel", "cross_words_kernel",
                 "slot_closest_kernel", "slot_any_kernel",
-                "rows_closest_kernel", "dense_closest_kernel",
-                "dense_any_kernel", "shade_kernel")
+                "rows_closest_kernel", "rows_any_kernel",
+                "dense_closest_kernel", "dense_any_kernel", "shade_kernel")
 DENSE_KERNELS = ("dense_closest_kernel", "dense_any_kernel", "shade_kernel")
 COL_KERNELS = ("cull_kernel", "cross_words_kernel", "slot_closest_kernel",
-               "slot_any_kernel", "rows_closest_kernel",
+               "slot_any_kernel", "rows_closest_kernel", "rows_any_kernel",
                "walker_closest_kernel", "walker_any_kernel", "shade_kernel")
 N_CLASSES = 9  # the shade kernel's lane classes: dead, then 2 mtype + sphere
 # The probe's edits: for each kernel, alternatives (source, old, new), of
@@ -123,6 +139,11 @@ PROBE_EDITS = {
          "for (int r = 0; r < 0; ++r) {"),
         ("trace_stream.cu", "for (int r = 0; r < last; ++r) {",
          "for (int r = 0; r < 0; ++r) {"),
+        # first_occluder, which rows_any_kernel shares.
+        ("trace_stream.cuh", "  for (int r = 0; r < n; ++r) {\n"
+         "    const float4* t = tri + 3 * r;",
+         "  for (int r = n; r < n; ++r) {\n"
+         "    const float4* t = tri + 3 * r;"),
     ),
     "raygen_trace_kernel": (
         ("path_fused.cu", "seed, ms, sc, spl ? spl + i : nullptr, N, ph);",
@@ -157,6 +178,26 @@ PROBE_EDITS = {
         ("trace_dense.cu",
          "for (int r = 0; r < m; ++r) {\n      // Row r in the lane's frame",
          "for (int r = 0; r < 0; ++r) {\n      // Row r in the lane's frame"),
+    ),
+    # The occlusion row walk: no triangle (the first port's groups, or the
+    # redesign's first_occluder, cut above: this alternative edits nothing
+    # and only names that form), so its rechecks, votes, stages and
+    # barriers alone; no lane is occluded, so a row walks every entry some
+    # lane crosses.
+    "rows_any_kernel": (
+        ("trace_rows.cu", "for (int g = 0; g < k; g += 8) {",
+         "for (int g = 0; g < 0; g += 8) {"),
+        ("trace_rows.cu", "rf = first_occluder(sh, of, copy, last, r.tm, sk);",
+         "rf = first_occluder(sh, of, copy, last, r.tm, sk);"),
+    ),
+    # The wave kernel's bounces: none (the first port's loop, or the
+    # redesign's), so its raygen, stage and stores alone.
+    "wave_kernel": (
+        ("path_fused.cu",
+         "for (int b = 0; b < a.max_depth && p.alive > 0.0f; ++b) {",
+         "for (int b = 0; b < 0 && p.alive > 0.0f; ++b) {"),
+        ("path_fused.cu", "for (int b = 0; b < a.max_depth; ++b) {",
+         "for (int b = 0; b < 0; ++b) {"),
     ),
     # The shading body: the lane keeps its plane loads, its row gathers
     # and one draw, and writes the fixed planes (not the lights').
@@ -245,7 +286,7 @@ def device_times(torch, prof, names):
 
 
 def run(root, tag, out_path,
-        parts="bounce,cull,stream,frames,rows,dense,shade"):
+        parts="bounce,wave,cull,stream,frames,rows,dense,shade"):
     parts = set(parts.split(","))
     sys.path.insert(0, os.path.abspath(root))
     import numpy as np  # noqa: F401
@@ -351,12 +392,10 @@ def run(root, tag, out_path,
                   f"{counts}]: {t_as:.4f} ms as is, {t_sorted:.4f} ms with "
                   f"lanes by material ({t_sorted / t_as:.3f}x)")
             st = out
-        wave_out = tpf.wave(px, py, si, 1, tb, spl)
-        res["hashes"][f"wave {sam_name}"] = digest(wave_out)
-        res["ms"][f"wave {sam_name}"] = ms(
-            lambda: tpf.wave(px, py, si, 1, tb, spl), 10)
-        print(f"[{tag}] wave {sam_name}: {res['ms'][f'wave {sam_name}']:.4f}"
-              " ms")
+    if "wave" in parts:
+        rc = _wave(torch, tpf, res, tag, ms, tb, px, py)
+        if rc:
+            return rc
 
     # ---- the dense sweeps on Cornell's waves and a soup -----------------
     fs = FilmSettings(res=(1920, 1080), tile_dim=16)
@@ -380,7 +419,7 @@ def run(root, tag, out_path,
         _dense(torch, sm, res, tag, ms, cornell_calls["any_trace"])
 
     # ---- the cull on the colonnade's bounce-1 and shadow rays -------------
-    if not parts & {"cull", "stream", "frames", "rows", "shade"}:
+    if not parts & {"cull", "stream", "frames", "rows", "rows_any", "shade"}:
         return _write(res, out_path)
     scene, cam, _ = colonnade(device=dev)
 
@@ -408,7 +447,7 @@ def run(root, tag, out_path,
         rc = _shade(torch, tsf, res, tag, ms, cases)
         if rc:
             return rc
-    if not parts & {"cull", "stream", "frames", "rows"}:
+    if not parts & {"cull", "stream", "frames", "rows", "rows_any"}:
         return _write(res, out_path)
     ctx, o, d = sm._camera_wave(torch, dev, cam, COL_TILES)
     t_max = torch.full((o.shape[0],), F32_MAX, device=dev)
@@ -466,16 +505,30 @@ def run(root, tag, out_path,
         if rc:
             return rc
 
-    # ---- the row-union closest walk ------------------------------------
-    if "rows" in parts:
-        _rows(torch, sm, res, tag, scene, (o, d, t_max, *out0[5:9]), ms)
+    # ---- the row-union walks ---------------------------------------------
+    if parts & {"rows", "rows_any"}:
+        rc = _rows(torch, sm, res, tag, scene, (o, d, t_max, *out0[5:9]), ms,
+                   "rows" in parts)
+        if rc:
+            return rc
 
     # ---- frames ---------------------------------------------------------
+    def cornell_16spp(one_kernel):
+        def frame():
+            tpf.PATH_FUSED_ONEKERNEL = one_kernel
+            try:
+                return render_frame(cscene, ccam, fs, UniformSampler(SPP),
+                                    PathParams(DEPTH),
+                                    wave_tiles=CORNELL_TILES,
+                                    samples_per_launch=SPP, seed=1)
+            finally:
+                tpf.PATH_FUSED_ONEKERNEL = False
+        return frame
+
     frames = {
-        "cornell 1080p d5 16 spp": (lambda: render_frame(
-            cscene, ccam, fs, UniformSampler(SPP), PathParams(DEPTH),
-            wave_tiles=CORNELL_TILES, samples_per_launch=SPP, seed=1),
-            ("bounce_kernel",)),
+        "cornell 1080p d5 16 spp": (cornell_16spp(False), ("bounce_kernel",)),
+        "cornell 1080p d5 16 spp, one kernel": (cornell_16spp(True),
+                                                ("wave_kernel",)),
         "cornell 1080p d5 1 spp, path_li": (cornell_path_li, DENSE_KERNELS),
         "colonnade 1080p d5 1 spp": (colonnade_frame(False), COL_KERNELS),
         "colonnade 1080p d5 1 spp, walker": (colonnade_frame(True),
@@ -836,13 +889,54 @@ def _dense(torch, sm, res, tag, ms, any_calls):
               f"device time {t_dev:.4f} ms")
 
 
-def _rows(torch, sm, res, tag, scene, wave0, ms):
-    """The row-union closest walk (see the module's docstring)."""
+def _rows(torch, sm, res, tag, scene, wave0, ms, closest=True):
+    """The row-union walks (see the module's docstring); ``closest``
+    False: the occlusion walk alone."""
     from yuki_tpu_torch import traverse
     from yuki_tpu_torch.ops import trace_rows as trw
 
     ch = scene.data.chunks
     o, d, t_max = wave0[:3]
+    no, nd, nt, sk = wave0[3:7]
+    lists, _ = trw.kept_lists(trw.row_words_interval(ch, no, nd, nt),
+                              traverse._ROWS_C, traverse._ROWS_MULT)
+    skf = sk.to(torch.float32).contiguous()
+
+    def fn_any():
+        return trw.rows_any_walk(ch, lists, no, nd, nt, skf)
+    what = "forced bounce-0 shadow rays"
+    out = fn_any()
+    res["hashes"][f"rows_any {what}"] = digest(out)
+    t_k = ms(fn_any)
+    t_dev = kernel_device_ms(torch, fn_any, "rows_any_kernel")
+    res["ms"][f"rows_any {what}"] = t_k
+    res["ms"][f"rows_any {what}: kernel device time"] = t_dev
+    if not PROBING:
+        st = _rows_any_stats(torch, trw, ch, lists, no, nd, nt, skf, out)
+        res["notes"][f"rows_any {what}"] = st
+        print(f"[{tag}] rows_any [{what}: {no.shape[0]} rays, {st['rows']} "
+              f"rows, {st['dead_rows']} with no live lane; list entries "
+              f"{st['entries']}, walked {st['walked']}; groups a walked "
+              f"chunk's row walks (G + 1) mean {st['groups_walked_mean']:.3f}"
+              f" against {st['last_groups_mean']:.3f} to its last real row "
+              f"({ch.leaf_size // 8} in all); rows a walking lane tests "
+              f"{st['lane_rows_mean']:.2f} (the first port: every lane "
+              f"8 (G + 1)); non-crossing live lanes entering walked chunks "
+              f"unoccluded {st['noncross_entered']}, occluded there "
+              f"{st['noncross_occluded_share']:.4f}; barriers a list entry "
+              f"{st['barriers_parent']:.3f} (first port) and "
+              f"{st['barriers_new']:.3f} (redesign); rows by walked entries "
+              f"{st['walked_per_row_bins']}, at most "
+              f"{st['walked_per_row_max']} walked and "
+              f"{st['entries_per_row_max']} listed a row, the five most "
+              f"walked (row, entries, walked) {st['top_rows']}; "
+              f"{int(out.sum())} occluded]: {t_k:.4f} ms a call, kernel "
+              f"device time {t_dev:.4f} ms")
+    else:
+        print(f"[{tag}] rows_any [{what}]: {t_k:.4f} ms a call, kernel "
+              f"device time {t_dev:.4f} ms")
+    if not closest:
+        return 0
     co, cd, ct, cs = sm._sort_rays(torch, scene.data,
                                    *sm._combine(torch, *wave0))
     cases = (("camera rays", o, d, t_max, None),
@@ -874,6 +968,199 @@ def _rows(torch, sm, res, tag, scene, wave0, ms):
               f"{st['dead_lanes']} dead lanes, {st['dead_warps']} dead "
               f"warps]: {t_k:.4f} ms a call, kernel device time "
               f"{t_dev:.4f} ms")
+
+
+def _rows_any_stats(torch, trw, ch, lists, o, d, t, skip, out):
+    """The occlusion row walk's work on a wave, from a plain walk with the
+    plain version's tests that must give the kernel's occlusion ``out``:
+    per list entry, the rows that walk the chunk (some lane of S crosses
+    it unoccluded); per walked chunk, G + 1 (the groups the row walks, as
+    the TPU kernel and the first port do) against the groups up to the
+    chunk's last real row; the rows each live, unoccluded lane tests up to
+    its first occluder or the last real row (the redesign's walk); of the
+    live lanes that do not cross a walked chunk and enter it unoccluded,
+    the share the walk occludes; rows with no live lane; barriers per list
+    entry: the first port's vote, stage and one vote a group walked, the
+    redesign's vote, stage and G's reduction."""
+    from yuki_tpu_torch.ops.trace import ray_shear, watertight_scaled
+
+    k = ch.leaf_size
+    ox, oy, oz, dx, dy, dz, tm = trw._row_planes(o, d, t)
+    sk = skip.reshape(tm.shape)
+    pre = ray_shear(dx, dy, dz)
+    live = tm > 0.0
+    ones = torch.ones_like(tm)
+    occ = torch.zeros_like(live)
+    pid = ch.rows[:, 10].reshape(-1, k)
+    last = torch.where(pid >= 0.0, torch.arange(1, k + 1, device=pid.device),
+                       0).amax(dim=1)
+    acc = dict(entries=0, walked=0, groups_walked=0, last_groups=0,
+               lane_rows=0, walkers=0, noncross_entered=0,
+               noncross_occluded=0, barriers_parent=0, barriers_new=0)
+    walked_row = torch.zeros(tm.shape[0], dtype=torch.int64, device=o.device)
+    for j in range(lists.shape[1]):
+        tt = lists[:, j].long()
+        on = tt >= 0
+        n_on = int(on.sum())
+        if not n_on:
+            break
+        cb = ch.treelet_bounds[tt.clamp(min=0)]
+        crossing = live & trw._recheck(cb, ox, oy, oz, dx, dy, dz, tm, ones)
+        in_s = crossing & ~occ
+        r = torch.nonzero(on & in_s.any(dim=1)).squeeze(1)
+        acc["entries"] += n_on
+        acc["barriers_parent"] += n_on
+        acc["barriers_new"] += n_on
+        if r.numel() == 0:
+            continue
+        lane = [x[r] for x in (ox, oy, oz)]
+        pre_r = tuple(x[r] for x in pre)
+        tm_r, sk_r = tm[r], sk[r]
+        first = torch.full_like(tm_r, k, dtype=torch.int64)
+        groups = trw._chunk_groups(ch, tt[r])
+        for g in range(groups.shape[1]):
+            cols = trw._group_cols(groups[:, g])
+            ok, ts_c, det_c = watertight_scaled(pre_r, *lane, cols[:9])
+            blocked = (ok & (ts_c <= tm_r * det_c) & (cols[9] != sk_r)
+                       & (cols[10] >= 0.0))
+            idx = torch.arange(8 * g, 8 * g + 8, device=o.device)[:, None,
+                                                                  None]
+            first = torch.minimum(first, torch.where(blocked, idx, k).amin(0))
+        found = first < k
+        grp = torch.where(found, first // 8, k // 8 - 1)
+        G = torch.where(in_s[r], grp, -1).amax(dim=1)
+        walker = live[r] & ~occ[r]
+        new = walker & found & (first // 8 <= G[:, None])
+        lim = last[tt[r]]
+        nc = walker & ~crossing[r]
+        acc["walked"] += int(r.numel())
+        walked_row[r] += 1
+        acc["groups_walked"] += int((G + 1).sum())
+        acc["last_groups"] += int(((lim + 7) // 8).sum())
+        acc["lane_rows"] += int(torch.where(walker, torch.minimum(
+            first + 1, lim[:, None]), 0).sum())
+        acc["walkers"] += int(walker.sum())
+        acc["noncross_entered"] += int(nc.sum())
+        acc["noncross_occluded"] += int((nc & new).sum())
+        acc["barriers_parent"] += int(r.numel() + (G + 1).sum())
+        acc["barriers_new"] += 2 * int(r.numel())
+        occ[r] = occ[r] | new
+    if not torch.equal(occ.reshape(-1).to(torch.int32), out):
+        raise RuntimeError("rows_any: the plain walk's occlusion differs")
+    w = max(1, acc["walked"])
+    entries = (lists >= 0).sum(dim=1)
+    top = torch.argsort(walked_row, descending=True)[:5]
+    bins = torch.tensor([0, 1, 2, 4, 8, 16, 32, 1 << 30], device=o.device)
+    return dict(rows=int(tm.shape[0]), dead_rows=int((~live.any(dim=1)).sum()),
+                entries_per_row_max=int(entries.max()),
+                walked_per_row_max=int(walked_row.max()),
+                walked_per_row_bins=dict(zip(
+                    ["0", "1", "2-3", "4-7", "8-15", "16-31", "32+"],
+                    [int(((walked_row >= lo) & (walked_row < hi)).sum())
+                     for lo, hi in zip(bins[:-1], bins[1:])])),
+                top_rows=[(int(x), int(entries[x]), int(walked_row[x]))
+                          for x in top],
+                entries=acc["entries"], walked=acc["walked"],
+                groups_walked_mean=acc["groups_walked"] / w,
+                last_groups_mean=acc["last_groups"] / w,
+                lane_rows_mean=acc["lane_rows"] / max(1, acc["walkers"]),
+                noncross_entered=acc["noncross_entered"],
+                noncross_occluded_share=acc["noncross_occluded"] / max(
+                    1, acc["noncross_entered"]),
+                barriers_parent=acc["barriers_parent"] / max(1, acc["entries"]),
+                barriers_new=acc["barriers_new"] / max(1, acc["entries"]))
+
+
+def _wave_stats(torch, tpf, tb, px, py, si, spl, tile=512):
+    """The wave's work from the two-kernel wave's state: the live lanes
+    entering each bounce and, at each bounce, the 32-lane warps with a
+    live lane by their distinct classes among live lanes, in film order
+    and in the order of ``tile``-lane tiles sorted by class, dead lanes
+    dropped; with the mean distinct classes a warp of each order."""
+    st, ph = tpf.raygen_trace(px, py, si, 1, tb,
+                              None if spl is None else spl[:2])
+    out = []
+    for b in range(tb.max_depth):
+        cls = material_class(torch, tpf, tb, st)
+        live = cls > 0
+        n = int(cls.numel())
+        pad = (-n) % tile
+        c = torch.cat([cls, cls.new_zeros(pad)]).reshape(-1, tile)
+        # Film order: each warp's live lanes.
+        film = c.reshape(-1, 32)
+        # Tile order: live lanes sorted by class, packed to the front.
+        key = torch.where(c > 0, c, N_CLASSES + 1)
+        srt = torch.sort(key, dim=1, stable=True).values
+        srt = torch.where(srt > N_CLASSES, 0, srt).reshape(-1, 32)
+
+        def by_distinct(w):
+            seen = torch.stack([(w == k).any(dim=1) for k in
+                                range(1, N_CLASSES + 1)]).sum(0)
+            counts = torch.bincount(seen[seen > 0], minlength=N_CLASSES + 1)
+            counts = counts[1:].tolist()
+            mean = sum((i + 1) * x for i, x in enumerate(counts)) / max(
+                1, sum(counts))
+            return counts, mean
+        f_counts, f_mean = by_distinct(film)
+        s_counts, s_mean = by_distinct(srt)
+        out.append(dict(bounce=b, live=int(live.sum()),
+                        film_warps=f_counts, film_mean=f_mean,
+                        tile_warps=s_counts, tile_mean=s_mean))
+        st = tpf.bounce(st, ph, b, tb, tpf._bounce_planes(spl, tb, b))
+    return out
+
+
+def _wave(torch, tpf, res, tag, ms, tb, px, py):
+    """The one-kernel wave (see the module's docstring)."""
+    from yuki_tpu_torch.sampling import StratifiedSampler
+
+    for sam_name, sam, si in (("uniform", None, 0),
+                              ("strat", StratifiedSampler(4, 4), 5)):
+        spl = tpf.strat_planes(sam, px, py, si, 1, tb.n_lights, DEPTH)
+
+        def one():
+            return tpf.wave(px, py, si, 1, tb, spl)
+
+        def two():
+            st, ph = tpf.raygen_trace(px, py, si, 1, tb,
+                                      None if spl is None else spl[:2])
+            for b in range(DEPTH):
+                st = tpf.bounce(st, ph, b, tb, tpf._bounce_planes(spl, tb, b))
+            return st[[tpf._ST[k] for k in ("rx", "ry", "rz", "rc")]]
+        got = one()
+        res["hashes"][f"wave {sam_name}"] = digest(got)
+        if not PROBING:
+            ref = two()
+            torch.cuda.synchronize()
+            if not torch.equal(got.view(torch.int32), ref.view(torch.int32)):
+                print(f"chip_ab: FAIL: wave {sam_name}: bits differ from the "
+                      "two-kernel wave", file=sys.stderr)
+                return 1
+        key = f"wave {sam_name}"
+        res["ms"][key] = ms(one, 10)
+        res["ms"][f"{key}: kernel device time"] = kernel_device_ms(
+            torch, one, "wave_kernel", 5)
+        res["ms"][f"two-kernel {key}"] = ms(two, 10)
+        res["ms"][f"two-kernel {key}: kernel device time"] = sum(
+            kernel_device_ms(torch, two, name, 5)
+            for name in ("raygen_trace_kernel", "bounce_kernel"))
+        note = ""
+        if not PROBING:
+            st = _wave_stats(torch, tpf, tb, px, py, si, spl)
+            res["notes"][key] = st
+            note = "; " + "; ".join(
+                f"bounce {x['bounce']}: {x['live']} live, warps by distinct "
+                f"classes film order {x['film_warps'][:4]} (mean "
+                f"{x['film_mean']:.3f}), tiles sorted {x['tile_warps'][:4]} "
+                f"(mean {x['tile_mean']:.3f})" for x in st)
+        print(f"[{tag}] {key} [{px.shape[0]} lanes]: "
+              f"{res['ms'][key]:.4f} ms a call, kernel device time "
+              f"{res['ms'][f'{key}: kernel device time']:.4f} ms; two-kernel "
+              f"wave {res['ms'][f'two-kernel {key}']:.4f} ms a call, its "
+              f"kernels' device time "
+              f"{res['ms'][f'two-kernel {key}: kernel device time']:.4f} ms"
+              f"{note}")
+    return 0
 
 
 def _any_stats(torch, ch, row_chunk, stream, occ):

@@ -280,6 +280,21 @@ def bound(nbytes, ops):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def ptxas_usage(name):
+    """The registers, spills and shared memory ptxas reported for the
+    kernel function whose mangled name holds ``name`` (the library's
+    build), as one string."""
+    from yuki_tpu_torch.ops import _build
+
+    cur, found = False, []
+    for line in _build.ptxas_report.splitlines():
+        if "Compiling entry function" in line:
+            cur = name in line
+        elif cur and ("Used" in line or "spill" in line):
+            found.append(line.split(":", 1)[-1].strip())
+    return "; ".join(found) or "not in the ptxas report"
+
+
 def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
 
@@ -1009,7 +1024,8 @@ def phase_wave1k(torch, np, dev, card):
                                   bound_ms=b_ms, bound_by=b_by)
             line += (f"; plain {ms_p:.4f} ms (rays {rays_p}, divergent lanes "
                      f"{n_bad} of limit {limit}, mean rel diff {mean_rel:.3g})"
-                     f", bound {b_ms:.4f} ms ({b_by})")
+                     f", bound {b_ms:.4f} ms ({b_by}); ptxas "
+                     f"{ptxas_usage('wave_kernel')}")
         print(line + f" [{card}]")
 
     scene, cam, _ = cornell(device=dev)
@@ -1731,7 +1747,8 @@ def phase_rows_kernels(torch, scene, wave0, card):
               f"{coherent}), {int(ov.sum())} overflow rows, {chunks} chunks "
               f"listed, {found}]: kernel {ms_k:.4f} ms, plain {ms_p:.4f} ms, "
               f"bound {b_ms:.4f} ms ({b_by}; {stats['boxes']} rechecks, "
-              f"{stats['tests']} triangle tests): "
+              f"{stats['tests']} triangle tests; ptxas "
+              f"{ptxas_usage(name + '_kernel')}): "
               f"{'ts, prim, det' if out_b == 12 else 'occlusion'} equal on "
               f"every ray [{card}]")
         result[name] = dict(max_abs_err=0.0, ms=ms_k, plain_ms=ms_p,

@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from test_torch_cuda_stream import _to_cpu
+from test_torch_rows_any_redesign import hand_built
 from torch_scenes import REDUCED, row_trap
 from yuki_tpu_torch import traverse
 from yuki_tpu_torch.camera import Camera
@@ -233,3 +234,105 @@ def test_rows_closest_edge_shapes(scene, leaf_chunks, case, skip):
         assert bool((got[1][dead] == -1.0).all())
     name = "rows_closest_skip" if skip else "rows_closest"
     assert trw.LAUNCHES[name] == 1
+
+
+@pytest.mark.parametrize("perm", [(0, 1, 2), (1, 2, 0), (2, 0, 1)],
+                         ids=["z", "x", "y"])
+@pytest.mark.parametrize("k", [8, 64, 128])
+def test_rows_any_hand_built(k, perm):
+    """rows_any_walk against its plain version, bit for bit, on the rows
+    of test_torch_rows_any_redesign.hand_built: a non-crossing lane whose
+    occluder lies in the row's exit group G and one whose occluder lies in
+    G + 1, S all occluded in group 0, lanes occluded by an earlier chunk,
+    an S emptied by earlier chunks, dead lanes at t_max 0, -1 and NaN,
+    padding rows between real ones and a skip id that matches the
+    occluder, at leaf sizes 8, 64 and 128 with rays along z, x and y."""
+    _need_card()
+    ch, lists, o, d, t_max, skip, want = hand_built(k, list(perm))
+    ch.treelet_bounds = ch.treelet_bounds.cuda()
+    ch.rows = ch.rows.cuda()
+    args = [x.cuda() for x in (lists, o, d, t_max)]
+    trw.reset_launches()
+    got = trw.rows_any_walk(ch, *args, skip.cuda())
+    assert trw.LAUNCHES["rows_any"] == 1
+    ref = trw.rows_any_walk_plain(ch, *args, skip.cuda())
+    assert torch.equal(got, ref)
+    for (row, lane), occ in want.items():
+        assert int(got[128 * row + lane]) == occ, (row, lane)
+
+
+@pytest.mark.parametrize("case", ["k8", "k128", "k256", "k128-shuffled",
+                                  "dead-rows", "one-entry"])
+def test_rows_any_edge_shapes(scene, leaf_chunks, case):
+    """rows_any_walk against its plain version at leaf sizes 8, 128 and
+    256, on chunks whose padding is not a tail, on rows whose lanes are
+    all dead (t_max 0, -1 or NaN) beside rows with dead warps, and on lists
+    of one entry; t_max a chord that leaves some lanes unoccluded, skip ids
+    that match no light, every triangle's (-1) and light 0's."""
+    k = int(case.split("-")[0][1:]) if case.startswith("k") else 128
+    ch = leaf_chunks[k]
+    if case.endswith("shuffled"):
+        ch = _shuffled(ch, 7)
+    o, d, t_max = _camera_rays(scene, axis_parallel=case != "one-entry")
+    n = o.shape[0]
+    t_max = torch.where(t_max > 0.0, 30.0, t_max)
+    if case == "dead-rows":
+        lane = torch.arange(n, device=o.device)
+        row = lane // 128
+        t_max = torch.where(row % 3 == 0, torch.tensor(
+            [0.0, -1.0, float("nan")], device=o.device)[lane % 3], t_max)
+        t_max = torch.where((row % 3 == 1) & (lane % 128 < 64), 0.0, t_max)
+    lists, _ = trw.kept_lists(trw.row_words_interval(ch, o, d, t_max), 160,
+                              160)
+    if case == "one-entry":
+        last = lists[torch.arange(lists.shape[0], device=o.device),
+                     (lists >= 0).sum(dim=1) - 1]
+        lists[:, 1:] = -1
+        lists[:, 0] = last
+    rng = np.random.default_rng(4)
+    skip = torch.as_tensor(rng.choice([-2.0, -1.0, 0.0], n, p=[
+        0.8, 0.1, 0.1]).astype(np.float32), device=o.device)
+    trw.reset_launches()
+    got = trw.rows_any_walk(ch, lists, o, d, t_max, skip)
+    ref = trw.rows_any_walk_plain(ch, lists, o, d, t_max, skip)
+    assert torch.equal(got, ref)
+    assert trw.LAUNCHES["rows_any"] == 1
+    live = t_max > 0.0
+    assert 0 < int(got[live].sum()) < int(live.sum())
+    assert int(got[~live].sum()) == 0
+
+
+def test_rows_any_forced_shadow_wave(scene):
+    """The reduced colonnade's bounce-0 shadow rays (path_li's shading of
+    its camera rays, light-major, as chip_smoke.py's phase 8a makes them at
+    full size) forced through the rows engine: bit for bit."""
+    from yuki_tpu_torch.integrators import PathParams, _ph_i32
+    from yuki_tpu_torch.ops import shade_fused as tsf
+    from yuki_tpu_torch.sampling import SampleCtx
+
+    sc, cam, _ = scene
+    dev = sc.data.world_lo.device
+    w, h = 128, 96
+    py, px = torch.meshgrid(torch.arange(h, device=dev, dtype=torch.int32),
+                            torch.arange(w, device=dev, dtype=torch.int32),
+                            indexing="ij")
+    px, py = px.reshape(-1), py.reshape(-1)
+    ctx = SampleCtx(px=px, py=py, sample_index=0, seed=1)
+    o, d = Camera.create(cam, w, h).ray(
+        torch.stack([px.float(), py.float()], -1) + 0.5)
+    o, d = o.contiguous(), d.contiguous()
+    t_max = torch.full((o.shape[0],), F32_MAX, device=dev)
+    hit = traverse.intersect(sc.data, sc.meta, o, d, t_max, skip_sort=True)
+    out0 = tsf.shade_fused(tsf.make_shade_tables(sc, PathParams(5)), hit, o,
+                           d, torch.ones_like(o), hit.hit,
+                           torch.zeros_like(hit.hit), _ph_i32(ctx), 2, 0)
+    no, nd, nt, sk = out0[5:9]
+    ch = sc.data.chunks
+    lists, _ = trw.kept_lists(trw.row_words_interval(ch, no, nd, nt),
+                              traverse._ROWS_C, traverse._ROWS_MULT)
+    skf = sk.to(torch.float32).contiguous()
+    got = trw.rows_any_walk(ch, lists, no, nd, nt, skf)
+    ref = trw.rows_any_walk_plain(ch, lists, no, nd, nt, skf)
+    assert torch.equal(got, ref)
+    live = nt > 0.0
+    assert 0 < int(got.sum()) < int(live.sum())

@@ -12,10 +12,11 @@ the shape that hangs.
 ``BARRIERS`` holds, for each kernel function, the barriers its source
 emits: one per ``__syncthreads``/``__syncthreads_or`` call site, times the
 trips of a loop the source unrolls (``#pragma unroll``), helpers counted
-where they are inlined (``block_frames``, ``block_max``, ``stage_scene``,
-``stage_rows``, ``block_or``).  Marked ``cuda``: it needs nvcc to build
-the library and cuobjdump (the CUDA toolkit's, or the copy under
-``triton/backends/nvidia/bin/``) to read it; it skips without a card.
+where they are inlined (``block_frames``, ``block_union``, ``block_max``,
+``stage_scene``, ``sort_tile``, ``stage_rows``, ``block_or``).  Marked
+``cuda``: it needs nvcc to build the library and cuobjdump (the CUDA
+toolkit's, or the copy under ``triton/backends/nvidia/bin/``) to read it;
+it skips without a card.
 This file imports no JAX:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda_sass.py
@@ -40,11 +41,12 @@ pytestmark = pytest.mark.cuda
 # template argument.
 BARRIERS = {
     # path_fused.cu: raygen's three frame votes (an unrolled loop) and
-    # two stage barriers; the bounce kernel's stage, sort and perm
-    # barriers; the wave kernel's stage.
+    # two stage barriers; the bounce kernel's stage and sort_tile's two;
+    # the wave kernel's block_union, its camera sweep's two stage
+    # barriers, stage_scene, sort_tile's two and the end of a bounce.
     "raygen_trace_kernel": (2, 3),
     "bounce_kernel": (3, 0),
-    "wave_kernel": (1, 0),
+    "wave_kernel": (7, 0),
     # shade_fused.cu: none.
     "shade_kernel": (0, 0),
     "resolve_kernel": (0, 0),
@@ -55,10 +57,11 @@ BARRIERS = {
     "dense_closest_kernel<true>": (3, 0),
     "dense_any_kernel": (2, 1),
     # trace_rows.cu: block_frames, the chunk vote, stage_framed's
-    # block_max; the occlusion walk's two votes and its stage.
+    # block_max; the occlusion walk the same, its window's stage and
+    # block_union, and the block_max of its exit group.
     "rows_closest_kernel<false>": (2, 1),
     "rows_closest_kernel<true>": (2, 1),
-    "rows_any_kernel": (1, 2),
+    "rows_any_kernel": (5, 1),
     # trace_stream.cu: the dead-row vote and stage_framed's block_max.
     "cross_words_kernel": (0, 0),
     "slot_closest_kernel<false>": (1, 1),

@@ -7,7 +7,8 @@ repo's conftest:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda_wave1k.py
 
 The wave kernel runs the same device functions as the raygen and bounce
-kernels with the state in registers, so it must give the two-kernel
+kernels on 1024-lane tiles whose state stays in shared memory, its live
+lanes sorted by class at every bounce, so it must give the two-kernel
 wave's bits.  Against the plain versions the rules of test_torch_cuda.py
 hold (cos/sin/log may differ by an ulp between libdevice and torch).
 """
@@ -18,8 +19,15 @@ import torch
 
 from test_torch_cuda import (CASES, DEPTH, FLOATS, N, RES, _plane, _setup,
                              cuda)  # noqa: F401
+from test_torch_wave_redesign import TILE, _missing_pixels
+from torch_scenes import wide_camera
+from yuki_tpu_torch import camera as cam_mod
+from yuki_tpu_torch import transforms as tf
+from yuki_tpu_torch.camera import Camera
+from yuki_tpu_torch.integrators import PathParams
 from yuki_tpu_torch.ops import path_fused as tpf
 from yuki_tpu_torch.sampling import StratifiedSampler
+from yuki_tpu_torch.scene import data as scene_data
 
 pytestmark = pytest.mark.cuda
 
@@ -65,6 +73,75 @@ def test_path_li_wave_one_kernel_flag(cuda, sampler):
         tpf.PATH_FUSED_ONEKERNEL = False
     for g, r in zip(got, ref):
         assert torch.equal(g, r)
+
+
+def _wave_both(tb, px, py, si, seed, sampler):
+    """The wave kernel's [4, N] and the two-kernel wave's, after checking
+    that the wave took one launch."""
+    spl = tpf.strat_planes(sampler, px, py, si, seed, tb.n_lights,
+                           tb.max_depth)
+    tpf.reset_launches()
+    one = tpf.wave(px, py, si, seed, tb, spl)
+    assert tpf.LAUNCHES == {"raygen_trace": 0, "bounce": 0, "wave": 1}
+    st, ph = tpf.raygen_trace(px, py, si, seed, tb,
+                              None if spl is None else spl[:2])
+    for b in range(tb.max_depth):
+        st = tpf.bounce(st, ph, b, tb, tpf._bounce_planes(spl, tb, b))
+    two = st[[tpf._ST["rx"], tpf._ST["ry"], tpf._ST["rz"], tpf._ST["rc"]]]
+    torch.cuda.synchronize()
+    return one, two, spl
+
+
+def _assert_plain_rules(got, ref):
+    """test_wave_kernel_matches_plain's rules against wave_plain."""
+    got, ref = got.cpu().numpy(), ref.cpu().numpy()
+    assert np.isfinite(got).all()
+    assert abs(got[3].sum() - ref[3].sum()) <= max(16, 0.01 * ref[3].sum())
+    bad = (np.abs(got[:3] - ref[:3]) > 2e-4 + 2e-4 * np.abs(ref[:3])).any(0)
+    assert bad.sum() <= max(4, got.shape[1] // 12)
+
+
+@pytest.mark.parametrize("sampler", [None, StratifiedSampler(2, 2)],
+                         ids=["uniform", "2x2"])
+@pytest.mark.parametrize("n_spheres", [0, 3])
+def test_wave_kernel_at_the_gate(cuda, n_spheres, sampler):
+    """1024 triangles (the wave's gate: one camera copy at a time) on the
+    wide camera, whose rays span the three shear frames; 1,500 lanes, not
+    a multiple of the 1024-lane tile.  Bits of the two-kernel wave; the
+    plain wave under the file's rules."""
+    scene, cam = wide_camera(scene_data, tf, cam_mod, 1024, n_spheres,
+                             seed=5 + n_spheres, device=cuda)
+    tb = tpf.make_tables(scene, Camera.create(cam, *RES), PathParams(DEPTH))
+    assert tb.n_tris == tpf.MAX_TRIS_WAVE
+    rng = np.random.default_rng(n_spheres)
+    n = 1500
+    px = torch.as_tensor(rng.integers(0, RES[0], n, dtype=np.int32),
+                         device=cuda)
+    py = torch.as_tensor(rng.integers(0, RES[1], n, dtype=np.int32),
+                         device=cuda)
+    one, two, spl = _wave_both(tb, px, py, 3, 11, sampler)
+    assert torch.equal(one.view(torch.int32), two.view(torch.int32))
+    _assert_plain_rules(one, tpf.wave_plain(px, py, 3, 11, tb, spl))
+    assert float(one[3].sum()) > n
+
+
+@pytest.mark.parametrize("sampler", [None, StratifiedSampler(2, 2)],
+                         ids=["uniform", "2x2"])
+@pytest.mark.parametrize("n", [1, 1025, 2500])
+def test_wave_kernel_ragged_and_dead_tiles(cuda, n, sampler):
+    """Lane counts that are not a multiple of the tile, the first tile's
+    lanes all missed at bounce 0 (dead after it: its loop ends there) and
+    the rest on every-branch's random pixels.  Bits of the two-kernel wave;
+    the plain wave under the file's rules."""
+    tb, px, py = _setup("every-branch", cuda, n=n)
+    si, seed = 2, 7
+    mx, my = _missing_pixels(tb, min(n, TILE), si, seed, sampler)
+    px, py = torch.cat([mx, px[TILE:]]), torch.cat([my, py[TILE:]])
+    one, two, spl = _wave_both(tb, px, py, si, seed, sampler)
+    assert torch.equal(one.view(torch.int32), two.view(torch.int32))
+    _assert_plain_rules(one, tpf.wave_plain(px, py, si, seed, tb, spl))
+    dead = one[:, :TILE]
+    assert torch.equal(dead[3], torch.ones_like(dead[3]))
 
 
 def test_wave_kernel_matches_plain(cuda):

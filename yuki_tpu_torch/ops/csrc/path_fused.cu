@@ -13,15 +13,16 @@
 //                    for the card (PERF.md §6 records the change and its
 //                    measurements).
 //   yk_wave          replaces _wave_kernel (path_fused.py:788): raygen and
-//                    every bounce of one sample in one launch, the path
-//                    state in registers, writing only radiance and the ray
-//                    count.
+//                    every bounce of one sample in one launch, writing only
+//                    radiance and the ray count.  Its first port kept the
+//                    path state in registers, one thread a lane in film
+//                    order; this is its redesign for the card (below).
 //
-// The bodies are device functions that the kernels share: camera_dir
-// (raygen, wave), bounce_lane (bounce, wave), and the closest-hit sweep,
-// trace_scene in the wave and bounce kernels and camera_sweep, which gives
-// its bits, in the raygen kernel; so the one-kernel wave gives the
-// two-kernel wave's bits.  Each takes a StratifiedSampler's values as planes computed
+// The bodies are device functions that the kernels share: camera_dir and
+// camera_sweep (raygen, wave), bounce_lane (bounce, wave) with its
+// closest-hit sweep trace_scene, whose bits camera_sweep gives for a
+// camera ray; so the one-kernel wave gives the two-kernel wave's bits.
+// Each takes a StratifiedSampler's values as planes computed
 // beforehand (the TPU kernels' `strat` variants) where the caller passes
 // them, else the uniform sampler's hash.
 //
@@ -71,16 +72,34 @@
 //   measured within a few percent, 4 rays slower; PERF.md §6).
 //   Bound: ALU, ~30 operations a triangle test and ~38 a sphere test,
 //   beside the 108 B of state and hash each ray writes.
-// - Grids: one lane a thread (raygen, wave) and one tile a block (bounce),
+// - The wave kernel (redesigned after the raygen kernel; PERF.md §6) runs
+//   the two kernels' bodies on a tile of WAVE_TILE = 1024 lanes a block of
+//   WAVE_THREADS = 256.  The tile's path state lives in shared memory from
+//   raygen to its last bounce ([24][WAVE_TILE] floats, as load_state and
+//   store_state lay it out, and each lane's ph), so lanes can move between
+//   threads: raygen is the camera sweep above, its copies staged where the
+//   scene's tables go next (one copy at a time where three would keep a
+//   second block off the SM), and each bounce sorts the tile's live lanes
+//   by class as the bounce kernel does, dead lanes out of the order, and
+//   ends the loop when none is left.  A lane reads its sampler planes at
+//   its own index and its arithmetic is unchanged, so every output keeps
+//   its bits.  The state never goes through device memory (the two-kernel
+//   wave moves 2 x 96 B a lane a bounce).  1024-lane tiles of 256 threads
+//   measured fastest of the shapes that fit the gate's tables (128-512
+//   threads, 256-2048 lanes; PERF.md §6): at the gate a block takes ~158
+//   KB, one an SM, and at Cornell's size ~110 KB, two.
+// - Grids: one ray a thread (raygen) and one tile a block (bounce, wave),
 //   so the card schedules blocks as they finish.  A persistent grid, which
 //   stages the tables once per block, measured slower here: the tables of
 //   a Cornell-sized scene take 2 KB, and its blocks' uneven work left SMs
 //   idle at the end (PERF.md §6).
 // - Registers: __launch_bounds__(256, 2) caps them at 128; the bounce
-//   kernel takes 108 and spills nothing (the first port's took 96 with 24
-//   B of spills).  256 threads and 512-lane tiles measured fastest over
+//   kernel takes 108 and the wave kernel 103, and neither spills (the
+//   first port's bounce took 96 with 24 B of spills).  For the bounce
+//   kernel, 256 threads and 512-lane tiles measured fastest over
 //   bounces 0-4 among 128-384 threads and 384-2048 lanes.
-// - State crosses bounces as [24, N] float planes (plane-major).
+// - In the two-kernel wave, state crosses bounces as [24, N] float planes
+//   (plane-major).
 //
 // Numerics: compiled with -fmad=false and without fast-math, so products,
 // sums, divisions and square roots round exactly as in the JAX and PyTorch
@@ -94,8 +113,8 @@
 
 using namespace yk;
 
-// The block's dynamic shared memory: the staged scene, then the bounce
-// kernel's sort buffers.
+// The block's dynamic shared memory: the staged scene (or the camera
+// sweep's copies), then the bounce and wave kernels' tile buffers.
 extern __shared__ float4 smem[];
 
 namespace {
@@ -110,7 +129,6 @@ constexpr int MS_R2C = 0, MS_C2W = 16, MS_CENTER = 32, MS_DIAG = 35, MS_BG = 36,
 
 constexpr int FLAG_SIGMA = 1, FLAG_CLAMP = 2, FLAG_TEX = 4;
 
-constexpr int THREADS = 128;  // wave kernel
 constexpr int CAM_THREADS = 256;  // raygen kernel
 constexpr int BOUNCE_THREADS = 256;  // bounce kernel
 constexpr int BOUNCE_MIN_BLOCKS = 2;  // its blocks per SM: at most 128 registers
@@ -118,6 +136,13 @@ constexpr int TILE = 512;  // lanes the bounce kernel sorts together
 constexpr int BOUNCE_WARPS = BOUNCE_THREADS / 32;
 constexpr int PER_THREAD = TILE / BOUNCE_THREADS;
 constexpr int N_CLASSES = 10;  // dead, missed, 4 material types x 2 surfaces
+constexpr int WAVE_THREADS = 256;  // wave kernel
+constexpr int WAVE_MIN_BLOCKS = 512 / WAVE_THREADS;  // at most 128 registers
+constexpr int WAVE_TILE = 1024;  // lanes of a wave block, sorted together each bounce
+constexpr int WAVE_PER_THREAD = WAVE_TILE / WAVE_THREADS;
+// Shared memory a wave block may take for two of them to fit on an SM: its
+// 228 KB less 1 KB reserved a block, halved.
+constexpr size_t WAVE_SHARED_TWO = 113 * 1024;
 constexpr unsigned FULL = 0xffffffffu;
 
 // The scene's tables in device memory, as the wrapper passes them.
@@ -381,16 +406,6 @@ __device__ __forceinline__ PathState camera_state(V3 o, V3 d, const Hit& hit) {
   return p;
 }
 
-// Camera ray and its closest hit through the general sweep: the wave
-// kernel's raygen.
-__device__ __forceinline__ PathState raygen_lane(int px, int py, uint32_t sample_index, uint32_t seed,
-                                                 const float* __restrict__ ms, const Scene& sc,
-                                                 const float* __restrict__ spl, size_t stride, uint32_t& ph) {
-  const V3 d = camera_dir(px, py, sample_index, seed, ms, spl, stride, ph);
-  const V3 o = camera_origin(ms);
-  return camera_state(o, d, trace_scene(sc, o, d, YK_F32_MAX));
-}
-
 // ---- the raygen kernel's camera sweep -------------------------------------
 // Its tables in shared memory, staged per block by stage_camera_spheres and
 // stage_camera_copy: `slots` copies of the triangles' corners less the
@@ -593,15 +608,77 @@ __device__ __forceinline__ PathState bounce_lane(const Tables& a, const Scene& s
   return out;
 }
 
-// A lane's class for the bounce kernel's sort: 0 dead, 1 missed, else 2 +
-// 2 * the hit's material type + 1 on a sphere's surface.  It orders lanes
-// only; no output depends on it.
-__device__ __forceinline__ int lane_class(const Tables& a, const float* __restrict__ s, size_t N) {
-  if (!(__ldg(s + ST_ALIVE * N) > 0.0f)) return 0;
-  if (!(__ldg(s + ST_HITF * N) > 0.0f)) return 1;
-  const Rows r = select_rows(shade_tables(a), __ldg(s + ST_PRIM * N), __ldg(s + ST_SPH * N));
+// A lane's class for the bounce and wave kernels' sort: 0 dead, 1 missed,
+// else 2 + 2 * the hit's material type + 1 on a sphere's surface, from its
+// state planes N floats apart in device memory (GLOBAL) or shared memory.
+// It orders lanes only; no output depends on it.
+template <bool GLOBAL>
+__device__ __forceinline__ int lane_class(const Tables& a, const float* s, size_t N) {
+  auto at = [&](int plane) {
+    if constexpr (GLOBAL) return __ldg(s + plane * N);
+    else return s[plane * N];
+  };
+  if (!(at(ST_ALIVE) > 0.0f)) return 0;
+  if (!(at(ST_HITF) > 0.0f)) return 1;
+  const Rows r = select_rows(shade_tables(a), at(ST_PRIM), at(ST_SPH));
   const int mtype = min(max((int)__ldg(r.mrow), 0), 3);
   return 2 + 2 * mtype + (r.sph_valid ? 1 : 0);
+}
+
+// A stable counting sort of a tile's lanes by class, by all THREADS threads
+// of the block: thread t holds in cls the classes of lanes PER t .. PER t +
+// PER - 1 (N_CLASSES for a lane left out) and counts each class; warp scans
+// and one pass over the warps' sums give every thread, for each class, its
+// first position in the sorted tile.  Writes the sorted lanes to perm and
+// returns their count, to every thread; warp_sums: N_CLASSES * THREADS / 32
+// ints.  Two barriers.
+template <int THREADS, int PER>
+__device__ __forceinline__ int sort_tile(const int (&cls)[PER], uint16_t* perm, int* warp_sums) {
+  constexpr int WARPS = THREADS / 32;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int pos[N_CLASSES];  // this thread's count of each class, then its first position
+#pragma unroll
+  for (int k = 0; k < N_CLASSES; ++k) pos[k] = 0;
+#pragma unroll
+  for (int j = 0; j < PER; ++j) {
+#pragma unroll
+    for (int k = 0; k < N_CLASSES; ++k) pos[k] += cls[j] == k ? 1 : 0;
+  }
+  // Inclusive warp scans of the counts, then the warps' sums.
+#pragma unroll
+  for (int k = 0; k < N_CLASSES; ++k) {
+    int incl = pos[k];
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const int u = __shfl_up_sync(FULL, incl, off);
+      if (lane >= off) incl += u;
+    }
+    if (lane == 31) warp_sums[k * WARPS + warp] = incl;
+    pos[k] = incl - pos[k];  // exclusive, within the warp
+  }
+  __syncthreads();
+  int start = 0;  // the sorted tile's first position of class k
+#pragma unroll
+  for (int k = 0; k < N_CLASSES; ++k) {
+    int before = 0, total = 0;
+#pragma unroll
+    for (int w = 0; w < WARPS; ++w) {
+      const int u = warp_sums[k * WARPS + w];
+      total += u;
+      before += w < warp ? u : 0;
+    }
+    pos[k] += start + before;
+    start += total;
+  }
+#pragma unroll
+  for (int j = 0; j < PER; ++j) {
+#pragma unroll
+    for (int k = 0; k < N_CLASSES; ++k) {
+      if (cls[j] == k) perm[pos[k]++] = (uint16_t)(PER * threadIdx.x + j);
+    }
+  }
+  __syncthreads();  // perm complete; `start` is the sorted lanes' count
+  return start;
 }
 
 // ---- kernels -------------------------------------------------------------
@@ -655,101 +732,144 @@ __global__ void __launch_bounds__(CAM_THREADS)
 }
 
 // One bounce of TILE lanes a block.  The tile's lanes are sorted by
-// lane_class with a stable counting sort: thread t classes lanes
-// PER_THREAD t .. PER_THREAD t + PER_THREAD - 1 and counts each class; warp
-// scans and one pass over the warps' sums give every thread, for each
-// class, its first position in the sorted tile.  Then the block runs the
-// tile in that order: position p goes to thread p % BOUNCE_THREADS, so each
-// warp takes 32 neighbours in class order.  Every lane reads and writes its
-// own index.
+// lane_class (sort_tile); then the block runs the tile in that order:
+// position p goes to thread p % BOUNCE_THREADS, so each warp takes 32
+// neighbours in class order.  Every lane reads and writes its own index.
 __global__ void __launch_bounds__(BOUNCE_THREADS, BOUNCE_MIN_BLOCKS)
     bounce_kernel(Tables a, const float* __restrict__ st_in, const int* __restrict__ ph, float* __restrict__ st_out,
                   int n, int dim0, int bounce, const float* __restrict__ spl) {
   const Scene sc = stage_scene(a.src);
   uint16_t* perm = (uint16_t*)sc.end();            // [TILE]
   int* warp_sums = (int*)(perm + TILE);            // [N_CLASSES][BOUNCE_WARPS]
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const size_t N = (size_t)n;
   const int base = blockIdx.x * TILE;
   int cls[PER_THREAD];
-  int pos[N_CLASSES];  // this thread's count of each class, then its first position
-#pragma unroll
-  for (int k = 0; k < N_CLASSES; ++k) pos[k] = 0;
 #pragma unroll
   for (int j = 0; j < PER_THREAD; ++j) {
     const int i = base + PER_THREAD * threadIdx.x + j;
-    cls[j] = i < n ? lane_class(a, st_in + i, N) : N_CLASSES;
-#pragma unroll
-    for (int k = 0; k < N_CLASSES; ++k) pos[k] += cls[j] == k ? 1 : 0;
+    cls[j] = i < n ? lane_class<true>(a, st_in + i, N) : N_CLASSES;
   }
-  // Inclusive warp scans of the counts, then the warps' sums.
-#pragma unroll
-  for (int k = 0; k < N_CLASSES; ++k) {
-    int incl = pos[k];
-#pragma unroll
-    for (int off = 1; off < 32; off <<= 1) {
-      const int u = __shfl_up_sync(FULL, incl, off);
-      if (lane >= off) incl += u;
-    }
-    if (lane == 31) warp_sums[k * BOUNCE_WARPS + warp] = incl;
-    pos[k] = incl - pos[k];  // exclusive, within the warp
-  }
-  __syncthreads();
-  int start = 0;  // the sorted tile's first position of class k
-#pragma unroll
-  for (int k = 0; k < N_CLASSES; ++k) {
-    int before = 0, total = 0;
-#pragma unroll
-    for (int w = 0; w < BOUNCE_WARPS; ++w) {
-      const int u = warp_sums[k * BOUNCE_WARPS + w];
-      total += u;
-      before += w < warp ? u : 0;
-    }
-    pos[k] += start + before;
-    start += total;
-  }
-#pragma unroll
-  for (int j = 0; j < PER_THREAD; ++j) {
-#pragma unroll
-    for (int k = 0; k < N_CLASSES; ++k) {
-      if (cls[j] == k) perm[pos[k]++] = (uint16_t)(PER_THREAD * threadIdx.x + j);
-    }
-  }
-  __syncthreads();  // perm complete; `start` is the tile's lane count
-  for (int p = threadIdx.x; p < start; p += BOUNCE_THREADS) {
+  const int count = sort_tile<BOUNCE_THREADS, PER_THREAD>(cls, perm, warp_sums);
+  for (int p = threadIdx.x; p < count; p += BOUNCE_THREADS) {
     const int i = base + perm[p];
     const Draws urand{(uint32_t)ph[i], (uint32_t)dim0, spl ? spl + i : nullptr, N};
     store_state(st_out + i, N, bounce_lane(a, sc, load_state(st_in + i, N), urand, bounce));
   }
 }
 
-// The whole path of one sample (_wave_kernel, path_fused.py:788): raygen,
-// then every bounce with the state in registers, writing only radiance rgb
-// and the ray count as [4, N].  Bounce b's values are the hash from
-// dimension 2 + b * (2L+3), or the stratified planes from that row of spl.
-// A lane that is dead after a bounce leaves the loop: every later bounce
-// would leave its radiance and count as they are (in.alive = alive && hit
-// never revives it).
-__global__ void __launch_bounds__(THREADS)
+// The bytes of shared memory a wave block takes with `slots` camera copies:
+// the scene's tables or the camera sweep's copies, whichever is larger (the
+// tables replace the copies after raygen), then the tile's state, ph, perm
+// and warp sums.
+__host__ __device__ inline size_t wave_scene_bytes(int n_tris, int n_spheres, int slots) {
+  const size_t a = scene_bytes(n_tris, n_spheres), b = camera_bytes(n_tris, n_spheres, slots);
+  return a > b ? a : b;
+}
+__host__ __device__ inline size_t wave_bytes(int n_tris, int n_spheres, int slots) {
+  return wave_scene_bytes(n_tris, n_spheres, slots) + (size_t)WAVE_TILE * (24 * 4 + 4 + 2) +
+         (size_t)N_CLASSES * (WAVE_THREADS / 32) * 4;
+}
+
+// The whole path of one sample (_wave_kernel, path_fused.py:788) for a tile
+// of WAVE_TILE lanes, writing only radiance rgb and the ray count as [4, N].
+// Raygen: thread t makes the camera rays of lanes t + j WAVE_THREADS and
+// traces them through the camera sweep (as raygen_trace_kernel, `slots`
+// copies at a time), and the state goes to shared memory.  The scene's
+// tables are then staged over the copies.  Bounce b: the live lanes are
+// sorted by class (sort_tile; a dead lane is out of the order: every later
+// bounce would leave its radiance and count as they are, since in.alive =
+// alive && hit never revives it), position p runs on thread p %
+// WAVE_THREADS with the hash from dimension 2 + b * (2L+3), or the
+// stratified planes from that row of spl at the lane's own index, and the
+// loop ends after max_depth bounces or when no lane is live.
+__global__ void __launch_bounds__(WAVE_THREADS, WAVE_MIN_BLOCKS)
     wave_kernel(Tables a, const int* __restrict__ px_in, const int* __restrict__ py_in, int n, uint32_t sample_index,
-                uint32_t seed, const float* __restrict__ spl, float* __restrict__ out) {
-  const Scene sc = stage_scene(a.src);
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
+                uint32_t seed, int slots, const float* __restrict__ spl, float* __restrict__ out) {
+  __shared__ int frames_w[WAVE_THREADS / 32];
+  const int T = a.src.n_tris, S = a.src.n_spheres;
+  float* st = (float*)((char*)smem + wave_scene_bytes(T, S, slots));  // [24][WAVE_TILE]
+  uint32_t* ph = (uint32_t*)(st + 24 * WAVE_TILE);                   // [WAVE_TILE]
+  uint16_t* perm = (uint16_t*)(ph + WAVE_TILE);                      // [WAVE_TILE]
+  int* warp_sums = (int*)(perm + WAVE_TILE);                         // [N_CLASSES][WAVE_THREADS / 32]
   const size_t N = (size_t)n;
-  const float* lane_spl = spl ? spl + i : nullptr;
-  uint32_t ph;
-  PathState p = raygen_lane(px_in[i], py_in[i], sample_index, seed, a.ms, sc, lane_spl, N, ph);
-  const int dims_per_bounce = 2 * a.n_lights + 3;
-  for (int b = 0; b < a.max_depth && p.alive > 0.0f; ++b) {
-    const int dim0 = 2 + b * dims_per_bounce;
-    const Draws urand{ph, (uint32_t)dim0, lane_spl ? lane_spl + (size_t)dim0 * N : nullptr, N};
-    p = bounce_lane(a, sc, p, urand, b);
+  const int base = blockIdx.x * WAVE_TILE;
+
+  // ---- raygen: the camera sweep -----------------------------------------
+  const V3 o = camera_origin(a.ms);
+  V3 d[WAVE_PER_THREAD];
+  int frame[WAVE_PER_THREAD];
+  int bits = 0;
+#pragma unroll
+  for (int j = 0; j < WAVE_PER_THREAD; ++j) {
+    const int l = threadIdx.x + j * WAVE_THREADS, i = base + l;
+    d[j] = zero3();
+    frame[j] = -1;
+    if (i < n) {
+      uint32_t h;
+      d[j] = camera_dir(px_in[i], py_in[i], sample_index, seed, a.ms, spl ? spl + i : nullptr, N, h);
+      frame[j] = shear_frame(d[j]);
+      ph[l] = h;
+      bits |= 1 << frame[j];
+    }
   }
-  out[i] = p.rad.x;
-  out[N + i] = p.rad.y;
-  out[2 * N + i] = p.rad.z;
-  out[3 * N + i] = p.rc;
+  int todo = block_union<WAVE_THREADS>(bits, frames_w);
+  const CamScene cs = {T, S, slots};
+  stage_camera_spheres(cs, a.src, o);
+  while (todo) {
+    int staged = 0;
+#pragma unroll
+    for (int f = 0; f < 3; ++f) {
+      if ((todo >> f & 1) && __popc(staged) < slots) {
+        if (f == 0) stage_camera_copy<0>(cs, a.src, o, __popc(staged));
+        if (f == 1) stage_camera_copy<1>(cs, a.src, o, __popc(staged));
+        if (f == 2) stage_camera_copy<2>(cs, a.src, o, __popc(staged));
+        staged |= 1 << f;
+      }
+    }
+    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < WAVE_PER_THREAD; ++j) {
+      if (frame[j] >= 0 && (staged >> frame[j] & 1)) {
+        const float4* copy = cs.copy(__popc(staged & ((1 << frame[j]) - 1)));
+        store_state(st + threadIdx.x + j * WAVE_THREADS, WAVE_TILE,
+                    camera_state(o, d[j], camera_sweep(copy, T, cs.sp(), S, d[j])));
+      }
+    }
+    todo &= ~staged;
+    __syncthreads();  // the copies are read: staged anew, or replaced by the tables
+  }
+
+  // ---- the bounces, live lanes sorted by class --------------------------
+  const Scene sc = stage_scene(a.src);
+  const int dims_per_bounce = 2 * a.n_lights + 3;
+  for (int b = 0; b < a.max_depth; ++b) {
+    int cls[WAVE_PER_THREAD];
+#pragma unroll
+    for (int j = 0; j < WAVE_PER_THREAD; ++j) {
+      const int l = WAVE_PER_THREAD * threadIdx.x + j;
+      cls[j] = base + l < n ? lane_class<false>(a, st + l, WAVE_TILE) : N_CLASSES;
+      if (cls[j] == 0) cls[j] = N_CLASSES;
+    }
+    const int live = sort_tile<WAVE_THREADS, WAVE_PER_THREAD>(cls, perm, warp_sums);
+    if (live == 0) break;
+    const int dim0 = 2 + b * dims_per_bounce;
+    for (int p = threadIdx.x; p < live; p += WAVE_THREADS) {
+      const int l = perm[p], i = base + l;
+      const Draws urand{ph[l], (uint32_t)dim0, spl ? spl + (size_t)dim0 * N + i : nullptr, N};
+      store_state(st + l, WAVE_TILE, bounce_lane(a, sc, load_state(st + l, WAVE_TILE), urand, b));
+    }
+    __syncthreads();  // the tile's state is complete for the next sort
+  }
+#pragma unroll
+  for (int j = 0; j < WAVE_PER_THREAD; ++j) {
+    const int l = threadIdx.x + j * WAVE_THREADS, i = base + l;
+    if (i < n) {
+      out[i] = st[ST_RX * WAVE_TILE + l];
+      out[N + i] = st[ST_RY * WAVE_TILE + l];
+      out[2 * N + i] = st[ST_RZ * WAVE_TILE + l];
+      out[3 * N + i] = st[ST_RC * WAVE_TILE + l];
+    }
+  }
 }
 
 Tables make_tables(const float* ms, const float* tri, int n_tris, const float* trs, const float* mat,
@@ -823,11 +943,15 @@ extern "C" int yk_wave(int device, const int* px, const int* py, int n, unsigned
   if (err != cudaSuccess) return (int)err;
   const Tables a = make_tables(ms, tri, n_tris, trs, mat, lt, n_lights, sp, n_spheres, td, n_td, tex, pool_pad,
                                flags, max_depth);
-  const size_t shmem = scene_bytes(n_tris, n_spheres);
+  // Three camera copies where two blocks still fit on an SM; else one at a
+  // time.  A block that does not fit at all is refused, and the wrapper
+  // raises.
+  const int slots = wave_bytes(n_tris, n_spheres, 3) <= WAVE_SHARED_TWO ? 3 : 1;
+  const size_t shmem = wave_bytes(n_tris, n_spheres, slots);
   err = allow_shared((const void*)wave_kernel, shmem);
   if (err != cudaSuccess) return (int)err;
-  wave_kernel<<<(n + THREADS - 1) / THREADS, THREADS, shmem, (cudaStream_t)stream>>>(a, px, py, n, sample_index,
-                                                                                     seed, spl, out);
+  wave_kernel<<<(n + WAVE_TILE - 1) / WAVE_TILE, WAVE_THREADS, shmem, (cudaStream_t)stream>>>(
+      a, px, py, n, sample_index, seed, slots, spl, out);
   return (int)cudaGetLastError();
 }
 

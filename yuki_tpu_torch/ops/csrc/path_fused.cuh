@@ -137,21 +137,28 @@ __device__ __forceinline__ Shear make_shear(V3 d) {
 // The staged copy a ray's shear frame reads: 0 (z largest), 1 (x), 2 (y).
 __device__ __forceinline__ int frame_of(const Shear& sh) { return sh.x_max ? 1 : (sh.y_max ? 2 : 0); }
 
-// The shear frames (bit f: frame f) of the `frame`s of a block of THREADS
-// threads, to every thread (frame -1: none); w: THREADS / 32 ints of
-// shared memory.  A warp OR and a plain barrier: with one __syncthreads_or
-// a frame, ptxas repeated a barrier of the three inside a later staging
-// loop whose trip count differs between threads, an illegal instruction
-// on the card.
+// The OR of each thread's `bits` in a block of THREADS threads, to every
+// thread; w: THREADS / 32 ints of shared memory.  A warp OR and a plain
+// barrier.
 template <int THREADS>
-__device__ __forceinline__ int block_frames(int frame, int* w) {
-  const int bits = __reduce_or_sync(0xffffffffu, frame >= 0 ? 1 << frame : 0);
+__device__ __forceinline__ int block_union(int bits, int* w) {
+  bits = __reduce_or_sync(0xffffffffu, bits);
   if ((threadIdx.x & 31) == 0) w[threadIdx.x >> 5] = bits;
   __syncthreads();
-  int frames = 0;
+  int all = 0;
 #pragma unroll
-  for (int k = 0; k < THREADS / 32; ++k) frames |= w[k];
-  return frames;
+  for (int k = 0; k < THREADS / 32; ++k) all |= w[k];
+  return all;
+}
+
+// The shear frames (bit f: frame f) of the `frame`s of a block of THREADS
+// threads, to every thread (frame -1: none); w: THREADS / 32 ints of
+// shared memory.  With one __syncthreads_or a frame, ptxas repeated a
+// barrier of the three inside a later staging loop whose trip count
+// differs between threads, an illegal instruction on the card.
+template <int THREADS>
+__device__ __forceinline__ int block_frames(int frame, int* w) {
+  return block_union<THREADS>(frame >= 0 ? 1 << frame : 0, w);
 }
 
 // One triangle (corners p0, p1, p2) against one ray.  Returns hit; t

@@ -43,23 +43,54 @@
 // rows_closest_kernel<true> (with_skip) never takes a triangle of the
 // lane's skip light (plane 7, an f32 light id; -2 matches none).
 //
-// rows_any (the first port): per chunk, groups of 8 triangles from the
-// chunk staged with scalar loads, each ORed into every lane's verdict
-// (any_walk, yuki_tpu/ops/trace_stream.py:776-804); after each group the
-// block leaves the chunk once no crossing lane is still unoccluded, so
-// lanes that do not cross the chunk keep what the groups walked so far gave
-// them.  A per-lane exit would not give the same bits.
+// rows_any (redesigned for the card as rows_closest was; PERF.md §6).  The
+// decisions are still any_walk's (yuki_tpu/ops/trace_stream.py:776-804):
+// per chunk, groups of 8 triangles are ORed into every lane's verdict, and
+// the row leaves the chunk after the first group at which no lane that
+// crosses the chunk is still unoccluded, so a lane that does not cross it
+// keeps what the groups walked so far gave it.  That exit has a closed
+// form, because OR is monotone.  Let S be the lanes that cross the chunk
+// and are unoccluded when the row enters it.  The row leaves after group
+// G, the largest over S of the group that holds a lane's first occluder
+// (the last group where some lane of S has none); every other live,
+// unoccluded lane is occluded if and only if its own first occluder lies
+// in groups 0..G.  A lane with t_max <= 0 or NaN is never occluded
+// (watertight_framed gives ts > 0 and det > 0, so ts <= t_max * det is
+// false), so it walks nothing.  Per chunk:
+// - a row with no live lane writes its zeros at once; else the row
+//   rechecks its list WINDOW = 32 entries at a time: the entries and their
+//   boxes go to shared memory, each lane rechecks every entry of the
+//   window against its t_max (which the walk does not change, so the
+//   rechecks need not wait for the walks) into a bit mask, and one block
+//   OR of the masks leaves the entries that some lane crosses.  The first
+//   port paid a dependent list load, box load and barrier per entry, and on
+//   the forced shadow wave its rows walk 1 in 110 of their entries;
+// - per entry some lane crosses, in list order: a row whose S is empty
+//   leaves the chunk before it stages anything (one __syncthreads_or);
+// - the chunk is staged as framed copies for the live lanes' frames
+//   (block_frames, once) with 16-byte loads, keeping its last real row;
+// - every live, unoccluded lane walks its frame's copy up to its first
+//   occluder or the last real row, four rows unrolled, with no selects;
+//   a warp with no such lane passes by together;
+// - one block reduction (block_max) gives G, and a lane keeps its verdict
+//   only where its first occluder lies in groups 0..G.
+// Three barriers a walked chunk and two a window, where the first port
+// paid one an entry and one for every 8 rows walked.  The rechecks' folds
+// are one instruction each (recheck6), which the window's 32 rechecks a
+// lane made the larger cost.  Walking S first, then the other lanes up to 8
+// (G + 1) rows, gives the same bits and measured slower (PERF.md §6).
 //
 // A row starts from (ts, prim, det) = (t_max, -1, 1), occlusion 0.
 //
 // What bounds them: ALU work, ~40 operations per live lane and real
-// triangle of every walked chunk plus 24 per recheck; traffic is 28-32 B of
+// triangle of every walked chunk (rows_any: up to the lane's first
+// occluder) plus 24 per recheck; traffic is 28-32 B of
 // ray in (32 B for the skip variant) and 12 B (4 B) out per ray, 4 B per
 // list entry and 6 KB per walked chunk.
 //
 // Numerics: built with -fmad=false and without fast-math.  The recheck
-// takes a plain 1 / d, as _recheck does (not _safe_inv), and the NaN-
-// propagating jmin/jmax: an axis-parallel ray's 0 * inf = NaN fails the
+// takes a plain 1 / d, as _recheck does (not _safe_inv), and NaN-
+// propagating folds: an axis-parallel ray's 0 * inf = NaN fails the
 // recheck as it does on the TPU.
 
 #include <cuda_runtime.h>
@@ -74,20 +105,31 @@ namespace {
 
 constexpr int ROW = 128;  // rays per row (the TPU's lane count)
 
-// _recheck (trace_rows.py:223-243): chunk box b (lo xyz, hi xyz of its [8]
-// row) against the ray with inv = 1 / d and the running scaled best
-// t = ts / det, the upper bound cross-multiplied.
-__device__ __forceinline__ bool recheck(const float* __restrict__ b, V3 o, V3 inv, float ts, float det) {
-  const float t0x = (__ldg(b + 0) - o.x) * inv.x;
-  const float t1x = (__ldg(b + 3) - o.x) * inv.x;
-  const float t0y = (__ldg(b + 1) - o.y) * inv.y;
-  const float t1y = (__ldg(b + 4) - o.y) * inv.y;
-  const float t0z = (__ldg(b + 2) - o.z) * inv.z;
-  const float t1z = (__ldg(b + 5) - o.z) * inv.z;
-  float tmin = jmax(jmax(jmin(t0x, t1x), jmin(t0y, t1y)), jmin(t0z, t1z));
-  const float tmax_box = jmin(jmin(jmax(t0x, t1x), jmax(t0y, t1y)), jmax(t0z, t1z));
-  tmin = jmax(tmin, 0.0f);
+// _recheck (trace_rows.py:223-243): a chunk box (lo xyz, hi xyz) against
+// the ray with inv = 1 / d and the running scaled best t = ts / det, the
+// upper bound cross-multiplied.  The folds are PTX's one-instruction
+// NaN-propagating min and max (trace_stream.cuh): on numbers they give
+// jmin's and jmax's values, up to the sign of a zero, and a NaN for a NaN;
+// the result feeds only compares, which a zero's sign does not change and
+// any NaN makes false, so every verdict is _recheck's.
+__device__ __forceinline__ bool recheck6(float lx, float ly, float lz, float hx, float hy, float hz, V3 o, V3 inv,
+                                         float ts, float det) {
+  const float t0x = (lx - o.x) * inv.x;
+  const float t1x = (hx - o.x) * inv.x;
+  const float t0y = (ly - o.y) * inv.y;
+  const float t1y = (hy - o.y) * inv.y;
+  const float t0z = (lz - o.z) * inv.z;
+  const float t1z = (hz - o.z) * inv.z;
+  float tmin = max_nan(max_nan(min_nan(t0x, t1x), min_nan(t0y, t1y)), min_nan(t0z, t1z));
+  const float tmax_box = min_nan(min_nan(max_nan(t0x, t1x), max_nan(t0y, t1y)), max_nan(t0z, t1z));
+  tmin = max_nan(tmin, 0.0f);
   return tmin <= tmax_box && tmin * det <= ts;
+}
+
+// The same for box b of the [C, 8] box table in device memory.
+__device__ __forceinline__ bool recheck(const float* __restrict__ b, V3 o, V3 inv, float ts, float det) {
+  return recheck6(__ldg(b + 0), __ldg(b + 1), __ldg(b + 2), __ldg(b + 3), __ldg(b + 4), __ldg(b + 5), o, inv, ts,
+                  det);
 }
 
 struct RowRay {
@@ -137,33 +179,66 @@ __global__ void __launch_bounds__(ROW)
   out[2 * n + i] = det;
 }
 
+constexpr int WINDOW = 32;  // list entries rechecked together
+
 __global__ void __launch_bounds__(ROW)
     rows_any_kernel(const float* __restrict__ cb, const float* __restrict__ rows, int k,
                     const int* __restrict__ lists, int C, const float* __restrict__ o, const float* __restrict__ d,
                     const float* __restrict__ tmax, const float* __restrict__ skip, int* __restrict__ occ_out) {
-  extern __shared__ float tri_s[];
+  extern __shared__ float4 tri4[];  // the walked chunk's framed copies, copy_stride4(k) float4s apart
+  __shared__ int last_w[ROW / 32], frames_w[ROW / 32], group_w[ROW / 32], window_w[ROW / 32];
+  __shared__ int tt_s[WINDOW];
+  __shared__ float box_s[WINDOW * 6];
   const int i = blockIdx.x * ROW + threadIdx.x;
   const RowRay r = load_ray(o, d, tmax, i);
   const Shear sh = make_shear(r.d);
+  const V3 of = framed_origin(sh, r.o.x, r.o.y, r.o.z);
+  const float4* copy = framed_copy(tri4, k, sh);
+  const bool live = r.tm > 0.0f;
   const float sk = skip[i];
+  const int frames = block_frames<ROW>(live ? frame_of(sh) : -1, frames_w);
   bool occ = false;
-  const int* list = lists + (size_t)blockIdx.x * C;
-  for (int j = 0; j < C; ++j) {
-    const int tt = __ldg(list + j);
-    if (tt < 0) break;
-    const bool crossing = r.tm > 0.0f && recheck(cb + 8 * tt, r.o, r.inv, r.tm, 1.0f);
-    if (!__syncthreads_or(crossing && !occ)) continue;
-    stage_floats(tri_s, rows + (size_t)tt * k * 12, k * 12);
-    __syncthreads();
-    for (int g = 0; g < k; g += 8) {
+  if (frames != 0) {  // else no lane is live: none is occluded
+    const int last_group = (k >> 3) - 1;
+    const int* list = lists + (size_t)blockIdx.x * C;
+    for (int base = 0; base < C; base += WINDOW) {
+      // The window's entries and their boxes; the list ends at its first -1.
+      if ((int)threadIdx.x < WINDOW) {
+        const int tt = base + (int)threadIdx.x < C ? __ldg(list + base + threadIdx.x) : -1;
+        tt_s[threadIdx.x] = tt;
+        if (tt >= 0) {
 #pragma unroll
-      for (int s = 0; s < 8; ++s) {
-        const float* c = tri_s + 12 * (g + s);
-        float ts, det;
-        const bool ok = watertight_scaled(sh, r.o, c, ts, det);
-        if (ok && ts <= r.tm * det && c[9] != sk && c[10] >= 0.0f) occ = true;
+          for (int c = 0; c < 6; ++c) box_s[6 * threadIdx.x + c] = __ldg(cb + 8 * tt + c);
+        }
       }
-      if (!__syncthreads_or(crossing && !occ)) break;
+      __syncthreads();
+      int n_on = 0;
+      while (n_on < WINDOW && tt_s[n_on] >= 0) ++n_on;
+      // A lane's crossings (bit b: entry base + b) against its t_max, which
+      // the walk does not change; the window's entries that any lane crosses.
+      unsigned crossing = 0u;
+      if (live) {
+#pragma unroll 4
+        for (int b = 0; b < n_on; ++b) {
+          const float* x = box_s + 6 * b;
+          if (recheck6(x[0], x[1], x[2], x[3], x[4], x[5], r.o, r.inv, r.tm, 1.0f)) crossing |= 1u << b;
+        }
+      }
+      // The barrier also ends the reads of tt_s and box_s before the next
+      // window's stage.
+      const unsigned crossed = (unsigned)block_union<ROW>((int)crossing, window_w);
+      for (unsigned rest = crossed; rest != 0u; rest &= rest - 1u) {
+        const int b = __ffs((int)rest) - 1;
+        const bool in_s = ((crossing >> b) & 1u) && !occ;
+        // The barrier also ends the last walk's reads of the copies.
+        if (!__syncthreads_or(in_s)) continue;
+        const int last = stage_framed<ROW>(tri4, last_w, rows, tt_s[b], k, frames);
+        int rf = last;
+        if (live && !occ) rf = first_occluder(sh, of, copy, last, r.tm, sk);
+        const int G = block_max<ROW>(in_s ? (rf < last ? rf >> 3 : last_group) : -1, group_w);
+        occ = occ || (rf < last && (rf >> 3) <= G);
+      }
+      if (n_on < WINDOW) break;
     }
   }
   occ_out[i] = occ ? 1 : 0;
@@ -198,7 +273,10 @@ extern "C" int yk_rows_any(int device, const float* cb, const float* rows, int l
                            int* occ, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  rows_any_kernel<<<n_rows, ROW, (size_t)leaf_size * 12 * sizeof(float), (cudaStream_t)stream>>>(
-      cb, rows, leaf_size, lists, C, o, d, tmax, skip, occ);
+  const size_t shmem = (size_t)3 * copy_stride4(leaf_size) * sizeof(float4);
+  err = allow_shared((const void*)rows_any_kernel, shmem);
+  if (err != cudaSuccess) return (int)err;
+  rows_any_kernel<<<n_rows, ROW, shmem, (cudaStream_t)stream>>>(cb, rows, leaf_size, lists, C, o, d, tmax, skip,
+                                                                occ);
   return (int)cudaGetLastError();
 }

@@ -177,20 +177,7 @@ __global__ void __launch_bounds__(ROW)
   int occ = 0;
   if (tm > 0.0f) {  // a warp whose slots are all dead passes by together
     const Shear sh = make_shear(v3(r0.w, r1.x, r1.y));
-    const V3 o = framed_origin(sh, r0.x, r0.y, r0.z);
-    const float4* tri = framed_copy(tri4, k, sh);
-    const float sk = r1.w;
-#pragma unroll 4
-    for (int r = 0; r < last; ++r) {
-      const float4* t = tri + 3 * r;
-      const float4 a = t[0], b = t[1], c = t[2];
-      float ts, det;
-      const bool ok = watertight_framed(sh, o, a, b, c, ts, det);
-      if (ok && ts <= tm * det && c.y != sk && c.z >= 0.0f) {
-        occ = 1;
-        break;
-      }
-    }
+    occ = first_occluder(sh, framed_origin(sh, r0.x, r0.y, r0.z), framed_copy(tri4, k, sh), last, tm, r1.w) < last;
   }
   occ_out[i] = occ;
 }

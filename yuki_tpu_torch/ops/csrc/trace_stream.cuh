@@ -6,7 +6,8 @@
 // broadcast of a ray, the divide-free watertight test of
 // yuki_tpu/ops/trace.py (:57-98), and the framed chunk copies: a chunk
 // staged as three copies permuted for the three shear frames, the
-// watertight test on them, and the closest walk of one chunk on them.
+// watertight test on them, and the closest and occlusion walks of one chunk
+// on them.
 // Compiled with -fmad=false, like path_fused.cuh, so every product and sum
 // rounds on its own as in the JAX and PyTorch versions.
 #pragma once
@@ -233,6 +234,22 @@ __device__ __forceinline__ const float4* framed_copy(const float4* tri4, int k, 
 }
 __device__ __forceinline__ V3 framed_origin(const Shear& sh, float x, float y, float z) {
   return v3(permx(sh, x, y, z), permy(sh, x, y, z), permz(sh, x, y, z));
+}
+
+// The first row in [0, n) of a lane's framed copy `tri` that occludes it
+// (any_walk's hit predicate, yuki_tpu/ops/trace_stream.py:776-804: a hit
+// within t_max, a light other than the lane's skip id sk, a real row), or
+// n; four rows unrolled.
+__device__ __forceinline__ int first_occluder(const Shear& sh, V3 o, const float4* tri, int n, float tm,
+                                              float sk) {
+#pragma unroll 4
+  for (int r = 0; r < n; ++r) {
+    const float4* t = tri + 3 * r;
+    const float4 a = t[0], b = t[1], c = t[2];
+    float ts, det;
+    if (watertight_framed(sh, o, a, b, c, ts, det) && ts <= tm * det && c.y != sk && c.z >= 0.0f) return r;
+  }
+  return n;
 }
 
 // closest_walk (yuki_tpu/ops/trace_stream.py:729-773) for one ray over the

@@ -13,9 +13,10 @@ kernels carry the whole wave, or, with ``PATH_FUSED_ONEKERNEL``, one:
                 shading body, per-light NEE occlusion, resolve, and the
                 next ray's closest hit   (replaces ``_bounce_kernel``,
                 path_fused.py:709)
-  wave          raygen and every bounce in one launch, the path state in
-                registers, writing only radiance and the ray count
-                (replaces ``_wave_kernel``, path_fused.py:788)
+  wave          raygen and every bounce in one launch, the path state of
+                each 1024-lane tile in shared memory, writing only radiance
+                and the ray count (replaces ``_wave_kernel``,
+                path_fused.py:788)
 
 The uniform sampler's values are hashed inside the kernels.  A
 ``StratifiedSampler``'s are computed first, by the sampler itself, as
@@ -37,7 +38,9 @@ object-space origin and ``c``, with the same operations as
 runs each 512-lane tile's lanes grouped by material class (dead, missed,
 the hit's material type and surface); a lane still reads and writes its
 own index, so no output depends on that order (``bounce_plain`` is
-lane-permutation equivariant bit for bit).
+lane-permutation equivariant bit for bit).  The wave kernel does the same
+on 1024-lane tiles at every bounce with the tile's live lanes alone, after raygen's camera
+sweep, so it gives the two-kernel wave's bits.
 
 The TPU-only tricks are gone: the MXU one-hot row selects
 (``_select_row_mxu``) are row loads at ``max(idx, 0)``, and the MXU texel
