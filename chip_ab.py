@@ -1,27 +1,31 @@
 #!/usr/bin/env python3
 """A/B of the redesigned kernels (the two-level cull, the dense bounce,
 the crossing words, the slot walks, raygen, the row-union walks, the dense
-closest and occlusion sweeps, the shade kernel and the one-kernel wave)
-between two checkouts of this repository, on one NVIDIA GPU.
+closest and occlusion sweeps, the shade kernel, the one-kernel wave and
+the bundle walks) between two checkouts of this repository, on one NVIDIA
+GPU.
 
     python3 chip_ab.py run ROOT TAG OUT.json [PARTS]   # measure ROOT's port
-    python3 chip_ab.py probe ROOT TAG OUT.json [PARTS] # the same, walks cut
+    python3 chip_ab.py probe ROOT TAG OUT.json [PARTS [KERNELS]]
+                                                       # the same, walks cut
     python3 chip_ab.py compare A.json B.json           # A against B
 
 PARTS is a comma-separated subset of
-bounce,wave,cull,stream,frames,rows,dense,shade (default: all), or raygen
-(bounce's raygen measurements alone) or rows_any (rows' occlusion walk
-alone).
+bounce,wave,cull,stream,frames,rows,dense,shade,walker (default: all), or
+raygen (bounce's raygen measurements alone) or rows_any (rows' occlusion
+walk alone).
 
 ``probe`` copies ROOT's ``yuki_tpu_torch`` to ``build/probe-TAG/``, cuts
-the walks of the occlusion slot walk, the row-union walks, the
-dense closest and occlusion sweeps and the raygen kernel's sweep to zero
-triangles (and raygen's to zero spheres), the shade kernel's shading
-body to its loads, row gathers and one draw and the wave kernel's bounces
-to none (its raygen alone), by a text edit of the copy's
-sources (``PROBE_EDITS``), and runs ``run`` on the copy: its times are
-those of the kernels' stage, sort, rechecks, barriers, loads and stores
-alone.  Its digests differ from ROOT's by design.
+the walks of the occlusion slot walk, the row-union walks, the dense
+closest and occlusion sweeps, the bundle walks and the raygen kernel's
+sweep to zero triangles (and raygen's to zero spheres), the shade
+kernel's shading body to its loads, row gathers and one draw and the wave
+kernel's bounces to none (its raygen alone), by a text edit of the copy's
+sources (``PROBE_EDITS``; KERNELS, a comma-separated subset of its keys,
+cuts those alone), and runs ``run`` on the copy: its times are those of
+the kernels' stage, sort, rechecks, barriers, loads and stores alone.  Its
+digests differ from ROOT's by design, and a wave made from a cut kernel's
+hits (bounce-1 rays, shadow rays) is not the real one.
 
 ``run`` imports the ``yuki_tpu_torch`` package of the checkout at ROOT
 (its kernels are built there, at first use) and records, on the card:
@@ -82,6 +86,18 @@ alone.  Its digests differ from ROOT's by design.
   a call and as the kernel's device time, with the statistics of its work
   from a plain torch walk that must give the kernel's output
   (``_rows_stats``, ``_dense_stats``, ``_any_dense_stats``);
+- ``walker``: the bundle walks on the colonnade wave's lists (the
+  crossing words, C_WALK, as ``chip_smoke.py`` phase 8b makes them): the
+  closest walk on its bounce-1 rays (524,288) and, with and without skip,
+  on phase 12's combined wave (the bounce-1 rays, then their shadow rays:
+  1,572,864); the occlusion walk on its bounce-0 shadow rays (1,048,576);
+  each timed a call and as the kernel's device time, with its work from a
+  plain walk that must give the kernel's output (``_walker_stats``: list
+  entries, the share walked and the live rays a walked entry, the real
+  rows of the walked chunks, bundles with an empty list and by distinct
+  shear frames among their live rays, the closest walk's entries after
+  which some slot took a hit, the occlusion walk's entries met with all 8
+  rays dead or occluded);
 - ``shade``: the shade kernel at every bounce of the first wave of
   Cornell's 1080p d5 1 spp path_li frame and of the colonnade's 1080p d5
   frame under UniformSampler(1) and StratifiedSampler(2, 2) (its planes),
@@ -123,7 +139,8 @@ KERNEL_NAMES = ("cull_kernel", "bounce_kernel", "wave_kernel",
                 "raygen_trace_kernel", "cross_words_kernel",
                 "slot_closest_kernel", "slot_any_kernel",
                 "rows_closest_kernel", "rows_any_kernel",
-                "dense_closest_kernel", "dense_any_kernel", "shade_kernel")
+                "dense_closest_kernel", "dense_any_kernel", "shade_kernel",
+                "walker_closest_kernel", "walker_any_kernel")
 DENSE_KERNELS = ("dense_closest_kernel", "dense_any_kernel", "shade_kernel")
 COL_KERNELS = ("cull_kernel", "cross_words_kernel", "slot_closest_kernel",
                "slot_any_kernel", "rows_closest_kernel", "rows_any_kernel",
@@ -198,6 +215,27 @@ PROBE_EDITS = {
          "for (int b = 0; b < 0 && p.alive > 0.0f; ++b) {"),
         ("path_fused.cu", "for (int b = 0; b < a.max_depth; ++b) {",
          "for (int b = 0; b < 0; ++b) {"),
+    ),
+    # The bundle walks: no triangle (the first port's slot loops, or the
+    # redesign's slab tests), so the chain of list, rechecks, row loads and
+    # fold alone.
+    "walker_closest_kernel": (
+        ("trace_walker.cu", "    if (j < k) {\n      const float* c = tri_s + "
+         "12 * j;\n      const float pid = c[10];",
+         "    if (j < 0) {\n      const float* c = tri_s + "
+         "12 * j;\n      const float pid = c[10];"),
+        ("trace_walker.cu",
+         "        if (c.z >= 0.0f) {\n          const int slot",
+         "        if (c.z < -2.0f) {\n          const int slot"),
+    ),
+    "walker_any_kernel": (
+        ("trace_walker.cu", "    if (j < k) {\n      const float* c = tri_s + "
+         "12 * j;\n      if (c[10] >= 0.0f) {",
+         "    if (j < 0) {\n      const float* c = tri_s + "
+         "12 * j;\n      if (c[10] >= 0.0f) {"),
+        ("trace_walker.cu",
+         "          if (c.z >= 0.0f) {\n            if (m & fr[0]) hit",
+         "          if (c.z < -2.0f) {\n            if (m & fr[0]) hit"),
     ),
     # The shading body: the lane keeps its plane loads, its row gathers
     # and one draw, and writes the fixed planes (not the lights').
@@ -286,7 +324,7 @@ def device_times(torch, prof, names):
 
 
 def run(root, tag, out_path,
-        parts="bounce,wave,cull,stream,frames,rows,dense,shade"):
+        parts="bounce,wave,cull,stream,frames,rows,dense,shade,walker"):
     parts = set(parts.split(","))
     sys.path.insert(0, os.path.abspath(root))
     import numpy as np  # noqa: F401
@@ -419,7 +457,8 @@ def run(root, tag, out_path,
         _dense(torch, sm, res, tag, ms, cornell_calls["any_trace"])
 
     # ---- the cull on the colonnade's bounce-1 and shadow rays -------------
-    if not parts & {"cull", "stream", "frames", "rows", "rows_any", "shade"}:
+    if not parts & {"cull", "stream", "frames", "rows", "rows_any", "shade",
+                    "walker"}:
         return _write(res, out_path)
     scene, cam, _ = colonnade(device=dev)
 
@@ -447,7 +486,7 @@ def run(root, tag, out_path,
         rc = _shade(torch, tsf, res, tag, ms, cases)
         if rc:
             return rc
-    if not parts & {"cull", "stream", "frames", "rows", "rows_any"}:
+    if not parts & {"cull", "stream", "frames", "rows", "rows_any", "walker"}:
         return _write(res, out_path)
     ctx, o, d = sm._camera_wave(torch, dev, cam, COL_TILES)
     t_max = torch.full((o.shape[0],), F32_MAX, device=dev)
@@ -509,6 +548,13 @@ def run(root, tag, out_path,
     if parts & {"rows", "rows_any"}:
         rc = _rows(torch, sm, res, tag, scene, (o, d, t_max, *out0[5:9]), ms,
                    "rows" in parts)
+        if rc:
+            return rc
+
+    # ---- the bundle walks --------------------------------------------------
+    if "walker" in parts:
+        rc = _walker(torch, sm, res, tag, scene, (o2, d2, t2),
+                     (no2, nd2, nt2, sk2), out0[5:9], ms)
         if rc:
             return rc
 
@@ -1163,6 +1209,155 @@ def _wave(torch, tpf, res, tag, ms, tb, px, py):
     return 0
 
 
+def _walker_stats(torch, tw, ch, lists, o, d, t, skip, out, closest):
+    """The bundle walk's work on a wave, from a plain walk with the plain
+    version's decisions (ROOT's helpers) that must give the kernel's
+    output ``out`` (closest: (t, prim); occlusion: the bits): list
+    entries and the entries walked (some ray live), live rays a walked
+    entry, the real rows and the rows to the last real one of the walked
+    chunks, rechecks and triangle tests, bundles with an empty list and
+    bundles by distinct shear frames among their rays with t_max > 0 (0
+    to 3); closest: the walked entries after which some slot took a hit;
+    occlusion: the listed entries met with all 8 rays dead or occluded."""
+    from yuki_tpu_torch.ops.trace import ray_shear, watertight_scaled
+
+    bun, k = 8, ch.leaf_size
+    n_b = lists.shape[0]
+    pid = ch.rows[:, 10].reshape(-1, k)
+    real = (pid >= 0.0).sum(dim=1)
+    last = torch.where(pid >= 0.0, torch.arange(1, k + 1, device=pid.device),
+                       0).amax(dim=1)
+    acc = dict.fromkeys(("entries", "walked", "live", "real_rows",
+                         "last_rows", "boxes", "tests", "took", "spent"), 0)
+    got = [torch.empty_like(t), torch.empty_like(t, dtype=torch.int32)]
+    for a in range(0, n_b, 8192):
+        b = min(a + 8192, n_b)
+        ox, oy, oz, dx, dy, dz, tm = tw._bundle_planes(o, d, t, a, b)
+        sk = None if skip is None else skip[a * bun:b * bun].reshape(b - a,
+                                                                     bun)
+        ts_ = tm[:, :, None].expand(b - a, bun, 128).clone()
+        det = torch.ones_like(ts_)
+        prim = torch.full_like(ts_, -1.0)
+        occ = torch.zeros_like(tm, dtype=torch.bool)
+        for j in range(lists.shape[1]):
+            tt = lists[a:b, j].long()
+            on = tt >= 0
+            if not bool(on.any()):
+                break
+            open_ = (tm > 0.0) & ~occ
+            bnd = (ts_ / det).amin(dim=2) if closest else tm
+            live = open_ & on[:, None] & tw._bounds_recheck(
+                ch.treelet_bounds[tt.clamp(min=0)], ox, oy, oz, dx, dy, dz,
+                bnd)
+            r = torch.nonzero(live.any(dim=1)).squeeze(1)
+            acc["entries"] += int(on.sum())
+            acc["boxes"] += int(((tm > 0.0) & on[:, None]).sum())
+            acc["spent"] += int((on & ~open_.any(dim=1)).sum())
+            acc["walked"] += int(r.numel())
+            acc["live"] += int(live.sum())
+            acc["real_rows"] += int(real[tt[r]].sum())
+            acc["last_rows"] += int(last[tt[r]].sum())
+            acc["tests"] += int((live[r].sum(dim=1) * real[tt[r]]).sum())
+            if r.numel() == 0:
+                continue
+            cols = tw._chunk_cols(ch, tt[r])
+            ray = [x[r][:, :, None] for x in (ox, oy, oz, dx, dy, dz)]
+            ok, ts_c, det_c = watertight_scaled(ray_shear(*ray[3:]), *ray[:3],
+                                                cols[:9])
+            lv = live[r][:, :, None] & (cols[10] >= 0.0)
+            if sk is not None:
+                lv = lv & (cols[9] != sk[r][:, :, None])
+            if not closest:
+                occ[r] = occ[r] | (ok & lv & (ts_c <= tm[r][:, :, None]
+                                              * det_c)).any(dim=2)
+                continue
+            ts_b, det_b, prim_b = ts_[r, :, :k], det[r, :, :k], prim[r, :, :k]
+            closer = ok & lv & (ts_c * det_b < ts_b * det_c)
+            acc["took"] += int(closer.flatten(1).any(dim=1).sum())
+            ts_[r, :, :k] = torch.where(closer, ts_c, ts_b)
+            det[r, :, :k] = torch.where(closer, det_c, det_b)
+            prim[r, :, :k] = torch.where(closer, cols[10].expand_as(ts_c),
+                                         prim_b)
+        sl = slice(a * bun, b * bun)
+        if closest:
+            t_b, p_b = tw._fold_closest(ts_, det, prim, tm)
+            got[0][sl], got[1][sl] = t_b.reshape(-1), p_b.reshape(-1)
+        else:
+            got[1][sl] = occ.reshape(-1).to(torch.int32)
+    same = (all(torch.equal(g, x) for g, x in zip(got, out)) if closest
+            else torch.equal(got[1], out))
+    if not PROBING and not same:
+        raise RuntimeError("walker: the plain walk differs from the kernel")
+    frame = shear_frames(torch, d).reshape(n_b, bun)
+    alive = (t > 0.0).reshape(n_b, bun)
+    distinct = torch.stack([((frame == f) & alive).any(dim=1)
+                            for f in range(3)]).sum(0)
+    w = max(1, acc["walked"])
+    return dict(acc, bundles=n_b, empty=int((lists[:, 0] < 0).sum()),
+                walked_share=acc["walked"] / max(1, acc["entries"]),
+                live_per_walked=acc["live"] / w,
+                real_rows_mean=acc["real_rows"] / w,
+                last_rows_mean=acc["last_rows"] / w,
+                took_share=acc["took"] / w,
+                frames_per_bundle=torch.bincount(distinct,
+                                                 minlength=4).tolist())
+
+
+def _walker(torch, sm, res, tag, scene, bounce1, shadow, wave0, ms):
+    """The bundle walks (see the module's docstring)."""
+    from yuki_tpu_torch.ops import trace_stream as ts
+    from yuki_tpu_torch.ops import trace_walker as tw
+
+    ch = scene.data.chunks
+    co, cd, ct, cs = sm._combine(torch, *bounce1, *shadow)
+    no, nd, nt, sk = wave0
+    f32 = torch.float32
+    cases = (("walker_closest", "bounce-1 rays", bounce1, None),
+             ("walker_closest_skip", "combined wave", (co, cd, ct),
+              cs.to(f32)),
+             ("walker_closest", "combined wave, without skip", (co, cd, ct),
+              None),
+             ("walker_any", "bounce-0 shadow rays", (no, nd, nt),
+              sk.to(f32).contiguous()))
+    for name, what, (ro, rd, rt), skf in cases:
+        lists, _ = tw.walker_lists(ts.cross_words(ch, ro, rd, rt), tw.C_WALK)
+        closest = name != "walker_any"
+        if closest:
+            def fn():
+                return tw.walker_closest_walk(ch, lists, ro, rd, rt, skf)
+        else:
+            def fn():
+                return tw.walker_any_walk(ch, lists, ro, rd, rt, skf)
+        out = fn()
+        key = f"{name} {what}"
+        res["hashes"][key] = (digest(torch.cat([out[0].view(torch.int32),
+                                                out[1]]))
+                              if closest else digest(out))
+        t_k = ms(fn, 10)
+        t_dev = kernel_device_ms(torch, fn, "walker_closest_kernel" if closest
+                                 else "walker_any_kernel")
+        res["ms"][key] = t_k
+        res["ms"][f"{key}: kernel device time"] = t_dev
+        st = _walker_stats(torch, tw, ch, lists, ro, rd, rt, skf, out,
+                           closest)
+        res["notes"][key] = st
+        extra = (f"entries after which a slot took a hit {st['took']} "
+                 f"({st['took_share']:.4f} of the walked)" if closest else
+                 f"entries met with all 8 rays dead or occluded "
+                 f"{st['spent']}; {int(out.sum())} occluded")
+        print(f"[{tag}] {key} [{ro.shape[0]} rays, {st['bundles']} bundles, "
+              f"{st['empty']} with an empty list, by distinct shear frames "
+              f"of their live rays (0-3) {st['frames_per_bundle']}; list "
+              f"entries {st['entries']}, walked {st['walked']} "
+              f"({st['walked_share']:.4f}), live rays a walked entry "
+              f"{st['live_per_walked']:.3f}; walked chunks' real rows "
+              f"{st['real_rows_mean']:.2f}, to the last real "
+              f"{st['last_rows_mean']:.2f} of {ch.leaf_size}; {st['boxes']} "
+              f"rechecks, {st['tests']} triangle tests; {extra}]: "
+              f"{t_k:.4f} ms a call, kernel device time {t_dev:.4f} ms")
+    return 0
+
+
 def _any_stats(torch, ch, row_chunk, stream, occ):
     """The occlusion slot walk's work on its slots: the share of live
     slots that end occluded, the mean rows an occluded slot tests up to
@@ -1378,8 +1573,10 @@ def _stream(torch, sm, res, tag, scene, bounce1, shadow, ms):
     return 0
 
 
-def probe(root, tag, out_path, parts="bounce,stream"):
-    """``run`` on a copy of ROOT's package whose walks PROBE_EDITS cut."""
+def probe(root, tag, out_path, parts="bounce,stream", kernels=None):
+    """``run`` on a copy of ROOT's package whose walks PROBE_EDITS cut
+    (``kernels``: a comma-separated subset of its keys, default all; the
+    others keep their walks, so waves made by them are the real ones)."""
     global PROBING
     dst = os.path.join(HERE, "build", f"probe-{tag}")
     shutil.rmtree(dst, ignore_errors=True)
@@ -1387,7 +1584,10 @@ def probe(root, tag, out_path, parts="bounce,stream"):
                     os.path.join(dst, "yuki_tpu_torch"),
                     ignore=shutil.ignore_patterns("__pycache__"))
     csrc = os.path.join(dst, "yuki_tpu_torch", "ops", "csrc")
+    chosen = set(PROBE_EDITS if kernels is None else kernels.split(","))
     for kernel, alternatives in PROBE_EDITS.items():
+        if kernel not in chosen:
+            continue
         done = 0
         for name, old, new in alternatives:
             path = os.path.join(csrc, name)
@@ -1436,6 +1636,8 @@ def compare(a_path, b_path):
 if __name__ == "__main__":
     if len(sys.argv) in (5, 6) and sys.argv[1] in ("run", "probe"):
         sys.exit((run if sys.argv[1] == "run" else probe)(*sys.argv[2:]))
+    if len(sys.argv) == 7 and sys.argv[1] == "probe":
+        sys.exit(probe(*sys.argv[2:]))
     if len(sys.argv) == 4 and sys.argv[1] == "compare":
         sys.exit(compare(*sys.argv[2:]))
     print(__doc__, file=sys.stderr)

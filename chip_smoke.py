@@ -86,7 +86,8 @@ beside this file.  It imports no JAX.  Phases:
      against the treelet walk under phase 8's rules;
   8b. the bundle walks against their plain versions on the same wave's
      bounce-1 rays (closest) and bounce-0 shadow rays (occlusion), with
-     the walker's own lists and budget verdict; then the dispatch with
+     the walker's own lists and budget verdict, the share of list entries
+     walked and the live rays a walked entry; then the dispatch with
      WALKER_CLOSEST / WALKER_ANY against the dispatch without them on the
      bounce-1 rays and their shadow rays (phase 8's rules), and each
      walker query's time per call and device breakdown;
@@ -1808,8 +1809,9 @@ def phase_walker(torch, scene, rays, wave0, card):
     """The bundle walks against their plain versions on the wave's
     bounce-1 rays (closest) and its bounce-0 shadow rays (occlusion),
     with the lists the walker makes from the crossing words (C_WALK) and
-    its budget verdict at the dispatch's tiers; bounds from the plain
-    walks' tallies (24 operations a box recheck, 40 a scaled test, 39 for
+    its budget verdict at the dispatch's tiers, the share of list entries
+    walked and the live rays a walked entry; bounds from the plain walks'
+    tallies (24 operations a box recheck, 40 a scaled test, 39 for
     occlusion; bytes: rays in, results out, the lists, the rows of every
     chunk the lists name once).  Then the dispatch with both walker flags
     against the dispatch without them on the bounce-1 rays and their
@@ -1867,12 +1869,16 @@ def phase_walker(torch, scene, rays, wave0, card):
         b_ms, b_by = bound(m * (28 + (4 if rs is not None else 0) + out_b)
                            + lists.numel() * 4 + chunks * k * 48,
                            stats["boxes"] * OPS_SLAB + stats["tests"] * ops)
+        walked = stats["walked"]
         print(f"{name} [{m} {what}, {lists.shape[0]} bundles, {pairs} "
               f"(bundle, chunk) pairs, {int(ov.sum())} overflow rays, budget "
-              f"at tiers {mults}: ok {ok}, {chunks} chunks listed, {found}]: "
-              f"kernel {ms_k:.4f} ms, plain {ms_p:.4f} ms, bound {b_ms:.4f} ms "
-              f"({b_by}; {stats['boxes']} rechecks, {stats['tests']} triangle "
-              f"tests): equal bit for bit [{card}]")
+              f"at tiers {mults}: ok {ok}, {chunks} chunks listed, {found}; "
+              f"walked {walked} of {stats['entries']} list entries "
+              f"({walked / max(1, stats['entries']):.4f}), "
+              f"{stats['live'] / max(1, walked):.3f} live rays a walked "
+              f"entry]: kernel {ms_k:.4f} ms, plain {ms_p:.4f} ms, bound "
+              f"{b_ms:.4f} ms ({b_by}; {stats['boxes']} rechecks, "
+              f"{stats['tests']} triangle tests): equal bit for bit [{card}]")
         result[name] = dict(max_abs_err=0.0, ms=ms_k, plain_ms=ms_p,
                             bound_ms=b_ms, bound_by=b_by)
 

@@ -13,7 +13,7 @@ the shape that hangs.
 emits: one per ``__syncthreads``/``__syncthreads_or`` call site, times the
 trips of a loop the source unrolls (``#pragma unroll``), helpers counted
 where they are inlined (``block_frames``, ``block_union``, ``block_max``,
-``stage_scene``, ``sort_tile``, ``stage_rows``, ``block_or``).  Marked
+``stage_scene``, ``sort_tile``, ``stage_rows``).  Marked
 ``cuda``: it needs nvcc to build the library and cuobjdump (the CUDA
 toolkit's, or the copy under ``triton/backends/nvidia/bin/``) to read it;
 it skips without a card.
@@ -74,11 +74,10 @@ BARRIERS = {
     "treelet_any_kernel": (1, 4),
     "pairs_closest_kernel": (1, 1),
     "pairs_any_kernel": (1, 2),
-    # trace_walker.cu: the list stage, the per-entry t reduce and stage,
-    # the final reduce (block_or twice in the occlusion walk).
-    "walker_closest_kernel<false>": (5, 1),
-    "walker_closest_kernel<true>": (5, 1),
-    "walker_any_kernel": (4, 1),
+    # trace_walker.cu: none; a warp walks a bundle.
+    "walker_closest_kernel<false>": (0, 0),
+    "walker_closest_kernel<true>": (0, 0),
+    "walker_any_kernel": (0, 0),
 }
 
 

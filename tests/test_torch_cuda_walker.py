@@ -18,6 +18,7 @@ import torch
 
 from test_torch_cuda_stream import (_dispatch_both, _rays, cuda,
                                     scenes)  # noqa: F401
+from test_torch_walker_redesign import hand_built
 from yuki_tpu_torch import traverse
 from yuki_tpu_torch.ops import trace_stream as ts
 from yuki_tpu_torch.ops import trace_walker as tw
@@ -87,6 +88,36 @@ def test_walker_ties(cuda):
     for g, r in zip(got, ref):
         assert torch.equal(g, r)
     assert got[1].tolist() == [2] * 8 + [-1] * 8
+
+
+@pytest.mark.parametrize("C", [20, 16, 0])
+@pytest.mark.parametrize("k", [8, 64, 128])
+def test_walks_match_plain_on_hand_built_bundles(cuda, k, C):
+    """The edge shapes of tests/test_torch_walker_redesign.py (a tie within
+    a slot, bounds that shrink inside a window and before the next one,
+    dead rays, skip ids matching the nearest hit and the only occluder,
+    padding between real rows, three shear frames, axis rays, empty and
+    full lists), the lists cut to C = 20, 16 (one window) and 0 entries:
+    both closest instantiations and the occlusion walk at two t_max each
+    against their plain versions, bit for bit."""
+    ch, lists, o, d, t_max, skip, chord = hand_built(k, device=cuda)
+    lists = lists[:, :C].contiguous()
+    tw.reset_launches()
+    for sk in (None, skip):
+        got = tw.walker_closest_walk(ch, lists, o, d, t_max, sk)
+        ref = tw.walker_closest_plain(ch, lists, o, d, t_max, skip=sk)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0].view(torch.int32), ref[0].view(torch.int32))
+        assert torch.equal(got[1], ref[1])
+        assert bool((got[1] >= 0).any()) == (C > 0)
+    short = torch.where(chord > 0.0, 2.0, chord)
+    for tm in (chord, short):
+        occ = tw.walker_any_walk(ch, lists, o, d, tm, skip)
+        assert torch.equal(occ, tw.walker_any_plain(ch, lists, o, d, tm,
+                                                    skip))
+        assert bool(occ.any()) == (C > 0)
+    assert tw.LAUNCHES == {"walker_closest": 1, "walker_closest_skip": 1,
+                           "walker_any": 2}
 
 
 @pytest.mark.parametrize("case", ["plain", "overflow"])

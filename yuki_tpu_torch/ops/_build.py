@@ -138,13 +138,12 @@ def _declare(lib: ctypes.CDLL) -> None:
         i, p, p, i, p, p, p, p, i,  # device, tris, light, n_tris, o, d, tmax, skip, n
         p, p, p, p, p,  # t, prim, b0, b1, stream
     ]
-    # device, chunk boxes, rows, leaf_size, lists, C, n_bundles, o, d, tmax,
-    # skip (or null), t, prim, stream
-    lib.yk_walker_closest.argtypes = [i, p, p, i, p, i, i, p, p, p, p, p, p,
-                                      p]
-    # device, chunk boxes, rows, leaf_size, lists, C, n_bundles, o, d, tmax,
-    # skip, occ, stream
-    lib.yk_walker_any.argtypes = [i, p, p, i, p, i, i, p, p, p, p, p, p]
+    # device, chunk boxes, rows, rows to each chunk's last real row,
+    # leaf_size, lists, C, n_bundles, o, d, tmax, skip (or null), t, prim,
+    # stream; the occlusion walk: skip, occ, stream
+    lib.yk_walker_closest.argtypes = [i, p, p, p, i, p, i, i, p, p, p, p, p,
+                                      p, p]
+    lib.yk_walker_any.argtypes = [i, p, p, p, i, p, i, i, p, p, p, p, p, p]
     for name in ("yk_pairs_closest", "yk_pairs_any"):
         # device, treelet boxes, rows, leaf_size, runs, pair treelets,
         # n_blocks, packed rays, n, then t + prim + b0 + b1 (closest) or

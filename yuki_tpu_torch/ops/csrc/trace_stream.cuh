@@ -3,11 +3,10 @@
 // the bundle walks (trace_walker.cu): the finite slab reciprocal and axis
 // fold of yuki_tpu/ops/trace_stream.py (:94-114) with one-instruction NaN
 // folds, the chunk-box slab test on structure-of-arrays tables, a warp's
-// broadcast of a ray, the divide-free watertight test of
-// yuki_tpu/ops/trace.py (:57-98), and the framed chunk copies: a chunk
-// staged as three copies permuted for the three shear frames, the
-// watertight test on them, and the closest and occlusion walks of one chunk
-// on them.
+// broadcast of a ray, and the framed chunk copies: a chunk staged as three
+// copies permuted for the three shear frames, the divide-free watertight
+// test of yuki_tpu/ops/trace.py (:57-98) on them, and the closest and
+// occlusion walks of one chunk on them.
 // Compiled with -fmad=false, like path_fused.cuh, so every product and sum
 // rounds on its own as in the JAX and PyTorch versions.
 #pragma once
@@ -93,44 +92,6 @@ __device__ __forceinline__ SlabRay shfl_ray(const SlabRay& r, int q) {
           __shfl_sync(FULL, r.tm, q)};
 }
 
-// _watertight_scaled: the divide-free test against the ray's shear.  ts and
-// det come back with det > 0 (t = ts / det); the result covers the sign
-// test, det != 0 and ts > 0, and the caller applies the upper bound by
-// cross-multiplication.
-__device__ __forceinline__ bool watertight_scaled(const Shear& s, V3 o, const float* c, float& ts, float& det) {
-  float a0x = c[0] - o.x, a0y = c[1] - o.y, a0z = c[2] - o.z;
-  float a1x = c[3] - o.x, a1y = c[4] - o.y, a1z = c[5] - o.z;
-  float a2x = c[6] - o.x, a2y = c[7] - o.y, a2z = c[8] - o.z;
-  float p0tx = permx(s, a0x, a0y, a0z), p0ty = permy(s, a0x, a0y, a0z), p0tz = permz(s, a0x, a0y, a0z);
-  float p1tx = permx(s, a1x, a1y, a1z), p1ty = permy(s, a1x, a1y, a1z), p1tz = permz(s, a1x, a1y, a1z);
-  float p2tx = permx(s, a2x, a2y, a2z), p2ty = permy(s, a2x, a2y, a2z), p2tz = permz(s, a2x, a2y, a2z);
-  p0tx = p0tx + s.sx * p0tz;
-  p0ty = p0ty + s.sy * p0tz;
-  p1tx = p1tx + s.sx * p1tz;
-  p1ty = p1ty + s.sy * p1tz;
-  p2tx = p2tx + s.sx * p2tz;
-  p2ty = p2ty + s.sy * p2tz;
-
-  float e0 = p1tx * p2ty - p1ty * p2tx;
-  float e1 = p2tx * p0ty - p2ty * p0tx;
-  float e2 = p0tx * p1ty - p0ty * p1tx;
-
-  bool miss_sign = (e0 < 0.0f || e1 < 0.0f || e2 < 0.0f) && (e0 > 0.0f || e1 > 0.0f || e2 > 0.0f);
-  det = e0 + e1 + e2;
-  ts = (e0 * p0tz + e1 * p1tz + e2 * p2tz) * s.inv_dz;
-  if (det < 0.0f) {
-    ts = -ts;
-    det = -det;
-  }
-  return !miss_sign && det != 0.0f && ts > 0.0f;
-}
-
-// Copy n floats from device memory into shared memory, by all threads of
-// the block (the caller synchronises).
-__device__ __forceinline__ void stage_floats(float* dst, const float* __restrict__ src, int n) {
-  for (int j = threadIdx.x; j < n; j += blockDim.x) dst[j] = __ldg(src + j);
-}
-
 // ---- framed chunk copies: the slot walks (trace_stream.cu) and the
 // row-union closest walk (trace_rows.cu) ------------------------------------
 
@@ -159,9 +120,12 @@ __device__ __forceinline__ void permuted_row(const float4& a, const float4& b, c
   }
 }
 
-// watertight_scaled on a row already in the ray's shear frame (corners
-// p0' = a.xyz, p1' = (a.w, b.x, b.y), p2' = (b.z, b.w, c.x)) from the
-// origin in the same frame: the same operations in the same order.
+// _watertight_scaled (yuki_tpu/ops/trace.py), the divide-free test, on a
+// row already in the ray's shear frame (corners p0' = a.xyz, p1' = (a.w,
+// b.x, b.y), p2' = (b.z, b.w, c.x)) from the origin in the same frame: the
+// same operations in the same order.  ts and det come back with det > 0
+// (t = ts / det); the result covers the sign test, det != 0 and ts > 0, and
+// the caller applies the upper bound by cross-multiplication.
 __device__ __forceinline__ bool watertight_framed(const Shear& s, V3 o, const float4& a, const float4& b,
                                                   const float4& c, float& ts, float& det) {
   float p0tx = a.x - o.x, p0ty = a.y - o.y, p0tz = a.z - o.z;

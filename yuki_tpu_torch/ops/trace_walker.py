@@ -19,6 +19,9 @@ version beside it; each launch adds one to ``LAUNCHES``):
   walker_any      replaces ``_walker_any_kernel`` (:269)
                   plain: ``walker_any_plain``
 
+Both kernels read ``walk_rows``, each chunk's rows up to its last real
+one, kept on the chunk structure.
+
 What changes a result, and is kept:
 
 - The closest carry is one scaled hit (ts, det, prim) per ray and per
@@ -157,13 +160,22 @@ def _fold_closest(ts, det, prim, tm):
     return t, torch.where(hit, prim[..., 0], -1.0).to(torch.int32)
 
 
+def _tally_walk(stats, on, walked, live):
+    """The entries of one list column, those walked and their live rays."""
+    _tally(stats, "entries", on.sum())
+    _tally(stats, "walked", walked.numel())
+    _tally(stats, "live", live[walked].sum())
+
+
 def walker_closest_plain(ch, lists, o, d, t_max, stats=None, skip=None):
     """Plain version of the closest walk (``_walker_closest_kernel`` and
     ``_lane_fold_closest``): lists [N / 8, C] i32 -> (t [N] f32, prim [N]
     i32), t = t_max and prim -1 on a miss; with ``skip`` [N] f32 a ray
     never takes a triangle of its skip light.  ``stats`` receives "boxes"
-    (rechecks of rays with t_max > 0 of each listed chunk) and "tests"
-    (live rays against the real triangles of each walked chunk)."""
+    (rechecks of rays with t_max > 0 of each listed chunk), "tests" (live
+    rays against the real triangles of each walked chunk), "entries" (the
+    listed chunks), "walked" (those with a live ray) and "live" (the live
+    rays of the walked ones)."""
     n = o.shape[0]
     n_b = n // BUN
     k = ch.leaf_size
@@ -191,6 +203,7 @@ def walker_closest_plain(ch, lists, o, d, t_max, stats=None, skip=None):
                 t_cur)
             _tally(stats, "boxes", ((tm > 0.0) & on[:, None]).sum())
             r = torch.nonzero(on & live.any(dim=1)).squeeze(1)
+            _tally_walk(stats, on, r, live)
             if r.numel() == 0:
                 continue
             _tally(stats, "tests", (live[r].sum(dim=1) * real[tt[r]]).sum())
@@ -238,6 +251,7 @@ def walker_any_plain(ch, lists, o, d, t_max, skip, stats=None):
                 ch.treelet_bounds[tt.clamp(min=0)], ox, oy, oz, dx, dy, dz, tm)
             _tally(stats, "boxes", ((tm > 0.0) & on[:, None]).sum())
             r = torch.nonzero(on & live.any(dim=1)).squeeze(1)
+            _tally_walk(stats, on, r, live)
             if r.numel() == 0:
                 continue
             _tally(stats, "tests", (live[r].sum(dim=1) * real[tt[r]]).sum())
@@ -255,6 +269,23 @@ def walker_any_plain(ch, lists, o, d, t_max, skip, stats=None):
 # --------------------------------------------------------------------
 # Kernel wrappers
 # --------------------------------------------------------------------
+
+
+def walk_rows(ch):
+    """Each chunk's rows up to and including its last real one (prim id
+    >= 0; 0 for a chunk of padding), [n_chunks] i32: the kernels test no
+    row past it.  Built once per chunk structure and kept on it; rebuilt
+    when ``ch.rows`` is replaced or changed in place."""
+    rows = ch.rows
+    kept = getattr(ch, "_walk_rows", None)
+    if kept is not None and kept[0] is rows and kept[1] == rows._version:
+        return kept[2]
+    k = ch.leaf_size
+    idx = torch.arange(1, k + 1, dtype=torch.int32, device=rows.device)
+    n = torch.where(rows[:, 10].reshape(-1, k) >= 0.0, idx, 0).amax(dim=1)
+    n = n.to(torch.int32).contiguous()
+    ch._walk_rows = (rows, rows._version, n)
+    return n
 
 
 def _check_walk(ch, lists, o, d, t_max, dev):
@@ -292,7 +323,8 @@ def walker_closest_walk(ch, lists, o, d, t_max, skip=None):
         name = "walker_closest" if skip is None else "walker_closest_skip"
         err = _build.library().yk_walker_closest(
             dev.index, _build.ptr(ch.treelet_bounds), _build.ptr(ch.rows),
-            ch.leaf_size, _build.ptr(lists), lists.shape[1], n // BUN,
+            _build.ptr(walk_rows(ch)), ch.leaf_size, _build.ptr(lists),
+            lists.shape[1], n // BUN,
             _build.ptr(o), _build.ptr(d), _build.ptr(t_max),
             None if skip is None else _build.ptr(skip), _build.ptr(t),
             _build.ptr(prim), _build.stream(dev))
@@ -313,7 +345,8 @@ def walker_any_walk(ch, lists, o, d, t_max, skip):
     if n:
         err = _build.library().yk_walker_any(
             dev.index, _build.ptr(ch.treelet_bounds), _build.ptr(ch.rows),
-            ch.leaf_size, _build.ptr(lists), lists.shape[1], n // BUN,
+            _build.ptr(walk_rows(ch)), ch.leaf_size, _build.ptr(lists),
+            lists.shape[1], n // BUN,
             _build.ptr(o), _build.ptr(d), _build.ptr(t_max), _build.ptr(skip),
             _build.ptr(occ), _build.stream(dev))
         _build.launch_check(err, "walker_any")
