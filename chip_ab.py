@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """A/B of the redesigned kernels (the two-level cull, the dense bounce,
 the crossing words, the slot walks, raygen, the row-union walks, the dense
-closest and occlusion sweeps, the shade kernel, the one-kernel wave and
-the bundle walks) between two checkouts of this repository, on one NVIDIA
-GPU.
+closest and occlusion sweeps, the shade kernel, the one-kernel wave, the
+bundle walks and the block-pair walks) between two checkouts of this
+repository, on one NVIDIA GPU.
 
     python3 chip_ab.py run ROOT TAG OUT.json [PARTS]   # measure ROOT's port
     python3 chip_ab.py probe ROOT TAG OUT.json [PARTS [KERNELS]]
@@ -11,16 +11,16 @@ GPU.
     python3 chip_ab.py compare A.json B.json           # A against B
 
 PARTS is a comma-separated subset of
-bounce,wave,cull,stream,frames,rows,dense,shade,walker (default: all), or
-raygen (bounce's raygen measurements alone) or rows_any (rows' occlusion
-walk alone).
+bounce,wave,cull,stream,frames,rows,dense,shade,walker,pairs (default:
+all), or raygen (bounce's raygen measurements alone) or rows_any (rows'
+occlusion walk alone).
 
 ``probe`` copies ROOT's ``yuki_tpu_torch`` to ``build/probe-TAG/``, cuts
 the walks of the occlusion slot walk, the row-union walks, the dense
-closest and occlusion sweeps, the bundle walks and the raygen kernel's
-sweep to zero triangles (and raygen's to zero spheres), the shade
-kernel's shading body to its loads, row gathers and one draw and the wave
-kernel's bounces to none (its raygen alone), by a text edit of the copy's
+closest and occlusion sweeps, the bundle walks, the block-pair walks and
+the raygen kernel's sweep to zero triangles (and raygen's to zero
+spheres), the shade kernel's shading body to its loads, row gathers and
+one draw and the wave kernel's bounces to none (its raygen alone), by a text edit of the copy's
 sources (``PROBE_EDITS``; KERNELS, a comma-separated subset of its keys,
 cuts those alone), and runs ``run`` on the copy: its times are those of
 the kernels' stage, sort, rechecks, barriers, loads and stores alone.  Its
@@ -98,6 +98,18 @@ hits (bounce-1 rays, shadow rays) is not the real one.
   shear frames among their live rays, the closest walk's entries after
   which some slot took a hit, the occlusion walk's entries met with all 8
   rays dead or occluded);
+- ``pairs``: the block-pair walks on ``chip_smoke.py`` phase 13's waves
+  (the bounce-1 rays and their shadow rays, each sorted by
+  ``ray_sort_key``, at yuki_tpu's pair capacity), on the phase's 8-block
+  slice and the whole wave, each timed a call and as the kernel's device
+  time, with the pairs a block (mean, 99th percentile, max) and the
+  slice's work from a plain walk that must give the kernel's output
+  (``_pairs_stats``: pairs visited, yes votes and live lanes a visited
+  pair, the visited treelets' real rows, blocks by distinct shear frames,
+  the tests the block contract forces; closest: the visited pairs after
+  which a lane took a hit; occlusion: the lanes of S, the rows walked
+  (r* + 1), the lanes testing each row in the first port's schedule and
+  the redesign's);
 - ``shade``: the shade kernel at every bounce of the first wave of
   Cornell's 1080p d5 1 spp path_li frame and of the colonnade's 1080p d5
   frame under UniformSampler(1) and StratifiedSampler(2, 2) (its planes),
@@ -140,7 +152,8 @@ KERNEL_NAMES = ("cull_kernel", "bounce_kernel", "wave_kernel",
                 "slot_closest_kernel", "slot_any_kernel",
                 "rows_closest_kernel", "rows_any_kernel",
                 "dense_closest_kernel", "dense_any_kernel", "shade_kernel",
-                "walker_closest_kernel", "walker_any_kernel")
+                "walker_closest_kernel", "walker_any_kernel",
+                "pairs_closest_kernel", "pairs_any_kernel")
 DENSE_KERNELS = ("dense_closest_kernel", "dense_any_kernel", "shade_kernel")
 COL_KERNELS = ("cull_kernel", "cross_words_kernel", "slot_closest_kernel",
                "slot_any_kernel", "rows_closest_kernel", "rows_any_kernel",
@@ -237,6 +250,35 @@ PROBE_EDITS = {
          "          if (c.z >= 0.0f) {\n            if (m & fr[0]) hit",
          "          if (c.z < -2.0f) {\n            if (m & fr[0]) hit"),
     ),
+    # The block-pair walks: no row (the first port's loops, or the
+    # redesign's walks), so the chain of pair loads, votes, stages and
+    # barriers alone; the closest walk's t never falls, so it visits more
+    # pairs than the real walk (an upper bound), and no lane is occluded.
+    "pairs_closest_kernel": (
+        ("trace_pairs.cu", "    for (int r = 0; r < k; ++r) {\n"
+         "      const float* c = rows_s + 12 * r;\n      float ti, bi0, bi1;\n"
+         "      const bool hit = watertight9(l.sh, l.o, t, ",
+         "    for (int r = 0; r < 0; ++r) {\n"
+         "      const float* c = rows_s + 12 * r;\n      float ti, bi0, bi1;\n"
+         "      const bool hit = watertight9(l.sh, l.o, t, "),
+        ("trace_pairs.cu", "for (int r = 0; r < last; ++r) {\n"
+         "              const float4 a = copy[3 * r]",
+         "for (int r = 0; r < 0; ++r) {\n"
+         "              const float4 a = copy[3 * r]"),
+    ),
+    "pairs_any_kernel": (
+        ("trace_pairs.cu", "    for (int r = 0; r < k; ++r) {\n"
+         "      const float* c = rows_s + 12 * r;\n      float ti, bi0, bi1;\n"
+         "      const bool hit =\n          watertight9(l.sh, l.o, t_max,",
+         "    for (int r = 0; r < 0; ++r) {\n"
+         "      const float* c = rows_s + 12 * r;\n      float ti, bi0, bi1;\n"
+         "      const bool hit =\n          watertight9(l.sh, l.o, t_max,"),
+        # first_blocker, both walks of a visited treelet.
+        ("trace_pairs.cu", "  for (int r = 0; r < n; ++r) {\n"
+         "    const float4 a = tri[3 * r]",
+         "  for (int r = n; r < n; ++r) {\n"
+         "    const float4 a = tri[3 * r]"),
+    ),
     # The shading body: the lane keeps its plane loads, its row gathers
     # and one draw, and writes the fixed planes (not the lights').
     "shade_kernel": (
@@ -324,7 +366,7 @@ def device_times(torch, prof, names):
 
 
 def run(root, tag, out_path,
-        parts="bounce,wave,cull,stream,frames,rows,dense,shade,walker"):
+        parts="bounce,wave,cull,stream,frames,rows,dense,shade,walker,pairs"):
     parts = set(parts.split(","))
     sys.path.insert(0, os.path.abspath(root))
     import numpy as np  # noqa: F401
@@ -458,7 +500,7 @@ def run(root, tag, out_path,
 
     # ---- the cull on the colonnade's bounce-1 and shadow rays -------------
     if not parts & {"cull", "stream", "frames", "rows", "rows_any", "shade",
-                    "walker"}:
+                    "walker", "pairs"}:
         return _write(res, out_path)
     scene, cam, _ = colonnade(device=dev)
 
@@ -486,7 +528,8 @@ def run(root, tag, out_path,
         rc = _shade(torch, tsf, res, tag, ms, cases)
         if rc:
             return rc
-    if not parts & {"cull", "stream", "frames", "rows", "rows_any", "walker"}:
+    if not parts & {"cull", "stream", "frames", "rows", "rows_any", "walker",
+                    "pairs"}:
         return _write(res, out_path)
     ctx, o, d = sm._camera_wave(torch, dev, cam, COL_TILES)
     t_max = torch.full((o.shape[0],), F32_MAX, device=dev)
@@ -555,6 +598,13 @@ def run(root, tag, out_path,
     if "walker" in parts:
         rc = _walker(torch, sm, res, tag, scene, (o2, d2, t2),
                      (no2, nd2, nt2, sk2), out0[5:9], ms)
+        if rc:
+            return rc
+
+    # ---- the block-pair walks ----------------------------------------------
+    if "pairs" in parts:
+        rc = _pairs(torch, sm, res, tag, scene, (o2, d2, t2),
+                    (no2, nd2, nt2, sk2), ms)
         if rc:
             return rc
 
@@ -1446,6 +1496,207 @@ def _slot_stats(torch, ch, row_chunk, stream):
                 mean_walked_rows=float(last8[rc].float().mean()),
                 leaf_size=k, dead_rows=int((~row_live).sum()),
                 dead_warps_of_live_rows=dead_warps)
+
+
+def _pairs_stats(torch, tpp, tl, runs, pt, packed, out, closest):
+    """The pair walk's work on ray blocks, from a plain walk with the plain
+    version's decisions (ROOT's helpers) that must give the kernel's
+    output ``out`` (closest: (t, prim, b0, b1); occlusion: the bits):
+    pairs and pairs visited (some lane's vote passes), yes votes and live
+    lanes (t_max > 0) a visited pair, real rows and the rows to the last
+    real one of the visited treelets, blocks by distinct shear frames of
+    their live lanes (0-3), and the contract's forced lane-row tests;
+    closest: the visited pairs after which some lane took a hit; occlusion:
+    the lanes in S (crossing and unoccluded) a visited pair, the rows
+    walked (r* + 1), lanes still testing at each row in the first port's
+    schedule (every lane to r*) and in the redesign's (each lane to its
+    first blocker, the non-crossing ones to r*)."""
+    from yuki_tpu_torch.ops.trace_treelets import (_accept_in_order,
+                                                   _edge_terms, _in_range,
+                                                   _Rays, _slab)
+
+    nb = runs.shape[0] - 1
+    planes = tpp._block_planes(packed, nb)
+    ox, oy, oz, dx, dy, dz, tm = planes[:7]
+    rays = _Rays(ox, oy, oz, dx, dy, dz)
+    k = tl.leaf_size
+    rows = tl.rows.reshape(tl.n_treelets, k, -1)
+    pid = rows[:, :, 10]
+    real = (pid >= 0.0).sum(dim=1)
+    last = torch.where(pid >= 0.0, torch.arange(1, k + 1, device=pid.device),
+                       0).amax(dim=1)
+    live = tm > 0.0
+    acc = dict.fromkeys(("pairs", "visited", "votes", "live", "real_rows",
+                         "last_rows", "forced", "took", "in_s", "walked",
+                         "tests_first_port", "tests_redesign"), 0)
+    testing = [torch.zeros(k, dtype=torch.int64, device=tm.device)
+               for _ in range(2)]
+    row_k = torch.arange(k, device=tm.device)
+    t = tm.clone()
+    prim = torch.full_like(tm, -1, dtype=torch.int32)
+    b0, b1 = torch.zeros_like(tm), torch.zeros_like(tm)
+    occ = torch.zeros_like(tm, dtype=torch.bool)
+    skip = None if closest else planes[7]
+    for on, tt in tpp._pair_steps(tl, runs, pt):
+        box = tl.treelet_bounds[tt].T[:, :, None]
+        if closest:
+            vote = _slab(box, *(x[on] for x in rays.o),
+                         *(x[on] for x in rays.inv), t[on])
+        else:
+            cross = _slab(box, *(x[on] for x in rays.o),
+                          *(x[on] for x in rays.inv), tm[on])
+            vote = cross & ~occ[on]
+        visit = vote.any(dim=1)
+        vb, tv = on[visit], tt[visit]
+        acc["pairs"] += on.numel()
+        acc["visited"] += vb.numel()
+        if vb.numel() == 0:
+            continue
+        acc["votes"] += int(vote[visit].sum())
+        acc["real_rows"] += int(real[tv].sum())
+        acc["last_rows"] += int(last[tv].sum())
+        tri = rows[tv]
+        terms = _edge_terms(rays.lanes(vb, flat=False), tri)
+        if closest:
+            acc["live"] += int(live[vb].sum())
+            acc["forced"] += int((live[vb].sum(dim=1) * real[tv]).sum())
+            t0 = t[vb]
+            t[vb], prim[vb], b0[vb], b1[vb] = _accept_in_order(
+                tri, terms, t[vb], prim[vb], b0[vb], b1[vb])
+            acc["took"] += int((t[vb] != t0).any(dim=1).sum())
+            continue
+        base_ok, det, t_scaled = terms[:3]
+        blocked = (base_ok & _in_range(det, t_scaled, tm[vb][:, None, :])
+                   & (tri[:, :, 9, None] != skip[vb][:, None, :])
+                   & (tri[:, :, 10, None] >= 0.0))
+        occ0 = occ[vb]
+        c = cross[visit]
+        after = occ0[:, None, :] | (torch.cummax(blocked.to(torch.int32),
+                                                 dim=1).values > 0)
+        still = (c[:, None, :] & ~after).any(dim=2)
+        stop = torch.where(still, k - 1, row_k).amin(dim=1)
+        occ[vb] = after.gather(1, stop[:, None, None].expand(
+            -1, 1, tpp.BLOCK))[:, 0]
+        open_ = live[vb] & ~occ0
+        s_lanes = c & open_
+        acc["live"] += int(open_.sum())
+        acc["in_s"] += int(s_lanes.sum())
+        acc["walked"] += int((stop + 1).sum())
+        # Rows each lane tests: the first port, every lane to r*; the
+        # redesign, each open lane to its first blocker (S: else to the
+        # last real row; the others: else to r*, both within real rows).
+        first = torch.where(blocked.any(dim=1),
+                            blocked.to(torch.int32).argmax(dim=1),
+                            k).to(torch.int64)
+        lst = last[tv][:, None]
+        cap = torch.where(s_lanes, lst, torch.minimum(stop[:, None] + 1, lst))
+        n_rows = torch.where(open_, torch.minimum(first + 1, cap), 0)
+        # The forced tests, counted as pairs_any_plain's "forced" is.
+        first_real = torch.where(first < k, first + 1, real[tv][:, None])
+        walked = torch.minimum(stop + 1, real[tv])[:, None]
+        acc["forced"] += int(torch.where(c, first_real, torch.minimum(
+            first_real, walked))[open_].sum())
+        acc["tests_first_port"] += int(((stop + 1) * tpp.BLOCK).sum())
+        acc["tests_redesign"] += int(n_rows.sum())
+        testing[0] += (row_k[None, :] <= stop[:, None]).sum(dim=0) * tpp.BLOCK
+        testing[1] += (row_k[None, None, :] < n_rows[:, :, None]).sum(
+            dim=(0, 1))
+    got = ((t, prim, b0, b1) if closest else (occ,))
+    want = out if closest else (out,)
+    def bits(x):
+        return x.view(torch.int32) if x.dtype == torch.float32 else x
+
+    same = all(torch.equal(bits(g.reshape(-1)[:w.shape[0]]), bits(w))
+               for g, w in zip(got, want))
+    if not PROBING and not same:
+        raise RuntimeError("pairs: the plain walk differs from the kernel")
+    frame = shear_frames(torch, torch.stack([dx, dy, dz], -1).reshape(-1, 3))
+    distinct = torch.stack([((frame.reshape(nb, -1) == f) & live).any(dim=1)
+                            for f in range(3)]).sum(0)
+    v = max(1, acc["visited"])
+    res = dict(acc, blocks=nb, visited_share=acc["visited"] / max(
+        1, acc["pairs"]), votes_per_visited=acc["votes"] / v,
+        live_per_visited=acc["live"] / v,
+        real_rows_mean=acc["real_rows"] / v,
+        last_rows_mean=acc["last_rows"] / v,
+        frames_per_block=torch.bincount(distinct, minlength=4).tolist())
+    if closest:
+        res["took_share"] = acc["took"] / v
+    else:
+        res.update(in_s_per_visited=acc["in_s"] / v,
+                   walked_mean=acc["walked"] / v,
+                   testing_first_port=testing[0].tolist(),
+                   testing_redesign=testing[1].tolist())
+    return res
+
+
+def _pairs(torch, sm, res, tag, scene, bounce1, shadow, ms):
+    """The pair walks on phase 13's waves (see the module's docstring)."""
+    from yuki_tpu_torch.ops import trace_pairs as tpp
+
+    tl = scene.data.treelets
+    waves, caps = sm._pair_waves(torch, scene.data, (*bounce1, *shadow))
+    for name, w in waves.items():
+        closest = name == "pairs_closest"
+        pb, pt, n_pairs, nb = tpp.block_candidate_pairs(tl, *w[:3],
+                                                        caps[name])
+        runs = tpp.pair_runs(pb, min(n_pairs, caps[name]), nb)
+        packed = tpp._pack_rays(*w[:3], nb, None if closest else w[3])
+        walk = tpp.pairs_closest_walk if closest else tpp.pairs_any_walk
+        a, b, s_runs, s_pt, s_packed = sm._pair_slice(torch, tpp, w[2], runs,
+                                                      pt, packed)
+        s_n = (b - a) * tpp.BLOCK
+        m = w[0].shape[0]
+        counts = (runs[1:] - runs[:-1]).double()
+        per_block = dict(mean=float(counts.mean()), max=int(counts.max()),
+                         p99=float(torch.quantile(counts, 0.99)))
+        kname = f"{name}_kernel"
+        for what, args in (("slice", (s_runs, s_pt, s_packed, s_n)),
+                           ("wave", (runs, pt, packed, m))):
+            def fn():
+                return walk(tl, *args)
+            out = fn()
+            key = f"{name} {what}"
+            res["hashes"][key] = (digest(torch.cat([
+                out[0].view(torch.int32), out[1], out[2].view(torch.int32),
+                out[3].view(torch.int32)])) if closest else digest(out))
+            res["ms"][key] = ms(fn, 10 if what == "slice" else 3)
+            res["ms"][f"{key}: kernel device time"] = kernel_device_ms(
+                torch, fn, kname, 10 if what == "slice" else 3)
+            if what == "slice":
+                st = _pairs_stats(torch, tpp, tl, s_runs, s_pt, s_packed, out,
+                                  closest)
+                res["notes"][key] = st
+        res["notes"][f"{name} wave"] = dict(pairs=n_pairs, blocks=nb,
+                                            pairs_per_block=per_block)
+        sl, wv = f"{name} slice", f"{name} wave"
+        extra = (f"visited pairs after which a lane took a hit {st['took']} "
+                 f"({st['took_share']:.4f})" if closest else
+                 f"lanes in S a visited pair {st['in_s_per_visited']:.1f}, "
+                 f"rows walked (r* + 1) {st['walked_mean']:.2f}; lane-row "
+                 f"tests, first port's schedule {st['tests_first_port']}, "
+                 f"redesign's {st['tests_redesign']}; lanes testing rows 0, "
+                 f"1, 2, 4, 8, 16, 32 (first port / redesign) "
+                 + ", ".join(f"{st['testing_first_port'][r]}/"
+                             f"{st['testing_redesign'][r]}"
+                             for r in (0, 1, 2, 4, 8, 16, 32)
+                             if r < tl.leaf_size))
+        print(f"[{tag}] {name} [{m} sorted rays, {nb} blocks, {n_pairs} "
+              f"pairs, a block's mean {per_block['mean']:.1f}, p99 "
+              f"{per_block['p99']:.1f}, max {per_block['max']}]: whole wave "
+              f"{res['ms'][wv]:.4f} ms a call, kernel device time "
+              f"{res['ms'][wv + ': kernel device time']:.4f} ms; blocks "
+              f"{a}-{b - 1} ({s_pt.numel()} pairs) {res['ms'][sl]:.4f} ms a "
+              f"call, kernel device time "
+              f"{res['ms'][sl + ': kernel device time']:.4f} ms [slice: "
+              f"visited {st['visited']} ({st['visited_share']:.4f}), yes "
+              f"votes a visited pair {st['votes_per_visited']:.1f}, live "
+              f"lanes {st['live_per_visited']:.1f}, visited treelets' real "
+              f"rows {st['real_rows_mean']:.2f}, to the last real "
+              f"{st['last_rows_mean']:.2f} of {tl.leaf_size}; blocks by "
+              f"distinct frames of live lanes (0-3) {st['frames_per_block']}; "
+              f"forced lane-row tests {st['forced']}; {extra}]")
+    return 0
 
 
 def kernel_device_ms(torch, fn, name, reps=10):

@@ -2457,6 +2457,33 @@ def _sort_rays(torch, data, o, d, *rest):
     return [x[order].contiguous() for x in (o, d, *rest)]
 
 
+def _pair_waves(torch, data, rays):
+    """Phase 13's waves, the bounce-1 rays and their shadow rays each
+    sorted by ray_sort_key, and yuki_tpu's pair capacity for each
+    (traverse.py:288-297, max(393216, 2 N))."""
+    o2, d2, t2, no2, nd2, nt2, sk2 = rays
+    waves = {"pairs_closest": _sort_rays(torch, data, o2, d2, t2),
+             "pairs_any": _sort_rays(torch, data, no2, nd2, nt2, sk2)}
+    return waves, {k: max(393216, 2 * w[0].shape[0])
+                   for k, w in waves.items()}
+
+
+def _pair_slice(torch, tpp, t_max, runs, pt, packed):
+    """B1_BLOCKS whole ray blocks a..b-1 from the middle of those with a
+    live lane (the sort gathers the parked lanes into blocks of their
+    own): (a, b, their runs from 0, their pairs, their packed rows)."""
+    nb = runs.shape[0] - 1
+    m = t_max.shape[0]
+    live = torch.nonzero((t_max > 0.0).reshape(-1)[:nb * tpp.BLOCK]
+                         .reshape(nb, -1).any(dim=1) if m == nb * tpp.BLOCK
+                         else torch.ones(nb, dtype=torch.bool)).squeeze(1)
+    a = min(int(live[live.numel() // 2]), nb - B1_BLOCKS)
+    b = a + B1_BLOCKS
+    return (a, b, (runs[a:b + 1] - runs[a]).contiguous(),
+            pt[int(runs[a]):int(runs[b])].contiguous(),
+            packed[a * tpp.BLOCK_ROWS:(b + 1) * tpp.BLOCK_ROWS].contiguous())
+
+
 def phase_pairs(torch, scene, rays, card):
     """13. The block-pair walks on the wave's bounce-1 rays and their
     shadow rays, each sorted by ray_sort_key, at yuki_tpu's pair capacity
@@ -2466,15 +2493,18 @@ def phase_pairs(torch, scene, rays, card):
     treelet walk: t bit for bit (both take the direct-t test), prim apart
     from counted ties (equal t), b0/b1 where prim is equal, occlusion
     exact.  Bounds from the plain versions' tallies on the slice (43
-    operations a test, 24 a box)."""
+    operations a test, 24 a box).  Beside them: the share of the slice's
+    pairs the blocks visit, the live lanes a visited pair and the
+    contract's floor, the tests the block semantics force (each visited
+    pair's live lanes against its real rows; occlusion: up to each lane's
+    first occluder and the rows walked) at OPS_DENSE_TEST operations each
+    over the card's rate: the least a walk bound to that contract could
+    take."""
     from yuki_tpu_torch.ops import trace_pairs as tpp
     from yuki_tpu_torch.ops import trace_treelets as ttt
 
     data, tl = scene.data, scene.data.treelets
-    o2, d2, t2, no2, nd2, nt2, sk2 = rays
-    waves = {"pairs_closest": _sort_rays(torch, data, o2, d2, t2),
-             "pairs_any": _sort_rays(torch, data, no2, nd2, nt2, sk2)}
-    caps = {k: max(393216, 2 * w[0].shape[0]) for k, w in waves.items()}
+    waves, caps = _pair_waves(torch, data, rays)
     torch.cuda.synchronize()
     tpp.reset_launches()
     out_c = tpp.pairs_closest(tl, *waves["pairs_closest"],
@@ -2498,18 +2528,10 @@ def phase_pairs(torch, scene, rays, card):
         packed = tpp._pack_rays(*w[:3], nb, None if closest else w[3])
         walk = tpp.pairs_closest_walk if closest else tpp.pairs_any_walk
         plain = tpp.pairs_closest_plain if closest else tpp.pairs_any_plain
-        # B1_BLOCKS blocks from the middle of those with live lanes (the
-        # sort gathers the parked lanes into blocks of their own).
-        live = torch.nonzero((w[2] > 0.0).reshape(-1)[:nb * tpp.BLOCK]
-                             .reshape(nb, -1).any(dim=1) if m == nb * tpp.BLOCK
-                             else torch.ones(nb, dtype=torch.bool)).squeeze(1)
-        a = min(int(live[live.numel() // 2]), nb - B1_BLOCKS)
-        b = a + B1_BLOCKS
-        s_runs = (runs[a:b + 1] - runs[a]).contiguous()
-        s_pt = pt[int(runs[a]):int(runs[b])].contiguous()
-        s_packed = packed[a * tpp.BLOCK_ROWS:(b + 1) * tpp.BLOCK_ROWS]
+        a, b, s_runs, s_pt, s_packed = _pair_slice(torch, tpp, w[2], runs,
+                                                   pt, packed)
         s_n = (b - a) * tpp.BLOCK
-        got = walk(tl, s_runs, s_pt, s_packed.contiguous(), s_n)
+        got = walk(tl, s_runs, s_pt, s_packed, s_n)
         stats = {}
         ref, ms_p = timed_once(torch, lambda: plain(tl, s_runs, s_pt,
                                                      s_packed, stats))
@@ -2544,14 +2566,19 @@ def phase_pairs(torch, scene, rays, card):
             found = (f"{int(out_a[0].sum())} occluded; against the treelet "
                      f"walk: {n_o} verdicts differ")
             check(n_o == 0, f"{name} against the treelet walk: {found}")
+        floor_ms = stats["forced"] * OPS_DENSE_TEST / PEAK_OPS * 1e3
         print(f"{name} [{m} sorted {'bounce-1' if closest else 'shadow'} "
               f"rays, {nb} blocks, {n_pairs} pairs (capacity {caps[name]}), "
               f"{found}]: whole wave: kernel {ms_full:.4f} ms, call with the "
               f"cull {ms_call:.4f} ms; blocks {a}-{b - 1} ({s_n} rays, "
-              f"{s_pt.numel()} pairs): kernel {ms_k:.4f} ms, plain {ms_p:.4f} "
-              f"ms, bound {b_ms:.4f} ms ({b_by}; {stats['tests']} triangle "
-              f"tests, {stats['boxes']} box tests, {stats['treelets']} "
-              f"treelets): equal bit for bit [{card}]")
+              f"{s_pt.numel()} pairs, {stats['visited']} visited ("
+              f"{stats['visited'] / max(1, stats['pairs']):.4f}), live lanes "
+              f"a visited pair {stats['live'] / max(1, stats['visited']):.1f}"
+              f"): kernel {ms_k:.4f} ms, plain {ms_p:.4f} ms, bound "
+              f"{b_ms:.4f} ms ({b_by}; {stats['tests']} triangle tests, "
+              f"{stats['boxes']} box tests, {stats['treelets']} treelets), "
+              f"contract's floor {floor_ms:.4f} ms ({stats['forced']} forced "
+              f"tests): equal bit for bit [{card}]")
         result[name] = dict(max_abs_err=0.0, ms=ms_k, plain_ms=ms_p,
                             bound_ms=b_ms, bound_by=b_by, wave_ms=ms_full)
     return result, launches

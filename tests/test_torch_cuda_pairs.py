@@ -15,6 +15,7 @@ import pytest
 import torch
 
 from test_torch_cuda_stream import _rays, cuda, scenes  # noqa: F401
+from test_torch_pairs_redesign import hand_built, packed_tables
 from yuki_tpu_torch import traverse
 from yuki_tpu_torch.ops import trace_pairs as tpp
 from yuki_tpu_torch.ops import trace_treelets as ttt
@@ -80,3 +81,26 @@ def test_pairs_overflow(cuda, scenes):
                                           max_pairs=n_pairs // 2)
     assert n2 == n_pairs
     assert t.shape == (N,) and prim.dtype == torch.int32
+
+
+@pytest.mark.parametrize("k", [16, 64, 256])
+def test_walks_match_plain_on_hand_built_blocks(cuda, k):
+    """tests/test_torch_pairs_redesign.py's edge blocks (an axis lane
+    visited for others, a take closing a later pair of its window, dead
+    and NaN lanes, a skip id on the only occluder, lanes blocked before and
+    after r*, a ragged block voted by its padding lanes, runs of one pair
+    and of two windows); k = 256 takes more than 48 KB of shared memory."""
+    hb = hand_built(k, device=cuda)
+    tl, runs, pt = hb[:3]
+    n = hb[3].shape[0]
+    packed, packed_any = packed_tables(hb)
+    tpp.reset_launches()
+    got = tpp.pairs_closest_walk(tl, runs, pt, packed, n)
+    ref = tpp.pairs_closest_plain(tl, runs, pt, packed)
+    for g, r in zip(got, ref):
+        assert torch.equal(g.view(torch.int32), r[:n].view(torch.int32))
+    occ = tpp.pairs_any_walk(tl, runs, pt, packed_any, n)
+    assert torch.equal(occ, tpp.pairs_any_plain(tl, runs, pt,
+                                                packed_any)[:n])
+    assert tpp.LAUNCHES == {"pairs_closest": 1, "pairs_any": 1}
+    assert bool(occ.any()) and not bool(occ.all())

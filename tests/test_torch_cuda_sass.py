@@ -69,11 +69,14 @@ BARRIERS = {
     "slot_any_kernel": (1, 1),
     # trace_cull.cu: the word stage.
     "cull_kernel": (1, 0),
-    # trace_treelets.cu, trace_pairs.cu: the box votes, stage_rows.
+    # trace_treelets.cu: the box votes, stage_rows.
     "treelet_closest_kernel": (1, 2),
     "treelet_any_kernel": (1, 4),
-    "pairs_closest_kernel": (1, 1),
-    "pairs_any_kernel": (1, 2),
+    # trace_pairs.cu: block_frames, a window's stage and its block_union,
+    # a mask pair's vote; the occlusion walk's window stage is a vote, and
+    # a visited treelet's block_max gives r*.
+    "pairs_closest_kernel": (3, 1),
+    "pairs_any_kernel": (3, 2),
     # trace_walker.cu: none; a warp walks a bundle.
     "walker_closest_kernel<false>": (0, 0),
     "walker_closest_kernel<true>": (0, 0),

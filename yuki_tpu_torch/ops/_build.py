@@ -146,9 +146,9 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.yk_walker_any.argtypes = [i, p, p, p, i, p, i, i, p, p, p, p, p, p]
     for name in ("yk_pairs_closest", "yk_pairs_any"):
         # device, treelet boxes, rows, leaf_size, runs, pair treelets,
-        # n_blocks, packed rays, n, then t + prim + b0 + b1 (closest) or
-        # occ (any), stream
-        getattr(lib, name).argtypes = [i, p, p, i, p, p, i, p, i] + [p] * (
+        # block order, n_blocks, packed rays, n, then t + prim + b0 + b1
+        # (closest) or occ (any), stream
+        getattr(lib, name).argtypes = [i, p, p, i, p, p, p, i, p, i] + [p] * (
             5 if name == "yk_pairs_closest" else 2)
     lib.yk_dense_any.argtypes = [
         i, p, p, i, p, p, p, p, i,  # device, tris, light, n_tris, o, d, tmax, skip, n

@@ -23,9 +23,11 @@ slab of ``trace_treelets._slab``), and then every lane tests its rows.
                       ``pairs_any_plain``
 
 A CUDA tensor launches the hand-written kernel in ``csrc/trace_pairs.cu``
-(one 1024-thread CUDA block per ray block, ``__syncthreads_or`` for both
-decisions) or raises; a CPU tensor runs the plain PyTorch version beside
-it.  Each kernel launch adds one to ``LAUNCHES``.
+(one 1024-thread CUDA block per ray block, longest run first; votes on
+windows of 32 pairs; framed rows up to each treelet's last real row; the
+occlusion walk's exit row r* found once) or raises; a CPU tensor runs the
+plain PyTorch version beside it.  Each kernel launch adds one to
+``LAUNCHES``.
 
 What the TPU needed and the port does not copy: the walk in CHUNK-pair
 launches (an SMEM limit on the prefetched pair arrays) with a min-t merge
@@ -190,8 +192,11 @@ def pairs_closest_plain(tl, runs, pair_treelet, packed, stats=None):
     (``trace_treelets._accept_in_order``).
     ``stats`` receives "boxes" (pair box tests of lanes with t_max > 0),
     "tests" (such lanes against the real rows of the treelets whose box
-    their own slab test passes) and "treelets" (distinct treelets
-    visited)."""
+    their own slab test passes), "treelets" (distinct treelets visited),
+    "pairs", "visited" (pairs the block visits), "live" (lanes with t_max
+    > 0 summed over the visited pairs) and "forced" (the tests the
+    block's contract forces: each visited pair's live lanes against its
+    treelet's real rows)."""
     nb = runs.shape[0] - 1
     ox, oy, oz, dx, dy, dz, tm = _block_planes(packed, nb)[:7]
     rays = _Rays(ox, oy, oz, dx, dy, dz)
@@ -212,8 +217,12 @@ def pairs_closest_plain(tl, runs, pair_treelet, packed, stats=None):
                ((lane & live[on]).sum(dim=1) * real[tt]).sum())
         visit = lane.any(dim=1)
         vb, tv = on[visit], tt[visit]
+        _tally(stats, "pairs", on.numel())
+        _tally(stats, "visited", vb.numel())
         if vb.numel() == 0:
             continue
+        _tally(stats, "live", live[vb].sum())
+        _tally(stats, "forced", (live[vb].sum(dim=1) * real[tv]).sum())
         seen[tv] = True
         tri = rows[tv]
         t[vb], prim[vb], b0[vb], b1[vb] = _accept_in_order(
@@ -230,8 +239,11 @@ def pairs_any_plain(tl, runs, pair_treelet, packed, stats=None):
     row's blocking hits into every lane and leaves the treelet after the
     first row at which no crossing lane is unoccluded.  ``stats``: "boxes"
     (box tests of unoccluded lanes with t_max > 0), "tests" (each crossing
-    unoccluded lane's rows up to its first occluder, else every real row)
-    and "treelets"."""
+    unoccluded lane's rows up to its first occluder, else every real row),
+    "treelets", "pairs", "visited", "live" (unoccluded lanes with t_max >
+    0 summed over the visited pairs) and "forced" (the tests the exit rule
+    forces: each such lane's rows up to its first occluder, within the
+    real rows for a crossing lane and the rows walked for the others)."""
     nb = runs.shape[0] - 1
     ox, oy, oz, dx, dy, dz, tm, skip = _block_planes(packed, nb)[:8]
     rays = _Rays(ox, oy, oz, dx, dy, dz)
@@ -250,6 +262,8 @@ def pairs_any_plain(tl, runs, pair_treelet, packed, stats=None):
         _tally(stats, "boxes", (live[on] & ~occ[on]).sum())
         visit = alive.any(dim=1)
         vb, tv, cross = on[visit], tt[visit], crossing[visit]
+        _tally(stats, "pairs", on.numel())
+        _tally(stats, "visited", vb.numel())
         if vb.numel() == 0:
             continue
         seen[tv] = True
@@ -273,6 +287,11 @@ def pairs_any_plain(tl, runs, pair_treelet, packed, stats=None):
                                 real[tv][:, None])
             need = cross & ~occ0 & live[vb]
             _tally(stats, "tests", (first * need).sum())
+            open_ = ~occ0 & live[vb]
+            walked = torch.minimum(stop + 1, real[tv])[:, None]
+            _tally(stats, "live", open_.sum())
+            _tally(stats, "forced", torch.where(
+                cross, first, torch.minimum(first, walked))[open_].sum())
         occ[vb] = after.gather(1, stop[:, None, None].expand(
             -1, 1, BLOCK))[:, 0]
     _tally(stats, "treelets", seen.sum())
@@ -303,6 +322,13 @@ def _check_walk(tl, runs, pair_treelet, packed, planes, dev):
     return nb
 
 
+def _block_order(runs):
+    """The ray blocks longest run first (ties in block order), the order
+    the kernels' CUDA blocks take them in."""
+    return torch.argsort(runs[1:] - runs[:-1], descending=True,
+                         stable=True).to(torch.int32)
+
+
 def pairs_closest_walk(tl, runs, pair_treelet, packed, n: int):
     """Closest hits of the first ``n`` lanes of ``packed`` (``_pack_rays``,
     7 planes) by the pair walk over ``runs`` (``pair_runs``) and
@@ -317,10 +343,12 @@ def pairs_closest_walk(tl, runs, pair_treelet, packed, n: int):
     prim = torch.empty(n, dtype=torch.int32, device=dev)
     b0, b1 = torch.empty_like(t), torch.empty_like(t)
     if nb:
+        order = _block_order(runs)
         err = _build.library().yk_pairs_closest(
             dev.index, _build.ptr(tl.treelet_bounds), _build.ptr(tl.rows),
-            tl.leaf_size, _build.ptr(runs), _build.ptr(pair_treelet), nb,
-            _build.ptr(packed), n, _build.ptr(t), _build.ptr(prim),
+            tl.leaf_size, _build.ptr(runs), _build.ptr(pair_treelet),
+            _build.ptr(order), nb, _build.ptr(packed), n,
+            _build.ptr(t), _build.ptr(prim),
             _build.ptr(b0), _build.ptr(b1), _build.stream(dev))
         _build.launch_check(err, "pairs_closest")
         LAUNCHES["pairs_closest"] += 1
@@ -337,10 +365,12 @@ def pairs_any_walk(tl, runs, pair_treelet, packed, n: int):
     n = min(n, nb * BLOCK)
     occ = torch.empty(n, dtype=torch.bool, device=dev)
     if nb:
+        order = _block_order(runs)
         err = _build.library().yk_pairs_any(
             dev.index, _build.ptr(tl.treelet_bounds), _build.ptr(tl.rows),
-            tl.leaf_size, _build.ptr(runs), _build.ptr(pair_treelet), nb,
-            _build.ptr(packed), n, _build.ptr(occ), _build.stream(dev))
+            tl.leaf_size, _build.ptr(runs), _build.ptr(pair_treelet),
+            _build.ptr(order), nb, _build.ptr(packed), n,
+            _build.ptr(occ), _build.stream(dev))
         _build.launch_check(err, "pairs_any")
         LAUNCHES["pairs_any"] += 1
     return occ
