@@ -2,8 +2,8 @@
 """A/B of the redesigned kernels (the two-level cull, the dense bounce,
 the crossing words, the slot walks, raygen, the row-union walks, the dense
 closest and occlusion sweeps, the shade kernel, the one-kernel wave, the
-bundle walks and the block-pair walks) between two checkouts of this
-repository, on one NVIDIA GPU.
+bundle walks, the block-pair walks and the treelet walks) between two
+checkouts of this repository, on one NVIDIA GPU.
 
     python3 chip_ab.py run ROOT TAG OUT.json [PARTS]   # measure ROOT's port
     python3 chip_ab.py probe ROOT TAG OUT.json [PARTS [KERNELS]]
@@ -11,14 +11,14 @@ repository, on one NVIDIA GPU.
     python3 chip_ab.py compare A.json B.json           # A against B
 
 PARTS is a comma-separated subset of
-bounce,wave,cull,stream,frames,rows,dense,shade,walker,pairs (default:
-all), or raygen (bounce's raygen measurements alone) or rows_any (rows'
-occlusion walk alone).
+bounce,wave,cull,stream,frames,rows,dense,shade,walker,pairs,treelets
+(default: all), or raygen (bounce's raygen measurements alone) or rows_any
+(rows' occlusion walk alone).
 
 ``probe`` copies ROOT's ``yuki_tpu_torch`` to ``build/probe-TAG/``, cuts
 the walks of the occlusion slot walk, the row-union walks, the dense
-closest and occlusion sweeps, the bundle walks, the block-pair walks and
-the raygen kernel's sweep to zero triangles (and raygen's to zero
+closest and occlusion sweeps, the bundle walks, the block-pair walks, the
+treelet walks and the raygen kernel's sweep to zero triangles (and raygen's to zero
 spheres), the shade kernel's shading body to its loads, row gathers and
 one draw and the wave kernel's bounces to none (its raygen alone), by a text edit of the copy's
 sources (``PROBE_EDITS``; KERNELS, a comma-separated subset of its keys,
@@ -110,6 +110,19 @@ hits (bounce-1 rays, shadow rays) is not the real one.
   which a lane took a hit; occlusion: the lanes of S, the rows walked
   (r* + 1), the lanes testing each row in the first port's schedule and
   the redesign's);
+- ``treelets``: the treelet walks (the dispatch's fallback) on
+  ``chip_smoke.py`` phase 6's four workloads: the closest walk on the
+  colonnade wave's camera rays and its bounce-1 rays, the occlusion walk
+  on its bounce-0 and bounce-1 shadow rays, each on the phase's slice and
+  the whole wave, timed a call and as the walk's device time (and the
+  vote count's, for a closest walk that orders its blocks), with the
+  slice's work from ``chip_smoke.treelet_work`` (a plain walk that must
+  give the kernel's output: super and treelet visits, a block's visits,
+  live lanes and real rows a visit, the contract's floor); on the bounce-1
+  waves the closest walk of a checkout that launches its blocks most
+  votes first also in launch order (``_launch_order``), and a walk that
+  launches them in order also with its rays permuted most votes first
+  (``_permuted``);
 - ``shade``: the shade kernel at every bounce of the first wave of
   Cornell's 1080p d5 1 spp path_li frame and of the colonnade's 1080p d5
   frame under UniformSampler(1) and StratifiedSampler(2, 2) (its planes),
@@ -153,7 +166,9 @@ KERNEL_NAMES = ("cull_kernel", "bounce_kernel", "wave_kernel",
                 "rows_closest_kernel", "rows_any_kernel",
                 "dense_closest_kernel", "dense_any_kernel", "shade_kernel",
                 "walker_closest_kernel", "walker_any_kernel",
-                "pairs_closest_kernel", "pairs_any_kernel")
+                "pairs_closest_kernel", "pairs_any_kernel",
+                "treelet_closest_kernel", "treelet_any_kernel",
+                "treelet_votes_kernel")
 DENSE_KERNELS = ("dense_closest_kernel", "dense_any_kernel", "shade_kernel")
 COL_KERNELS = ("cull_kernel", "cross_words_kernel", "slot_closest_kernel",
                "slot_any_kernel", "rows_closest_kernel", "rows_any_kernel",
@@ -161,8 +176,13 @@ COL_KERNELS = ("cull_kernel", "cross_words_kernel", "slot_closest_kernel",
 N_CLASSES = 9  # the shade kernel's lane classes: dead, then 2 mtype + sphere
 # The probe's edits: for each kernel, alternatives (source, old, new), of
 # which exactly one must occur once in the checkout's source (the code
-# before the kernel's redesign, or after it); each cuts the kernel's walk
-# to zero triangles and leaves its stage, loads and stores.
+# before the kernel's redesign, or after it), or have been made already by
+# another kernel's edit of a shared header; each cuts the kernel's walk to
+# zero triangles and leaves its stage, loads and stores.
+FIRST_BLOCKER_EDIT = (
+    "trace_treelets.cuh", "  for (int r = 0; r < n; ++r) {\n"
+    "    const float4 a = tri[3 * r]",
+    "  for (int r = n; r < n; ++r) {\n    const float4 a = tri[3 * r]")
 PROBE_EDITS = {
     "slot_any_kernel": (
         ("trace_stream.cu", "for (int r = 0; r < k; ++r) {",
@@ -273,11 +293,42 @@ PROBE_EDITS = {
          "    for (int r = 0; r < 0; ++r) {\n"
          "      const float* c = rows_s + 12 * r;\n      float ti, bi0, bi1;\n"
          "      const bool hit =\n          watertight9(l.sh, l.o, t_max,"),
-        # first_blocker, both walks of a visited treelet.
+        # first_blocker, both walks of a visited treelet (in
+        # trace_pairs.cu before it was shared).
         ("trace_pairs.cu", "  for (int r = 0; r < n; ++r) {\n"
          "    const float4 a = tri[3 * r]",
          "  for (int r = n; r < n; ++r) {\n"
          "    const float4 a = tri[3 * r]"),
+        FIRST_BLOCKER_EDIT,
+    ),
+    # The treelet walks: no row (the first port's loops, or the
+    # redesign's closest walk and first_blocker; trace_treelets.cuh shares
+    # first_blocker with the pair walks, so cutting either occlusion walk
+    # there cuts both); the closest walk's t never falls, so it visits
+    # more boxes than the real walk (an upper bound), and no lane is
+    # occluded.
+    "treelet_closest_kernel": (
+        ("trace_treelets.cu", "      for (int r = 0; r < k; ++r) {\n"
+         "        const float* c = rows_s + 12 * r;\n        float ti, bi0, "
+         "bi1;\n        bool hit = watertight9(l.sh, l.o, t, ",
+         "      for (int r = 0; r < 0; ++r) {\n"
+         "        const float* c = rows_s + 12 * r;\n        float ti, bi0, "
+         "bi1;\n        bool hit = watertight9(l.sh, l.o, t, "),
+        ("trace_treelets.cu", "for (int r = 0; r < last; ++r) {\n"
+         "                  const float4 a = copy[3 * r]",
+         "for (int r = 0; r < 0; ++r) {\n"
+         "                  const float4 a = copy[3 * r]"),
+    ),
+    "treelet_any_kernel": (
+        ("trace_treelets.cu", "      for (int r = 0; r < k; ++r) {\n"
+         "        const float* c = rows_s + 12 * r;\n        float ti, bi0, "
+         "bi1;\n        bool hit =\n            watertight9(l.sh, l.o, "
+         "t_max,",
+         "      for (int r = 0; r < 0; ++r) {\n"
+         "        const float* c = rows_s + 12 * r;\n        float ti, bi0, "
+         "bi1;\n        bool hit =\n            watertight9(l.sh, l.o, "
+         "t_max,"),
+        FIRST_BLOCKER_EDIT,
     ),
     # The shading body: the lane keeps its plane loads, its row gathers
     # and one draw, and writes the fixed planes (not the lights').
@@ -366,7 +417,8 @@ def device_times(torch, prof, names):
 
 
 def run(root, tag, out_path,
-        parts="bounce,wave,cull,stream,frames,rows,dense,shade,walker,pairs"):
+        parts="bounce,wave,cull,stream,frames,rows,dense,shade,walker,pairs,"
+              "treelets"):
     parts = set(parts.split(","))
     sys.path.insert(0, os.path.abspath(root))
     import numpy as np  # noqa: F401
@@ -500,7 +552,7 @@ def run(root, tag, out_path,
 
     # ---- the cull on the colonnade's bounce-1 and shadow rays -------------
     if not parts & {"cull", "stream", "frames", "rows", "rows_any", "shade",
-                    "walker", "pairs"}:
+                    "walker", "pairs", "treelets"}:
         return _write(res, out_path)
     scene, cam, _ = colonnade(device=dev)
 
@@ -529,7 +581,7 @@ def run(root, tag, out_path,
         if rc:
             return rc
     if not parts & {"cull", "stream", "frames", "rows", "rows_any", "walker",
-                    "pairs"}:
+                    "pairs", "treelets"}:
         return _write(res, out_path)
     ctx, o, d = sm._camera_wave(torch, dev, cam, COL_TILES)
     t_max = torch.full((o.shape[0],), F32_MAX, device=dev)
@@ -605,6 +657,13 @@ def run(root, tag, out_path,
     if "pairs" in parts:
         rc = _pairs(torch, sm, res, tag, scene, (o2, d2, t2),
                     (no2, nd2, nt2, sk2), ms)
+        if rc:
+            return rc
+
+    # ---- the treelet walks (the dispatch's fallback) ----------------------
+    if "treelets" in parts:
+        rc = _treelets(torch, sm, res, tag, scene, (o, d, t_max), out0[5:9],
+                       (o2, d2, t2), (no2, nd2, nt2, sk2), ms)
         if rc:
             return rc
 
@@ -1699,6 +1758,211 @@ def _pairs(torch, sm, res, tag, scene, bounce1, shadow, ms):
     return 0
 
 
+def _treelet_out(torch, out):
+    """A treelet walk's output as one tensor: t, prim, b0, b1 as int32
+    bits (closest), or the occlusion bits."""
+    if isinstance(out, torch.Tensor):
+        return out
+    return torch.cat([x.view(torch.int32) for x in out])
+
+
+def _vote_counts(torch, tl, rays):
+    """Each 1024-ray block's treelet votes at t_max within the supers it
+    votes for at t_max: the estimate of a block's walk that a pre-pass
+    could make before the walk, to launch the blocks longest first."""
+    from yuki_tpu_torch.ops import trace_treelets as ttt
+
+    planes, _ = ttt._pack(*rays[:3])
+    walk, tm = ttt._Rays(*planes[:6]), planes[6]
+    counts = torch.zeros(tm.shape[0], dtype=torch.int64, device=tm.device)
+    for s, (t0, tc) in enumerate(tl.super_range.tolist()):
+        in_super = walk.slab(tl.super_bounds[s], tm).any(dim=1)
+        for tt in range(t0, t0 + tc):
+            counts += in_super & walk.slab(tl.treelet_bounds[tt],
+                                           tm).any(dim=1)
+    return counts
+
+
+def _permuted(torch, sm, res, tag, tl, name, walk, kname, rays, out, ms):
+    """The wave launched most votes first by permuting its rays in whole
+    1024-ray blocks (a block's output depends on its lanes alone), for a
+    walk that launches its blocks in order: the outputs permuted back must
+    equal ``out``; the count's own time (the checkout's treelet_votes, as
+    device time, else the torch estimate _vote_counts, once) and the
+    permuted wave's, a call (events) and as the walk's device time."""
+    from yuki_tpu_torch.ops import trace_treelets as ttt
+
+    block = 1024
+    n = rays[0].shape[0]
+    if n % block:
+        return 0
+    key = f"{name} wave, blocks permuted most votes first"
+    if hasattr(ttt, "treelet_votes"):
+        def count():
+            return ttt.treelet_votes(tl, *rays[:3])
+        res["ms"][key + ": vote count device time"] = kernel_device_ms(
+            torch, count, "treelet_votes_kernel", 3)
+        counts = count()
+    else:
+        counts, res["ms"][key + ": torch estimate"] = sm.timed_once(
+            torch, lambda: _vote_counts(torch, tl, rays))
+    order = torch.argsort(counts, descending=True, stable=True)
+    perm = (order[:, None] * block + torch.arange(
+        block, device=order.device)).reshape(-1)
+    moved = [x[perm].contiguous() for x in rays]
+
+    def fn():
+        return walk(tl, *moved)
+    got = fn()
+    got = (got,) if isinstance(got, torch.Tensor) else got
+    back = [torch.empty_like(g) for g in got]
+    for b, g in zip(back, got):
+        b[perm] = g
+    same = torch.equal(_treelet_out(torch, back[0] if len(back) == 1
+                                    else back), _treelet_out(torch, out))
+    if not same and not PROBING:
+        print(f"chip_ab: FAIL: {key} differs", file=sys.stderr)
+        return 1
+    res["ms"][key] = ms(fn, 3)
+    res["ms"][key + ": kernel device time"] = kernel_device_ms(torch, fn,
+                                                               kname, 3)
+    c = counts.double()
+    res["notes"][key] = dict(votes_mean=float(c.mean()),
+                             votes_max=int(counts.max()),
+                             votes_min=int(counts.min()))
+    cost = {k.split(": ")[-1]: v for k, v in res["ms"].items()
+            if k.startswith(key + ": ") and "kernel" not in k}
+    print(f"[{tag}] {key} (votes at t_max: mean {float(c.mean()):.1f}, "
+          f"min {int(counts.min())}, max {int(counts.max())}; the count's "
+          + ", ".join(f"{k} {v:.4f} ms" for k, v in cost.items())
+          + f"): {res['ms'][key]:.4f} ms a call, kernel device time "
+          f"{res['ms'][key + ': kernel device time']:.4f} ms")
+    return 0
+
+
+def _launch_order(torch, res, tag, tl, name, walk, kname, rays, out, ms):
+    """A walk that orders its own blocks (most votes first), launched in
+    block order instead, by setting trace_treelets._block_order to the
+    identity for the calls (the vote count still runs, so a call's time
+    holds it as the default's does): timed a call (events) and as the
+    walk's device time; the outputs must equal ``out``."""
+    from yuki_tpu_torch.ops import trace_treelets as ttt
+
+    nb = -(-rays[0].shape[0] // ttt.BLOCK)
+    identity = torch.arange(nb, dtype=torch.int32, device=rays[0].device)
+    default = ttt._block_order
+
+    def in_order(*args):
+        default(*args)
+        return identity
+    key = f"{name} wave, launch order"
+    ttt._block_order = in_order
+    try:
+        def fn():
+            return walk(tl, *rays)
+        same = torch.equal(_treelet_out(torch, fn()),
+                           _treelet_out(torch, out))
+        res["ms"][key] = ms(fn, 3)
+        res["ms"][key + ": kernel device time"] = kernel_device_ms(
+            torch, fn, kname, 3)
+    finally:
+        ttt._block_order = default
+    if not same and not PROBING:
+        print(f"chip_ab: FAIL: {key} differs", file=sys.stderr)
+        return 1
+    print(f"[{tag}] {key}: {res['ms'][key]:.4f} ms a call (with the vote "
+          f"count), kernel device time "
+          f"{res['ms'][key + ': kernel device time']:.4f} ms")
+    return 0
+
+
+def _treelets(torch, sm, res, tag, scene, camera, shadow0, bounce1, shadow1,
+              ms):
+    """The treelet walks on chip_smoke.py phase 6's four workloads (see
+    the module's docstring)."""
+    from yuki_tpu_torch.ops import trace_treelets as ttt
+
+    sm.ops_ceiling(torch)
+    tl = scene.data.treelets
+    n = camera[0].shape[0]
+    n_lights = shadow0[0].shape[0] // n
+    sl = sm.SLICE_BLOCKS * ttt.BLOCK
+    a, m = sm.bounce1_span(torch, bounce1[2])
+    # A checkout whose closest walk launches its blocks most votes first
+    # (treelet_votes) times it also in launch order; a walk that launches
+    # its blocks in order is timed also with its rays permuted most votes
+    # first (bounce-1 waves).
+    ordered = hasattr(ttt, "treelet_votes")
+    cases = (("treelet_closest camera", camera, [(0, sl)]),
+             ("treelet_any bounce-0 shadow", shadow0,
+              [(li * n, li * n + sl) for li in range(n_lights)]),
+             ("treelet_closest bounce-1", bounce1, [(a, a + m)]),
+             ("treelet_any bounce-1 shadow", shadow1,
+              [(li * n + a, li * n + a + m) for li in range(n_lights)]))
+    for name, rays, spans in cases:
+        closest = len(rays) == 3
+        walk = ttt.treelet_closest if closest else ttt.treelet_any
+        kname = "treelet_closest_kernel" if closest else "treelet_any_kernel"
+
+        def wave():
+            return walk(tl, *rays)
+
+        def slices():
+            return [walk(tl, *(x[lo:hi] for x in rays)) for lo, hi in spans]
+        out = wave()
+        res["hashes"][f"{name} wave"] = digest(_treelet_out(torch, out))
+        res["hashes"][f"{name} slice"] = digest(torch.cat([
+            _treelet_out(torch, x) for x in slices()]))
+        for what, fn, reps in (("wave", wave, 3), ("slice", slices, 10)):
+            key = f"{name} {what}"
+            res["ms"][key] = ms(fn, reps)
+            res["ms"][f"{key}: kernel device time"] = kernel_device_ms(
+                torch, fn, kname, reps)
+            if ordered and closest:
+                res["ms"][f"{key}: vote count device time"] = \
+                    kernel_device_ms(torch, fn, "treelet_votes_kernel", reps)
+        work = sm.treelet_work(torch, tl, rays, spans,
+                               None if PROBING else out)
+        floor_ms, at_sms = sm.treelet_floor(torch, work)
+        per = torch.tensor(work.pop("per_block"), dtype=torch.float64)
+        v = max(1, work["visited"])
+        note = dict(work, floor_ms=floor_ms, floor_at_sms_ms=at_sms,
+                    visits_per_block_mean=float(per.mean()),
+                    visits_per_block_max=int(per.max()),
+                    live_per_visit=work["live"] / v,
+                    real_rows_per_visit=work["real_rows"] / v,
+                    took_share=work["took"] / v)
+        res["notes"][f"{name} slice"] = note
+        wv, sv = f"{name} wave", f"{name} slice"
+        votes = (f", vote count device time "
+                 f"{res['ms'][wv + ': vote count device time']:.4f} ms"
+                 if ordered and closest else "")
+        print(f"[{tag}] {name} [{rays[0].shape[0]} rays, "
+              f"{int((rays[2] > 0).sum())} with t_max > 0]: whole wave "
+              f"{res['ms'][wv]:.4f} ms a call, kernel device time "
+              f"{res['ms'][wv + ': kernel device time']:.4f} ms{votes}; slice "
+              f"(rays {spans[0][0]}-{spans[0][1] - 1} of each of "
+              f"{len(spans)} light(s)) {res['ms'][sv]:.4f} ms a call, kernel "
+              f"device time {res['ms'][sv + ': kernel device time']:.4f} ms "
+              f"[slice: {work['blocks']} blocks, super visits "
+              f"{work['supers']}, treelet visits {work['visited']} (a block's"
+              f" mean {note['visits_per_block_mean']:.1f}, max "
+              f"{note['visits_per_block_max']}), live lanes a visit "
+              f"{note['live_per_visit']:.1f}, real rows a visit "
+              f"{note['real_rows_per_visit']:.2f} of {tl.leaf_size}, visits "
+              f"after which a lane took a hit {work['took']}; contract's "
+              f"floor {floor_ms:.4f} ms ({work['forced']} forced tests), "
+              f"{at_sms:.4f} ms at the SMs the blocks fill]")
+        if "bounce-1" in name:
+            rc = (_launch_order(torch, res, tag, tl, name, walk, kname, rays,
+                                out, ms) if ordered and closest else
+                  _permuted(torch, sm, res, tag, tl, name, walk, kname, rays,
+                            out, ms))
+            if rc:
+                return rc
+    return 0
+
+
 def kernel_device_ms(torch, fn, name, reps=10):
     """Device time per call of the kernels whose name holds ``name`` in fn
     (torch.profiler, after one warm-up call): the kernel alone, without
@@ -1848,6 +2112,8 @@ def probe(root, tag, out_path, parts="bounce,stream", kernels=None):
                 with open(path, "w") as f:
                     f.write(src.replace(old, new))
                 done += 1
+            elif old not in src and src.count(new) == 1:
+                done += 1  # a shared header another kernel's edit cut
         if done != 1:
             print(f"chip_ab: FAIL: probe: {done} edits of {kernel} apply",
                   file=sys.stderr)

@@ -65,7 +65,10 @@ beside this file.  It imports no JAX.  Phases:
      treelet_any on their shadow rays; the walks' plain versions run on
      stated slices of whole 1024-ray blocks (on bounce 1, blocks holding
      live and parked lanes), and tally the work each ray's own query
-     needs, from which the walks' bounds are computed;
+     needs, from which the walks' bounds are computed; beside each slice,
+     the contract's floor, the tests the block semantics force
+     (``treelet_work``, a plain walk that must give the kernel's output),
+     over the card's rate and counted at the SMs the slice's blocks fill;
   7. the divergent-wave kernels against their plain versions on the same
      wave's bounce-1 rays and their shadow rays (both lights): the cull on
      both, unsorted as path_li makes them and sorted by ray_sort_key (the
@@ -162,6 +165,10 @@ KERNELS = {  # name: (source, the TPU kernel it replaces)
     "treelet_closest": ("trace_treelets.cu",
                         "yuki_tpu/ops/trace_treelets.py:55"),
     "treelet_any": ("trace_treelets.cu", "yuki_tpu/ops/trace_treelets.py:129"),
+    # No TPU kernel: the order in which the closest walk launches the
+    # blocks of its grid (the TPU runs them in turn, :235).
+    "treelet_votes": ("trace_treelets.cu",
+                      "yuki_tpu/ops/trace_treelets.py:235"),
     "shade": ("shade_fused.cu", "yuki_tpu/ops/shade_fused.py:798"),
     "resolve": ("shade_fused.cu", "yuki_tpu/ops/shade_fused.py:868"),
     "cull": ("trace_cull.cu", "yuki_tpu/ops/trace_cull.py:60"),
@@ -463,15 +470,9 @@ def all_launches():
     return out
 
 
-def phase_device(torch):
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60,
-    )
-    check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr.strip()}")
-    card = smi.stdout.strip().splitlines()[0]
-    print(f"card: {card}")
+def ops_ceiling(torch):
+    """Set PEAK_OPS, the bounds' operations a second: SMs x 128 FP32
+    lanes x the largest SM clock; returns (SMs, MHz)."""
     clk = subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.max.sm",
          "--format=csv,noheader,nounits"],
@@ -482,6 +483,19 @@ def phase_device(torch):
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     global PEAK_OPS
     PEAK_OPS = n_sm * 128 * mhz * 1e6
+    return n_sm, mhz
+
+
+def phase_device(torch):
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+    )
+    check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr.strip()}")
+    card = smi.stdout.strip().splitlines()[0]
+    print(f"card: {card}")
+    n_sm, mhz = ops_ceiling(torch)
     print(f"operations ceiling of the bounds: {n_sm} SMs x 128 lanes x "
           f"{mhz:.0f} MHz = {PEAK_OPS / 1e12:.3f}e12 a second")
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
@@ -1201,6 +1215,127 @@ def _compare_any(torch, tl, occ, no, nd, nt, skip, n, n_lights, a, m, what):
     return stats
 
 
+def treelet_work(torch, tl, rays, spans, out=None):
+    """The treelet walk's work on each span [lo, hi) of ``rays``, (o, d,
+    t_max) for the closest walk or (o, d, t_max, skip) for the occlusion
+    walk, from a plain walk with the plain versions' decisions, which must
+    give the kernel's output ``out`` (t, prim, b0, b1, or occluded, over
+    all the rays; None: not checked).  Summed over the spans: "blocks",
+    "supers" and "visited" (super and treelet visits of the blocks),
+    "live" (lanes that can take or be blocked, t_max > 0 (occlusion: or
+    NaN) and not yet occluded, summed over the visits), "real_rows"
+    (summed over the visits), "forced" (the tests the block contract
+    forces: each visit's live lanes against the treelet's real rows, the
+    occlusion walk's up to each lane's first blocker), "took" (closest:
+    visits after which some lane took a hit) and "per_block" (each block's
+    treelet visits)."""
+    from yuki_tpu_torch.ops import trace_treelets as ttt
+
+    closest = len(rays) == 3
+    k = tl.leaf_size
+    rows = tl.rows.reshape(tl.n_treelets, k, -1)
+    real = (rows[:, :, 10] >= 0.0).sum(dim=1).tolist()
+    ranges = tl.super_range.tolist()
+    acc = dict.fromkeys(("blocks", "supers", "visited", "live", "real_rows",
+                         "forced", "took"), 0)
+    acc["per_block"] = []
+    for lo, hi in spans:
+        planes, n = ttt._pack(*(x[lo:hi] for x in rays))
+        tm = planes[6]
+        walk = ttt._Rays(*planes[:6])
+        live = tm > 0.0 if closest else ~(tm <= 0.0)
+        t = tm.clone()
+        hits = [torch.full_like(tm, -1, dtype=torch.int32),
+                torch.zeros_like(tm), torch.zeros_like(tm)]
+        occ = torch.zeros_like(live)
+        per_block = torch.zeros(tm.shape[0], dtype=torch.int64,
+                                device=tm.device)
+        t_vote = t if closest else tm  # t falls in place
+        for s in range(tl.n_supers):
+            in_super = walk.slab(tl.super_bounds[s], t_vote).any(dim=1)
+            if not closest:
+                in_super &= (~occ).any(dim=1)
+            acc["supers"] += int(in_super.sum())
+            t0, tc = ranges[s]
+            for tt in range(t0, t0 + tc) if bool(in_super.any()) else ():
+                visit = in_super & walk.slab(tl.treelet_bounds[tt],
+                                             t_vote).any(dim=1)
+                if not closest:
+                    visit &= (~occ).any(dim=1)
+                vb = torch.nonzero(visit).squeeze(1)
+                if vb.numel() == 0:
+                    continue
+                per_block[vb] += 1
+                acc["visited"] += vb.numel()
+                acc["real_rows"] += vb.numel() * real[tt]
+                tri = rows[tt]
+                terms = ttt._edge_terms(walk.lanes(vb), tri)
+                if closest:
+                    n_live = int(live[vb].sum())
+                    acc["live"] += n_live
+                    acc["forced"] += n_live * real[tt]
+                    before = t[vb]
+                    got = ttt._accept_in_order(
+                        tri, terms, *(x[vb].reshape(-1) for x in (t, *hits)))
+                    for x, g in zip((t, *hits), got):
+                        x[vb] = g.reshape(vb.numel(), -1)
+                    acc["took"] += int((t[vb] != before).any(dim=1).sum())
+                    continue
+                base_ok, det, t_scaled = terms[:3]
+                blocked = (base_ok & ttt._in_range(det, t_scaled,
+                                                   tm[vb].reshape(-1)[None])
+                           & (tri[:, 9, None] != planes[7][vb].reshape(-1)
+                              .to(torch.float32)[None])
+                           & (tri[:, 10, None] >= 0.0))
+                open_ = (live[vb] & ~occ[vb]).reshape(-1)
+                first = torch.where(blocked.any(dim=0),
+                                    blocked.int().argmax(dim=0) + 1, real[tt])
+                acc["live"] += int(open_.sum())
+                acc["forced"] += int((first * open_).sum())
+                occ[vb] |= blocked.any(dim=0).reshape(vb.numel(), -1)
+        acc["blocks"] += tm.shape[0]
+        acc["per_block"] += per_block.tolist()
+        if out is None:
+            continue
+        mine = (t, *hits) if closest else (occ,)
+        want = out if closest else (out,)
+        for x, w in zip(mine, want):
+            x, w = x.reshape(-1)[:n], w[lo:hi]
+            same = (torch.equal(x.view(torch.int32), w.view(torch.int32))
+                    if x.dtype == torch.float32 else torch.equal(x, w))
+            check(same, "treelet walk statistics: the plain walk differs "
+                  "from the kernel")
+    return acc
+
+
+def treelet_floor(torch, work):
+    """The contract's floor of a walk's ``work``: its forced tests at
+    OPS_DENSE_TEST operations over the card's rate, in ms, and the same
+    counted at the SMs its blocks can fill."""
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    ms = work["forced"] * OPS_DENSE_TEST / PEAK_OPS * 1e3
+    return ms, ms * n_sm / min(n_sm, work["blocks"])
+
+
+def _floor_text(torch, work):
+    ms, at_sms = treelet_floor(torch, work)
+    return (f"contract's floor {ms:.4f} ms ({work['forced']} forced tests, "
+            f"{work['visited']} treelet visits of {work['blocks']} blocks), "
+            f"{at_sms:.4f} ms counted at the SMs the blocks fill")
+
+
+def bounce1_span(torch, t_max2):
+    """The bounce-1 slice of phase 6, B1_BLOCKS whole 1024-ray blocks
+    from the middle of those that hold live and parked lanes: (first ray,
+    rays)."""
+    block = 1024
+    parked = (t_max2 == 0.0).reshape(-1, block).sum(dim=1)
+    mixed = torch.nonzero((parked > 0) & (parked < block)).squeeze(1)
+    check(mixed.numel() > 0, "bounce 1: no block mixes live and parked lanes")
+    a = int(mixed[mixed.numel() // 2]) * block
+    return a, min(B1_BLOCKS * block, t_max2.shape[0] - a)
+
+
 def _per_light(n, n_lights, a, m, fn):
     """Calls fn(lo, hi) on rays [a, a + m) of each light's n rays."""
     def run():
@@ -1343,9 +1478,31 @@ def phase_colonnade_kernels(torch, np, dev, scene, cam):
           f"{ms_k:.4f} ms, plain {ms_p:.4f} ms, bound {b_ms:.4f} ms ({b_by}; "
           f"{work(stats)})]: t, prim, b0, b1 equal on the slice; hits "
           f"{int((got[1] >= 0).sum())}")
+    print("  treelet_closest on the camera slice: " + _floor_text(
+        torch, treelet_work(torch, tl, (o, d, t_max), [(0, sl)], got)))
+
     result["treelet_closest"] = dict(max_abs_err=0.0, ms=ms_k, plain_ms=ms_p,
                                      bound_ms=b_ms, bound_by=b_by,
                                      wave_ms=ms_full)
+
+    # The vote count that orders the closest walk's blocks, on the same
+    # slice.
+    stats = {}
+    ref = ttt.treelet_votes_plain(tl, o[:sl], d[:sl], t_max[:sl], stats)
+    check(torch.equal(ttt.treelet_votes(tl, o[:sl], d[:sl], t_max[:sl]),
+                      ref), "treelet_votes differs on the camera slice")
+    ms_k = cuda_ms(torch, lambda: ttt.treelet_votes(tl, o[:sl], d[:sl],
+                                                   t_max[:sl]), 10)
+    ms_p = cuda_ms(torch, lambda: ttt.treelet_votes_plain(
+        tl, o[:sl], d[:sl], t_max[:sl]), 1)
+    b_ms, b_by = bound(sl * 28 + boxes + ref.numel() * 4,
+                       stats["boxes"] * OPS_SLAB)
+    print(f"treelet_votes [camera slice, {sl} rays: kernel {ms_k:.4f} ms, "
+          f"plain {ms_p:.4f} ms, bound {b_ms:.4f} ms ({b_by}; "
+          f"{stats['boxes']} box tests)]: votes equal, a block's "
+          f"{int(ref.min())}-{int(ref.max())}")
+    result["treelet_votes"] = dict(max_abs_err=0.0, ms=ms_k, plain_ms=ms_p,
+                                   bound_ms=b_ms, bound_by=b_by)
 
     # shade at bounces 0-4 of the first wave, on the lanes path_li hands
     # it, whole wave both ways, under both samplers.
@@ -1382,6 +1539,10 @@ def phase_colonnade_kernels(torch, np, dev, scene, cam):
           f"the first {SLICE_BLOCKS} blocks of each light = {nsl} rays: "
           f"kernel {ms_k:.4f} ms, plain {ms_p:.4f} ms, bound {b_ms:.4f} ms "
           f"({b_by}; {work(stats)})]: occlusion equal on the slices")
+    print("  treelet_any on the bounce-0 shadow slices: " + _floor_text(
+        torch, treelet_work(torch, tl, (no, nd, nt, ns_skip),
+                            [(li * n, li * n + sl)
+                             for li in range(n_lights)], occ)))
     result["treelet_any"] = dict(max_abs_err=0.0, ms=ms_k, plain_ms=ms_p,
                                  bound_ms=b_ms, bound_by=b_by,
                                  wave_ms=ms_full)
@@ -1415,11 +1576,7 @@ def phase_colonnade_kernels(torch, np, dev, scene, cam):
     # hold both live and parked lanes.
     t_max2 = torch.where(alive2, F32_MAX, 0.0).to(torch.float32)
     got = ttt.treelet_closest(tl, o2, d2, t_max2)
-    parked = (t_max2 == 0.0).reshape(-1, ttt.BLOCK).sum(dim=1)
-    mixed = torch.nonzero((parked > 0) & (parked < ttt.BLOCK)).squeeze(1)
-    check(mixed.numel() > 0, "bounce 1: no block mixes live and parked lanes")
-    a = int(mixed[mixed.numel() // 2]) * ttt.BLOCK
-    m = min(B1_BLOCKS * ttt.BLOCK, n - a)
+    a, m = bounce1_span(torch, t_max2)
     n_parked = int((t_max2[a:a + m] == 0.0).sum())
     span = f"blocks {a // ttt.BLOCK}-{(a + m) // ttt.BLOCK - 1} = {m} rays"
     stats = _compare_closest(torch, tl, got, o2, d2, t_max2, a, m,
@@ -1434,6 +1591,8 @@ def phase_colonnade_kernels(torch, np, dev, scene, cam):
           f"{n_parked} parked with t_max 0: kernel {ms_k:.4f} ms, bound "
           f"{b_ms:.4f} ms ({b_by}; {work(stats)})]: t, prim, b0, b1 equal "
           "on the slice")
+    print("  treelet_closest on the bounce-1 slice: " + _floor_text(
+        torch, treelet_work(torch, tl, (o2, d2, t_max2), [(a, a + m)], got)))
 
     # ... and their shadow rays, from the main path's bounce-1 shading.
     hit2 = traverse.intersect(scene.data, scene.meta, o2, d2, t_max2,
@@ -1458,6 +1617,10 @@ def phase_colonnade_kernels(torch, np, dev, scene, cam):
           f"{ms_full:.4f} ms; {span} of each light, {n_parked} parked with "
           f"t_max 0: kernel {ms_k:.4f} ms, bound {b_ms:.4f} ms ({b_by}; "
           f"{work(stats)})]: occlusion equal on the slices")
+    print("  treelet_any on the bounce-1 shadow slices: " + _floor_text(
+        torch, treelet_work(torch, tl, (no2, nd2, nt2, sk2),
+                            [(li * n + a, li * n + a + m)
+                             for li in range(n_lights)], occ2)))
     return result, (o2, d2, t_max2, no2, nd2, nt2, sk2), (
         o, d, t_max, no, nd, nt, ns_skip)
 
@@ -1975,8 +2138,9 @@ def phase_colonnade_golden(torch, np, scene, cam, walker=False):
 
 KERNEL_FAMILIES = ("cull", "cross_words", "slot_closest", "slot_any",
                    "rows_closest", "rows_any", "treelet_closest",
-                   "treelet_any", "shade", "resolve", "dense_closest",
-                   "dense_any", "walker_closest", "walker_any")
+                   "treelet_any", "treelet_votes", "shade", "resolve",
+                   "dense_closest", "dense_any", "walker_closest",
+                   "walker_any")
 GLUE_FAMILIES = (("glue: sort", ("sort",)),
                  ("glue: scatter/gather/index", ("scatter", "gather",
                                                  "index")),
@@ -2053,10 +2217,11 @@ def phase_colonnade_main_path(torch, np, scene, cam, card, walker=False):
             if k not in SKIP_KERNELS)
         optional = (*ttt.LAUNCHES, *ts.LAUNCHES) if walker else ttt.LAUNCHES
         launches = {k: counts[k] for k in (*ttt.LAUNCHES, *used)}
-        walks = sum(counts[k] for k in ttt.LAUNCHES)
-        check(walks == branches["fallbacks"], f"colonnade main path "
-              f"({engine}): {walks} treelet walks for "
-              f"{branches['fallbacks']} fallbacks")
+        walks = counts["treelet_closest"] + counts["treelet_any"]
+        check(walks == branches["fallbacks"] and counts["treelet_votes"]
+              == counts["treelet_closest"], f"colonnade main path ({engine}):"
+              f" {walks} treelet walks and {counts['treelet_votes']} vote "
+              f"counts for {branches['fallbacks']} fallbacks")
         for name, count in counts.items():
             if name in optional:
                 continue

@@ -13,7 +13,7 @@ the shape that hangs.
 emits: one per ``__syncthreads``/``__syncthreads_or`` call site, times the
 trips of a loop the source unrolls (``#pragma unroll``), helpers counted
 where they are inlined (``block_frames``, ``block_union``, ``block_max``,
-``stage_scene``, ``sort_tile``, ``stage_rows``).  Marked
+``stage_scene``, ``sort_tile``).  Marked
 ``cuda``: it needs nvcc to build the library and cuobjdump (the CUDA
 toolkit's, or the copy under ``triton/backends/nvidia/bin/``) to read it;
 it skips without a card.
@@ -69,9 +69,14 @@ BARRIERS = {
     "slot_any_kernel": (1, 1),
     # trace_cull.cu: the word stage.
     "cull_kernel": (1, 0),
-    # trace_treelets.cu: the box votes, stage_rows.
-    "treelet_closest_kernel": (1, 2),
-    "treelet_any_kernel": (1, 4),
+    # trace_treelets.cu: block_frames, a super window's stage and its
+    # block_union, a treelet window's the same, a mask box's vote at
+    # each level; the occlusion walk's window stages and a visited
+    # treelet's are the exit votes, with the two block_unions.
+    "treelet_closest_kernel": (5, 2),
+    "treelet_any_kernel": (3, 3),
+    # The vote count: each window's stage and block_union, at both levels.
+    "treelet_votes_kernel": (4, 0),
     # trace_pairs.cu: block_frames, a window's stage and its block_union,
     # a mask pair's vote; the occlusion walk's window stage is a vote, and
     # a visited treelet's block_max gives r*.

@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_treelets_redesign import hand_built
 from torch_scenes import REDUCED, textured_treelet
 from yuki_tpu_torch import camera, traverse
 from yuki_tpu_torch import transforms as tf
@@ -83,6 +84,8 @@ def test_treelet_walks_match_plain(cuda):
     for g, r, name in zip(got, ref, ("t", "prim", "b0", "b1")):
         assert torch.equal(g, r), name
     assert int((got[1] >= 0).sum()) > n // 2
+    assert torch.equal(ttt.treelet_votes(tl, o, d, t_max),
+                       ttt.treelet_votes_plain(tl, o, d, t_max))
     chord = torch.full((n,), 3.0, device=cuda)
     for sk in (-2, -1, 0):
         skip = torch.full((n,), sk, dtype=torch.int32, device=cuda)
@@ -90,6 +93,30 @@ def test_treelet_walks_match_plain(cuda):
         occ_p = ttt.treelet_any_plain(tl, o, d, chord, skip)
         assert torch.equal(occ, occ_p), sk
         assert bool(occ.any()) == (sk != -1)
+
+
+@pytest.mark.parametrize("k", [16, 64, 256])
+def test_walks_match_plain_on_hand_built_blocks(cuda, k):
+    """tests/test_torch_treelets_redesign.py's edge blocks (an axis lane
+    visited for others, ties across supers, takes that close a later
+    treelet of their window and a later super, dead and NaN lanes, a skip
+    id on the only occluder, a treelet only an occluded lane votes for, a
+    ragged block voted by its padding lanes, 35 supers, a super of 40
+    treelets); k = 256 takes more than 48 KB of shared memory."""
+    tl, o, d, t_max, chord, skip, _ = hand_built(k, device=cuda)
+    ttt.reset_launches()
+    got = ttt.treelet_closest(tl, o, d, t_max)
+    ref = ttt.treelet_closest_plain(tl, o, d, t_max)
+    for g, r in zip(got, ref):
+        assert torch.equal(g.view(torch.int32), r.view(torch.int32))
+    occ = ttt.treelet_any(tl, o, d, chord, skip)
+    assert torch.equal(occ, ttt.treelet_any_plain(tl, o, d, chord, skip))
+    assert ttt.LAUNCHES == {"treelet_closest": 1, "treelet_any": 1,
+                            "treelet_votes": 1}
+    assert bool(occ.any()) and not bool(occ.all())
+    for t in (t_max, chord):
+        assert torch.equal(ttt.treelet_votes(tl, o, d, t),
+                           ttt.treelet_votes_plain(tl, o, d, t))
 
 
 def test_shade_and_resolve_kernels_match_plain(cuda):
@@ -154,7 +181,9 @@ def test_path_li_render_kernels_match_plain(cuda):
             assert (trw.LAUNCHES["rows_closest"]
                     + tst.LAUNCHES["slot_closest"]) >= 5
             assert trw.LAUNCHES["rows_any"] + tst.LAUNCHES["slot_any"] >= 5
-            assert sum(ttt.LAUNCHES.values()) == c["fallbacks"]
+            closest = ttt.LAUNCHES["treelet_closest"]
+            assert closest + ttt.LAUNCHES["treelet_any"] == c["fallbacks"]
+            assert ttt.LAUNCHES["treelet_votes"] == closest
             assert tsf.LAUNCHES == {"shade": 5, "resolve": 5}
     (got, rays_k), (ref, rays_p) = out["cuda"], out["cpu"]
     assert np.isfinite(got).all()

@@ -55,7 +55,8 @@ def test_cpu_path_counts_no_launches():
     assert px.shape == (2, tp.TD, tp.TD, 3) and float(rays) > 0
     assert tpf.LAUNCHES == {"raygen_trace": 0, "bounce": 0, "wave": 0}
     assert tsf.LAUNCHES == {"shade": 0, "resolve": 0}
-    assert ttt.LAUNCHES == {"treelet_closest": 0, "treelet_any": 0}
+    assert ttt.LAUNCHES == {"treelet_closest": 0, "treelet_any": 0,
+                            "treelet_votes": 0}
 
 
 def _soup_scene(n_tris, sphere_tex=False):

@@ -245,7 +245,8 @@ def test_cpu_walks_count_no_launches(soup):
     o, d = _rays(5)
     ttt.treelet_closest(ttl, torch.as_tensor(o), torch.as_tensor(d),
                         torch.full((N,), F32_MAX))
-    assert ttt.LAUNCHES == {"treelet_closest": 0, "treelet_any": 0}
+    assert ttt.LAUNCHES == {"treelet_closest": 0, "treelet_any": 0,
+                            "treelet_votes": 0}
 
 
 def _per_ray_work(tl, o, d, t_max, skip=None):

@@ -105,8 +105,12 @@ def _declare(lib: ctypes.CDLL) -> None:
         f, f, f, f, i, p, p, p,  # centre xyz, diag, flags, spl, out, stream
     ]
     lib.yk_resolve.argtypes = [i, p, p, i, i, i, i, p, p]
+    lib.yk_treelet_votes.argtypes = [
+        i, p, p, p, i,  # device, sb, sr, tb, n_supers
+        p, p, p, i, p, p,  # o, d, tmax, n, votes, stream
+    ]
     lib.yk_treelet_closest.argtypes = [
-        i, p, p, p, p, i, i,  # device, sb, sr, tb, rows, n_supers, leaf_size
+        i, p, p, p, p, i, i, p,  # device, sb, sr, tb, rows, n_supers, leaf_size, order
         p, p, p, i, p, p, p, p, p,  # o, d, tmax, n, t, prim, b0, b1, stream
     ]
     lib.yk_treelet_any.argtypes = [
@@ -155,7 +159,8 @@ def _declare(lib: ctypes.CDLL) -> None:
         p, p,  # occ, stream
     ]
     for name in ("yk_raygen_trace", "yk_bounce", "yk_shade", "yk_resolve",
-                 "yk_treelet_closest", "yk_treelet_any", "yk_cross_words",
+                 "yk_treelet_votes", "yk_treelet_closest", "yk_treelet_any",
+                 "yk_cross_words",
                  "yk_cull", "yk_slot_closest", "yk_slot_any",
                  "yk_rows_closest", "yk_rows_any", "yk_dense_closest",
                  "yk_dense_any", "yk_walker_closest", "yk_walker_any",

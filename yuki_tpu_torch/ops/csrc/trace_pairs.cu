@@ -79,9 +79,11 @@
 // ray, 4 B and a 32 B box per pair and the 48 B rows of each staged
 // treelet.
 //
-// Numerics: -fmad=false and no fast-math; the vote is slab() of
-// trace_treelets.cuh with PTX's one-instruction NaN-propagating min and
-// max (the same verdicts: a NaN fails the compare either way).
+// Numerics: -fmad=false and no fast-math; the vote is vote() of
+// trace_treelets.cuh, with PTX's one-instruction NaN-propagating min and
+// max (the same verdicts: a NaN fails the compare either way).  The
+// window stage and vote, the framed stage, the last real row and the
+// first blocker are shared with the treelet walks there.
 
 #include <cuda_runtime.h>
 
@@ -95,7 +97,6 @@ using namespace yk;
 namespace {
 
 constexpr int ROWS = BLOCK / 128;  // rows of 128 lanes per ray block
-constexpr int WINDOW = 32;         // pairs voted together (one mask word)
 
 // Plane p of this thread's lane in ray block b of a table `planes` planes
 // wide.
@@ -107,85 +108,6 @@ __device__ __forceinline__ float plane(const float* __restrict__ packed, int pla
 __device__ __forceinline__ Lane packed_lane(const float* __restrict__ packed, int planes, int b) {
   return make_lane(v3(plane(packed, planes, b, 0), plane(packed, planes, b, 1), plane(packed, planes, b, 2)),
                    v3(plane(packed, planes, b, 3), plane(packed, planes, b, 4), plane(packed, planes, b, 5)));
-}
-
-// slab() against a box staged as two float4s (lo xyz and hi x, hi yz).
-__device__ __forceinline__ bool vote(const float4* __restrict__ box, const Lane& l, float t_cur) {
-  const float4 p = box[0], q = box[1];
-  const float t0x = (p.x - l.o.x) * l.inv.x;
-  const float t1x = (p.w - l.o.x) * l.inv.x;
-  const float t0y = (p.y - l.o.y) * l.inv.y;
-  const float t1y = (q.x - l.o.y) * l.inv.y;
-  const float t0z = (p.z - l.o.z) * l.inv.z;
-  const float t1z = (q.y - l.o.z) * l.inv.z;
-  const float tmin = max_nan(max_nan(min_nan(t0x, t1x), min_nan(t0y, t1y)), min_nan(t0z, t1z));
-  const float tmax = min_nan(min_nan(max_nan(t0x, t1x), max_nan(t0y, t1y)), max_nan(t0z, t1z));
-  return max_nan(tmin, 0.0f) <= min_nan(tmax, t_cur);
-}
-
-// The window's pairs base .. base + n_on - 1: treelet ids and boxes into
-// shared memory, by the first n_on threads (the caller's barrier
-// publishes them).
-__device__ __forceinline__ void stage_window(int* tt_s, float4* box_s, const int* __restrict__ pair_treelet,
-                                             const float* __restrict__ tb, int base, int n_on) {
-  if ((int)threadIdx.x < n_on) {
-    const int tt = __ldg(pair_treelet + base + threadIdx.x);
-    const float4* bx = reinterpret_cast<const float4*>(tb) + 2 * tt;
-    tt_s[threadIdx.x] = tt;
-    box_s[2 * threadIdx.x] = __ldg(bx);
-    box_s[2 * threadIdx.x + 1] = __ldg(bx + 1);
-  }
-}
-
-// A lane's window bits: bit j when its vote for pair j passes at t_cur.
-__device__ __forceinline__ unsigned window_votes(const float4* box_s, int n_on, const Lane& l, float t_cur) {
-  unsigned bits = 0u;
-#pragma unroll 4
-  for (int j = 0; j < n_on; ++j)
-    if (vote(box_s + 2 * j, l, t_cur)) bits |= 1u << j;
-  return bits;
-}
-
-// Treelet tt's k rows into the copies `dst` of `frames`, thread r loading
-// row r (no barrier).
-__device__ __forceinline__ void stage_copies(float4* dst, const float* __restrict__ rows, int tt, int k, int frames) {
-  const float4* src = reinterpret_cast<const float4*>(rows) + (size_t)tt * k * 3;
-  for (int r = threadIdx.x; r < k; r += BLOCK) {
-    const float4 a = __ldg(src + 3 * r), b = __ldg(src + 3 * r + 1), c = __ldg(src + 3 * r + 2);
-    framed_store(dst, k, r, frames, a, b, c);
-  }
-}
-
-// One past the last real row (prim id >= 0) of a staged copy `copy`, to
-// every lane of the calling warp (all 32 lanes must call it, under a
-// condition the warp shares): one ballot per 32 rows from the end.  The
-// prim id sits in the third float4's z in every frame.
-__device__ __forceinline__ int last_real_row(const float4* copy, int k) {
-  const int lane = threadIdx.x & 31;
-  for (int top = k; top > 0; top -= 32) {
-    const int r = top - 32 + lane;
-    const unsigned m = __ballot_sync(FULL, r >= 0 && copy[3 * r + 2].z >= 0.0f);
-    if (m != 0u) return top - __clz((int)m);
-  }
-  return 0;
-}
-
-// A row of a framed copy from the lane's framed origin `of`: the nine
-// corner coordinates watertight9 selects.
-#define YK_FRAMED_CORNERS(a, b, c, of)                                                                      \
-  (a).x - (of).x, (a).y - (of).y, (a).z - (of).z, (a).w - (of).x, (b).x - (of).y, (b).y - (of).z, (b).z - (of).x, \
-      (b).w - (of).y, (c).x - (of).z
-
-// The first row in [0, n) of the framed copy `tri` that blocks the lane
-// (watertight9's hit within t_max, a light other than the skip id sk, a
-// real row), or n; four rows unrolled.
-__device__ __forceinline__ int first_blocker(const Shear& sh, V3 of, const float4* tri, int n, float tm, float sk) {
-#pragma unroll 4
-  for (int r = 0; r < n; ++r) {
-    const float4 a = tri[3 * r], b = tri[3 * r + 1], c = tri[3 * r + 2];
-    if (sweep_hit(sh, YK_FRAMED_CORNERS(a, b, c, of), tm) && c.y != sk && c.z >= 0.0f) return r;
-  }
-  return n;
 }
 
 __global__ void __launch_bounds__(BLOCK)
@@ -275,10 +197,7 @@ __global__ void __launch_bounds__(BLOCK)
   const float t_max = plane(packed, 8, b, 6);
   const float skip = plane(packed, 8, b, 7);
   const V3 of = framed_origin(l.sh, l.o.x, l.o.y, l.o.z);
-  // Lanes that a row can block: t_max > 0 or NaN, or a shear or origin
-  // that is not finite (a zero direction: every test's det is NaN).
-  const float fin = of.x + of.y + of.z + l.sh.sx + l.sh.sy + l.sh.inv_dz;
-  const bool may = !(t_max <= 0.0f) || !(fin - fin == 0.0f);
+  const bool may = may_block(l, of, t_max);  // a row can block the lane
   const int frames = block_frames<BLOCK>(may ? frame_of(l.sh) : -1, frames_w);
   const int buf4 = 3 * copy_stride4(k);
   bool occ = false;

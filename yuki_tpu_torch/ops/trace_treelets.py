@@ -14,13 +14,20 @@ are occluded.  Padding rows (prim id -1) never count.
 
   treelet_closest  replaces ``_closest_kernel`` (trace_treelets.py:55)
   treelet_any      replaces ``_any_kernel`` (:129)
+  treelet_votes    replaces none: each block's treelet votes at t_max,
+                   by which the closest walk launches its blocks, most first
 
 A CUDA tensor launches the hand-written kernel in
 ``csrc/trace_treelets.cu`` (one thread per ray, one 1024-thread CUDA
-block per ray block, ``__syncthreads_or`` for the block skip) or raises;
-a CPU tensor runs the plain PyTorch version beside it, which makes the
-same visits and tests the same rows.  Each kernel launch adds one to
-``LAUNCHES``.
+block per ray block; boxes voted on 32 at a time, a visited treelet
+staged as copies permuted for the block's shear frames and walked to its
+last real row) or raises; a CPU tensor runs the plain PyTorch version
+beside it, which makes the same visits and takes the same hits.  On the
+card the closest walk first counts each block's votes
+(``treelet_votes``) and launches its blocks most votes first; blocks are
+independent, so the order moves no bit.  (The occlusion walk in that
+order gained less than the count's own time, PERF.md §6.)  Each kernel
+launch adds one to ``LAUNCHES``.
 
 The plain closest walk tests a visited treelet's rows for all lanes of
 the visiting blocks in one batch (everything that does not depend on the
@@ -37,7 +44,7 @@ from .trace import F32_MAX
 
 BLOCK = 1024  # rays per block (yuki_tpu BLOCK_ROWS = 8 rows of 128)
 
-LAUNCHES = {"treelet_closest": 0, "treelet_any": 0}
+LAUNCHES = {"treelet_closest": 0, "treelet_any": 0, "treelet_votes": 0}
 
 
 def reset_launches() -> None:
@@ -352,6 +359,26 @@ def treelet_any_plain(tl, o, d, t_max, skip_light, stats=None):
     return occ.reshape(-1)[:n]
 
 
+def treelet_votes_plain(tl, o, d, t_max, stats=None):
+    """Plain version of the vote count: [n_blocks] i32, each 1024-ray
+    block's treelet votes at t_max (treelets some lane's slab passes at
+    its t_max) inside the supers it votes for at t_max.  ``stats`` (a dict
+    or None) receives "boxes", the lane box tests the count makes."""
+    (ox, oy, oz, dx, dy, dz, tm), _ = _pack(o, d, t_max)
+    rays = _Rays(ox, oy, oz, dx, dy, dz)
+    votes = torch.zeros(tm.shape[0], dtype=torch.int32, device=tm.device)
+    boxes = tl.n_supers * tm.shape[0]
+    for s, (t0, tc) in enumerate(tl.super_range.tolist()):
+        in_super = rays.slab(tl.super_bounds[s], tm).any(dim=1)
+        boxes += int(in_super.sum()) * tc
+        for tt in range(t0, t0 + tc) if bool(in_super.any()) else ():
+            votes += in_super & rays.slab(tl.treelet_bounds[tt],
+                                          tm).any(dim=1)
+    if stats is not None:
+        stats["boxes"] = stats.get("boxes", 0) + boxes * BLOCK
+    return votes
+
+
 # --------------------------------------------------------------------
 # Kernel wrappers
 # --------------------------------------------------------------------
@@ -368,9 +395,38 @@ def _check_rays(tl, o, d, t_max, dev):
     _build.check(tl.super_range, "super_range", torch.int32, (tl.n_supers, 2), dev)
     _build.check(tl.treelet_bounds, "treelet_bounds", f32, (tl.n_treelets, 8), dev)
     _build.check(tl.rows, "rows", f32, (tl.n_treelets * k, 12), dev)
+    for t, name in ((tl.super_bounds, "super_bounds"),
+                    (tl.treelet_bounds, "treelet_bounds"), (tl.rows, "rows")):
+        _build.check_aligned(t, name)
     if not 1 <= k <= 256:
         raise ValueError(f"leaf_size {k} outside [1, 256]")
     return n
+
+
+def treelet_votes(tl, o, d, t_max):
+    """Each 1024-ray block's treelet votes at t_max inside the supers it
+    votes for at t_max: [n_blocks] i32 (``treelet_votes_plain``)."""
+    if not _build.dispatch(o):
+        return treelet_votes_plain(tl, o, d, t_max)
+    dev = o.device
+    n = _check_rays(tl, o, d, t_max, dev)
+    votes = torch.empty(max(-(-n // BLOCK), 1), dtype=torch.int32, device=dev)
+    err = _build.library().yk_treelet_votes(
+        dev.index, _build.ptr(tl.super_bounds), _build.ptr(tl.super_range),
+        _build.ptr(tl.treelet_bounds), tl.n_supers, _build.ptr(o),
+        _build.ptr(d), _build.ptr(t_max), n, _build.ptr(votes),
+        _build.stream(dev),
+    )
+    _build.launch_check(err, "treelet_votes")
+    LAUNCHES["treelet_votes"] += 1
+    return votes
+
+
+def _block_order(tl, o, d, t_max):
+    """The closest walk's launch order: the ray blocks, most votes
+    first."""
+    votes = treelet_votes(tl, o, d, t_max)
+    return torch.argsort(votes, descending=True, stable=True).to(torch.int32)
 
 
 def treelet_closest(tl, o, d, t_max):
@@ -386,10 +442,11 @@ def treelet_closest(tl, o, d, t_max):
     b1 = torch.empty_like(t)
     if n == 0:
         return t, prim, b0, b1
+    order = _block_order(tl, o, d, t_max)
     err = _build.library().yk_treelet_closest(
         dev.index, _build.ptr(tl.super_bounds), _build.ptr(tl.super_range),
         _build.ptr(tl.treelet_bounds), _build.ptr(tl.rows), tl.n_supers, tl.leaf_size,
-        _build.ptr(o), _build.ptr(d), _build.ptr(t_max), n,
+        _build.ptr(order), _build.ptr(o), _build.ptr(d), _build.ptr(t_max), n,
         _build.ptr(t), _build.ptr(prim), _build.ptr(b0), _build.ptr(b1), _build.stream(dev),
     )
     _build.launch_check(err, "treelet_closest")
