@@ -402,10 +402,14 @@ def material_class(torch, tpf, tb, st):
 
 def device_times(torch, prof, names):
     """(busy ms, {name: (ms, launches) in kernels whose name holds it}) of
-    a profile."""
+    a profile.  The pass_scope ranges' device spans repeat their kernels'
+    time and are left out."""
+    from yuki_tpu_torch.profiling import SCOPES
+
     busy, parts = 0.0, {k: [0.0, 0] for k in names}
     for e in prof.key_averages():
-        if e.device_type == torch.autograd.DeviceType.CPU:
+        if e.device_type == torch.autograd.DeviceType.CPU or getattr(
+                e, "is_user_annotation", False) or e.key in SCOPES:
             continue
         t = float(getattr(e, "self_device_time_total", 0.0) or 0.0) / 1e3
         busy += t

@@ -129,7 +129,30 @@ beside this file.  It imports no JAX.  Phases:
  13a. the coherence sort: ray_sort_key on the card against the CPU's, the
      _sorted_call round trip, its cost per call at 524,288 and 1,572,864
      rays, and the dispatch sorted against skip_sort on the bounce-1 and
-     shadow rays (equal apart from counted ties), timed.
+     shadow rays (equal apart from counted ties), timed;
+ 14. the loaders on the card: scenes/cornell.pbrt, scenes/example.xml and
+     scenes/plane.ply loaded with device="cuda" and rendered through the
+     threaded Renderer at their own film settings (PathParams(5),
+     UniformSampler(1), seed 1; finite, non-black, the wave's kernels
+     launched); the port's small atrium (generated by
+     yuki_tpu_torch.scene.atrium) against
+     tests/goldens/torch_atrium_small_64x48_path3_1spp_seed1.npz under the
+     deep bounds; then the full atrium (347,136 triangles) generated and
+     loaded through the pbrt and PLY loaders, with its generation, parse,
+     BVH, treelet and chunk seconds, its 64x48, depth 3, 1 spp, seed 1
+     render against tests/goldens/torch_atrium_64x48_path3_1spp_seed1.npz
+     under the deep bounds, and its 1920x1080, depth 5, 1 spp,
+     2048-tile-wave frame at seed 1 (bench.py:278-281): the median wall
+     time of three, closest-hit rays, launches per kernel, the dispatch's
+     branches, fallbacks and host reads, then one frame under
+     torch.profiler for device busy time and the idle share;
+ 15. the headless entry point: ``python -m yuki_tpu_torch
+     --scene=scenes/cornell.pbrt --settings=... --out=....exr
+     --profile=...`` as a subprocess (Path depth 5, StratifiedSampler(2,
+     2), Filmic, 640x480, 256-tile waves): exit 0, the EXR read back equal
+     bit for bit to an in-process Renderer film of the same settings
+     through filmic, and a trace naming path_fused.raygen_trace and
+     path_fused.bounces; with the command's wall time.
 
 Prints one JSON line describing the kernels, the card's name and power
 limit, then as its last line {"ok": true, "device": {...}}.  Any failed
@@ -154,6 +177,10 @@ GOLDEN = os.path.join(REPO, "tests", "goldens",
 COL_WAVE_TILES = 2048
 COL_GOLDEN = os.path.join(REPO, "tests", "goldens",
                           "torch_colonnade_64x48_path3_1spp_seed1.npz")
+ATRIUM_GOLDEN = os.path.join(REPO, "tests", "goldens",
+                             "torch_atrium_small_64x48_path3_1spp_seed1.npz")
+ATRIUM_FULL_GOLDEN = os.path.join(REPO, "tests", "goldens",
+                                  "torch_atrium_64x48_path3_1spp_seed1.npz")
 SLICE_BLOCKS = 64  # camera-wave 1024-ray blocks the plain walks run on
 SOUP_TRIS = 4096  # the dense band's top (DENSE_TRI_THRESHOLD)
 SOUP_RAYS = 65536
@@ -2153,13 +2180,17 @@ def device_breakdown(torch, prof):
     operator's entry repeats the time of the kernels it launched); torch's
     kernels split into sorts, scatters/gathers/indexing, copies and the
     rest.  Also the torch operators that launched the most device time:
-    [(ms, calls, name)]."""
+    [(ms, calls, name)].  The pass_scope ranges' device spans repeat their
+    kernels' time too and are left out."""
+    from yuki_tpu_torch.profiling import SCOPES
+
     names = [*KERNEL_FAMILIES, *(g for g, _ in GLUE_FAMILIES), "glue: other"]
     groups = {k: [0.0, 0] for k in names}
     glue = []
     for e in prof.key_averages():
         t = float(getattr(e, "self_device_time_total", 0.0) or 0.0) / 1e3
-        if t <= 0.0:
+        if t <= 0.0 or getattr(e, "is_user_annotation", False) or \
+                e.key in SCOPES:
             continue
         if e.device_type == torch.autograd.DeviceType.CPU:
             if e.key.startswith("aten::"):
@@ -2819,6 +2850,267 @@ def phase_sort(torch, scene, rays, card):
           f"{ms_an:.3f} ms a call")
 
 
+def run_renderer(torch, scene, cam, film, sampler, params, fs, rs,
+                 seed=1, timeout=600.0):
+    """Drive a Renderer to its RenderFinished message, polling as the
+    headless app does; returns it.  A RenderError fails the check."""
+    from yuki_tpu_torch.renderer import RenderError, Renderer, RenderFinished
+
+    r = Renderer()
+    r.launch(scene, cam, film, sampler, params, fs, rs, match_seed=seed)
+    t0 = time.monotonic()
+    try:
+        while time.monotonic() - t0 < timeout:
+            time.sleep(0.02)
+            active = r.is_active()
+            for msg in r.check_status():
+                check(not isinstance(msg, RenderError),
+                      f"renderer: {getattr(msg, 'message', '')}")
+                if isinstance(msg, RenderFinished):
+                    return msg
+            check(active, "renderer: thread ended without finishing")
+        raise SmokeFailure(f"renderer: no RenderFinished in {timeout} s")
+    finally:
+        r.kill()
+
+
+def phase_loaders(torch, np, dev, card):
+    """Phase 14's scene files through the Renderer, and the small atrium
+    against its golden."""
+    from yuki_tpu_torch.app.settings import SceneLoadSettings
+    from yuki_tpu_torch.app.util import try_load_scene
+    from yuki_tpu_torch.film import FilmSettings, film_or_new
+    from yuki_tpu_torch.integrators import PathParams
+    from yuki_tpu_torch.renderer import RenderSettings, render_frame
+    from yuki_tpu_torch.sampling import UniformSampler
+    from yuki_tpu_torch.scene.atrium import load_atrium
+
+    for name in ("cornell.pbrt", "example.xml", "plane.ply"):
+        scene, cam, fs, secs = try_load_scene(
+            SceneLoadSettings(path=os.path.join(REPO, "scenes", name)),
+            device=dev)
+        check(scene.device.type == "cuda", f"{name}: scene on {scene.device}")
+        film = film_or_new(None, fs, device=dev)
+        torch.cuda.synchronize()
+        reset_all_launches()
+        done = run_renderer(torch, scene, cam, film, UniformSampler(1),
+                            PathParams(5), fs, RenderSettings())
+        torch.cuda.synchronize()
+        counts = {k: v for k, v in all_launches().items() if v}
+        img = film.image()
+        check(img.shape == (fs.res[1], fs.res[0], 3),
+              f"{name}: shape {img.shape}")
+        check(np.isfinite(img).all() and float(img.mean()) > 0.0,
+              f"{name}: non-finite or black image")
+        check(set(counts) == {"raygen_trace", "bounce"},
+              f"{name}: launches {counts}, not the wave's two kernels")
+        print(f"loader {name} on the card: load {secs:.3f} s, "
+              f"{scene.meta.n_tris} triangles, {scene.meta.n_spheres} "
+              f"spheres, {fs.res[0]}x{fs.res[1]} d5 1spp through Renderer: "
+              f"{done.ray_count} closest-hit rays in {done.elapsed_s:.3f} s, "
+              f"launches {counts}, image mean {float(img.mean()):.5f} "
+              f"[{card}]")
+
+    scene, cam, _ = load_atrium(device=dev, small=True)
+    check(scene.meta.n_tris == 1024, f"small atrium: {scene.meta.n_tris}")
+    reset_all_launches()
+    res = render_frame(scene, cam, FilmSettings(res=(64, 48), tile_dim=16),
+                       UniformSampler(1), PathParams(3), wave_tiles=12,
+                       seed=1)
+    torch.cuda.synchronize()
+    check(all_launches()["bounce"] > 0, "small atrium: bounce not launched")
+    img = res.film.image()
+    gold = np.load(ATRIUM_GOLDEN)["img"]
+    check(img.shape == gold.shape and np.isfinite(img).all(),
+          f"small atrium golden: shape {img.shape} or non-finite pixels")
+    n_bad, limit, mean_rel = deep_parity(np, gold, img)
+    print(f"golden small atrium 64x48 d3 1spp seed 1 through the fused "
+          f"wave: divergent px {n_bad} (limit {limit}), mean rel diff "
+          f"{mean_rel:.3g}")
+
+
+def phase_atrium(torch, np, dev, card):
+    """Phase 14's full atrium: generation, load and build times, then the
+    1080p d5 1 spp frame (three timed, one profiled)."""
+    from yuki_tpu_torch import traverse
+    from yuki_tpu_torch.film import FilmSettings
+    from yuki_tpu_torch.integrators import PathParams
+    from yuki_tpu_torch.ops import path_fused as tpf
+    from yuki_tpu_torch.ops import trace as tdense
+    from yuki_tpu_torch.ops import trace_pairs as tpp
+    from yuki_tpu_torch.ops import trace_walker as tw
+    from yuki_tpu_torch.renderer import render_frame
+    from yuki_tpu_torch.sampling import UniformSampler
+    from yuki_tpu_torch.scene import atrium
+
+    t0 = time.monotonic()
+    counts = atrium.write_scene(atrium.atrium_dir())
+    t_gen = time.monotonic() - t0
+    t0 = time.monotonic()
+    scene, cam, fs = atrium.load_atrium(device=dev)
+    t_load = time.monotonic() - t0
+    sec, meta = scene.build_seconds, scene.meta
+    check(meta.n_tris == counts["total"] == 347136,
+          f"atrium: {meta.n_tris} triangles, files {counts}")
+    check(meta.traversal == "treelet", f"atrium: traversal {meta.traversal}")
+    t_build = sum(sec.values())
+    tl = scene.data.treelets
+    print(f"atrium host load: generation {t_gen:.3f} s, load {t_load:.3f} s "
+          f"= parse and tables {t_load - t_build:.3f} s + BVH "
+          f"{sec['bvh']:.3f} s + treelets {sec['treelets']:.3f} s + chunks "
+          f"{sec['chunks']:.3f} s + slot budgets {sec['slot_mult']:.3f} s; "
+          f"n_tris {meta.n_tris}, n_spheres {meta.n_spheres}, n_treelets "
+          f"{tl.n_treelets}, n_supers {tl.n_supers}, chunks "
+          f"{scene.data.chunks.n_treelets}, slot_mult "
+          f"{meta.slot_mult_tight}/{meta.slot_mult}, film {fs.res}")
+
+    traverse.reset_counts()
+    reset_all_launches()
+    res = render_frame(scene, cam, FilmSettings(res=(64, 48), tile_dim=16),
+                       UniformSampler(1), PathParams(3), wave_tiles=12,
+                       seed=1)
+    torch.cuda.synchronize()
+    c, launches = traverse.counts(), all_launches()
+    check(launches["shade"] > 0 and launches["resolve"] > 0,
+          f"full atrium golden: launches {launches}")
+    img = res.film.image()
+    gold = np.load(ATRIUM_FULL_GOLDEN)["img"]
+    check(img.shape == gold.shape and np.isfinite(img).all(),
+          f"full atrium golden: shape {img.shape} or non-finite pixels")
+    n_bad, limit, mean_rel = deep_parity(np, gold, img)
+    print(f"golden full atrium 64x48 d3 1spp seed 1 through the treelet "
+          f"dispatch: divergent px {n_bad} (limit {limit}), mean rel diff "
+          f"{mean_rel:.3g}; dispatch {c}")
+
+    film_settings = FilmSettings(res=RES, tile_dim=16)
+
+    def frame():
+        return render_frame(scene, cam, film_settings, UniformSampler(1),
+                            PathParams(max_depth=DEPTH),
+                            wave_tiles=COL_WAVE_TILES, seed=1)
+
+    walls, rays = [], None
+    for i in range(3):
+        torch.cuda.synchronize()
+        reset_all_launches()
+        res = frame()
+        torch.cuda.synchronize()
+        walls.append(res.elapsed_s)
+        if i == 0:
+            launches = {k: v for k, v in all_launches().items() if v}
+            branches = traverse.counts()
+            rays = res.ray_count
+            img = res.film.image()
+        check(res.ray_count == rays, f"atrium: ray count {res.ray_count} "
+              f"against {rays}")
+    check(img.shape == (RES[1], RES[0], 3), f"atrium frame: {img.shape}")
+    check(np.isfinite(img).all() and float(img.mean()) > 0.0,
+          "atrium frame: non-finite or black image")
+    for name in ("shade", "resolve", "cull", "cross_words", "slot_closest",
+                 "slot_any", "rows_closest", "rows_any"):
+        check(launches.get(name, 0) > 0, f"atrium frame: {name} never "
+              "launched")
+    off = (*tpf.LAUNCHES, *tdense.LAUNCHES, *tw.LAUNCHES, *tpp.LAUNCHES)
+    check(not any(launches.get(k, 0) for k in off),
+          f"atrium frame: a kernel off its path launched ({launches})")
+    walks = launches.get("treelet_closest", 0) + launches.get("treelet_any",
+                                                              0)
+    check(walks == branches["fallbacks"], f"atrium frame: {walks} treelet "
+          f"walks for {branches['fallbacks']} fallbacks")
+    med = sorted(walls)[1]
+    print(f"atrium frame {RES[0]}x{RES[1]} d{DEPTH} 1spp {COL_WAVE_TILES}-"
+          f"tile waves seed 1: wall {med:.3f} s (median of "
+          f"{', '.join(f'{w:.3f}' for w in walls)}), {rays} closest-hit "
+          f"rays = {rays / med / 1e6:.2f} Mrays/s, launches {launches}, "
+          f"dispatch {branches}, image mean {float(img.mean()):.5f} [{card}]")
+
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        frame()
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+    groups, top_ops = device_breakdown(torch, prof)
+    busy = sum(v[0] for v in groups.values())
+    if busy > 0.0:
+        parts = ", ".join(f"{k} {ms:.3f} ms / {cnt} kernels"
+                          for k, (ms, cnt) in groups.items() if cnt)
+        print(f"atrium frame under torch.profiler: wall {wall * 1e3:.3f} ms,"
+              f" device busy {busy:.3f} ms, idle share "
+              f"{100 * (1 - busy / wall / 1e3):.1f}% of this frame, "
+              f"{100 * (1 - busy / med / 1e3):.1f}% of the median unprofiled "
+              f"frame: {parts} [{card}]")
+        print("atrium torch operators by device time: " + "; ".join(
+            f"{name} {ms:.3f} ms / {cnt} calls" for ms, cnt, name in top_ops))
+    else:
+        print("atrium frame under torch.profiler: no device time recorded "
+              "(busy time and idle share not measured)")
+
+
+def phase_headless(torch, np, dev, card):
+    """Phase 15: the CLI as a subprocess against an in-process Renderer
+    film of the same settings."""
+    import tempfile
+
+    from yuki_tpu_torch.app.exr import read_exr
+    from yuki_tpu_torch.app.settings import (InitialSettings,
+                                             SceneLoadSettings, save_settings)
+    from yuki_tpu_torch.app.util import try_load_scene
+    from yuki_tpu_torch.film import FilmSettings, film_or_new
+    from yuki_tpu_torch.integrators import PathParams
+    from yuki_tpu_torch.renderer import RenderSettings
+    from yuki_tpu_torch.sampling import StratifiedSampler
+    from yuki_tpu_torch.tonemap import FilmicParams, filmic
+
+    scene_file = os.path.join(REPO, "scenes", "cornell.pbrt")
+    s = InitialSettings(
+        film_settings=FilmSettings(res=(640, 480), tile_dim=16),
+        sampler=StratifiedSampler(2, 2), integrator=PathParams(DEPTH),
+        render_settings=RenderSettings(wave_tiles=256))
+    with tempfile.TemporaryDirectory() as tmp:
+        save_settings(s, os.path.join(tmp, "s.yaml"))
+        out = os.path.join(tmp, "out.exr")
+        trace_dir = os.path.join(tmp, "trace")
+        t0 = time.monotonic()
+        proc = subprocess.run(
+            [sys.executable, "-m", "yuki_tpu_torch", f"--scene={scene_file}",
+             f"--settings={os.path.join(tmp, 's.yaml')}", f"--out={out}",
+             f"--profile={trace_dir}"],
+            cwd=tmp, env=dict(os.environ, PYTHONPATH=REPO),
+            capture_output=True, text=True, timeout=600)
+        wall = time.monotonic() - t0
+        check(proc.returncode == 0, f"headless: exit {proc.returncode}: "
+              f"{proc.stderr[-2000:]}")
+        got = read_exr(out)
+        traces = [os.path.join(trace_dir, f) for f in os.listdir(trace_dir)]
+        text = "".join(open(f).read() for f in traces)
+    for name in ("path_fused.raygen_trace", "path_fused.bounces"):
+        check(name in text, f"headless: the trace does not name {name}")
+    scene, cam, _, _ = try_load_scene(SceneLoadSettings(path=scene_file),
+                                      device=dev)
+    film = film_or_new(None, s.film_settings, device=dev)
+    torch.cuda.synchronize()
+    reset_all_launches()
+    run_renderer(torch, scene, cam, film, s.sampler, s.integrator,
+                 s.film_settings, s.render_settings, seed=0)
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in all_launches().items() if v}
+    check(set(counts) == {"raygen_trace", "bounce"},
+          f"headless: in-process launches {counts}")
+    ref = filmic(film.image_device(), FilmicParams()).cpu().numpy()
+    check(got.shape == ref.shape and np.array_equal(
+        got.view(np.uint32), ref.view(np.uint32)),
+        "headless: the EXR differs from the in-process render")
+    check(float(ref.mean()) > 0.0, "headless: black image")
+    print(f"headless python -m yuki_tpu_torch cornell.pbrt 640x480 d{DEPTH} "
+          f"StratifiedSampler(2, 2) Filmic --profile: exit 0 in {wall:.3f} s"
+          f" wall (process start, kernel library load, scene load, render, "
+          f"trace export), EXR equal to the in-process film bit for bit, "
+          f"trace {len(text)} bytes [{card}]")
+
+
 def main():
     try:
         import numpy as np
@@ -2875,6 +3167,11 @@ def main():
             launches.update(new_launches)
         phase_sort(torch, scene, rays, card)
         print(f"phases 12-13a: {time.monotonic() - t_new:.1f} s")
+        t_new = time.monotonic()
+        phase_loaders(torch, np, dev, card)
+        phase_atrium(torch, np, dev, card)
+        phase_headless(torch, np, dev, card)
+        print(f"phases 14-15: {time.monotonic() - t_new:.1f} s")
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1

@@ -162,12 +162,33 @@ def test_treelet_sized_scene_raises():
         assert bool(got.hit.all()) == hits and bool(got.hit.any()) == hits
 
 
-def test_tiling_asset_raises(tmp_path):
-    """A real basecolor PNG would need the unported image decoder."""
+def test_tiling_asset_decoded(tmp_path, monkeypatch):
+    """Where the back wall's basecolor PNG exists, both packages decode it
+    (the port through its own decode_image_file) and build the same
+    Cornell tables around it; the stand-in is not used."""
+    pytest.importorskip("PIL")
+    from PIL import Image
+
+    import importlib
+
+    from yuki_tpu.textures import decode_image_file
     from yuki_tpu_torch.scene import cornell
 
+    jcornell = importlib.import_module("yuki_tpu.scene.cornell")
     png = tmp_path / "tiling.png"
-    png.write_bytes(b"\x89PNG")
-    with pytest.raises(NotImplementedError, match="decode_image_file"):
-        cornell._check_no_tiling_asset(str(png))
-    cornell._check_no_tiling_asset(str(tmp_path / "absent.png"))
+    texels = np.random.default_rng(58).integers(0, 256, (24, 40, 3))
+    Image.fromarray(texels.astype(np.uint8)).save(png)
+    monkeypatch.setattr(cornell, "TILING_ASSET", str(png))
+    monkeypatch.setattr(jcornell, "_load_tiling_asset",
+                        lambda: decode_image_file(str(png)))
+    tp.jax_native_bvh()
+    jscene, _, _ = jcornell.cornell()
+    tscene, _, _ = cornell.cornell(device="cpu")
+    ref, got = tp.jax_leaves(jscene), _port_leaves(tscene)
+    for name in TABLE_LEAVES:
+        _assert_same_bits(ref[name], got[name], name)
+    np.testing.assert_array_equal(
+        got["textures.texels"], (texels.reshape(-1, 3) / 255.0).astype(
+            np.float32))
+    monkeypatch.setattr(cornell, "TILING_ASSET", str(tmp_path / "no.png"))
+    assert cornell._load_tiling_asset() is None

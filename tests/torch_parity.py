@@ -621,23 +621,20 @@ def render_path_li_both(name, depth, seed=7, strat=None):
     return ref, rays_ref, px.numpy(), float(rays)
 
 
-def colonnade_golden_jax():
-    """The colonnade at 64x48, depth 3, 1 spp, seed 1, rendered by
-    yuki_tpu's XLA path_li chain on the CPU (FUSED_SHADE_MODE "off"):
-    the image of tests/goldens/torch_colonnade_64x48_path3_1spp_seed1.npz,
-    [48, 64, 3] f32."""
+def path_li_golden_jax(scene, cam_params, w=64, h=48, depth=3, seed=1):
+    """A JAX scene at w x h, ``depth``, 1 spp (UniformSampler), ``seed``,
+    rendered by yuki_tpu's XLA path_li chain on the CPU
+    (FUSED_SHADE_MODE "off"): [h, w, 3] f32."""
     from yuki_tpu import integrators as jintg
     from yuki_tpu.camera import Camera as JCamera
     from yuki_tpu.sampling import SampleCtx, UniformSampler as JUniform
 
-    scene, cam_params = jax_scene("colonnade")
-    w, h = 64, 48
     cam = JCamera.create(cam_params, w, h)
     px, py = jnp.meshgrid(jnp.arange(w, dtype=jnp.int32),
                           jnp.arange(h, dtype=jnp.int32), indexing="xy")
     px, py = px.reshape(-1), py.reshape(-1)
     ctx = SampleCtx(px=px, py=py, sample_index=jnp.uint32(0),
-                    seed=jnp.uint32(1))
+                    seed=jnp.uint32(seed))
     sampler = JUniform(1)
     u = sampler.get_2d(ctx, 0)
     o, d = cam.ray(jnp.stack([px.astype(jnp.float32),
@@ -645,11 +642,43 @@ def colonnade_golden_jax():
     old = jintg.FUSED_SHADE_MODE
     jintg.FUSED_SHADE_MODE = "off"
     try:
-        res = jintg.path_li(scene.data, scene.meta, jintg.PathParams(3),
+        res = jintg.path_li(scene.data, scene.meta, jintg.PathParams(depth),
                             sampler, ctx, o, d)
     finally:
         jintg.FUSED_SHADE_MODE = old
     return np.asarray(res.li).reshape(h, w, 3)
+
+
+def colonnade_golden_jax():
+    """The colonnade at 64x48, depth 3, 1 spp, seed 1, rendered by
+    yuki_tpu's XLA path_li chain on the CPU (FUSED_SHADE_MODE "off"):
+    the image of tests/goldens/torch_colonnade_64x48_path3_1spp_seed1.npz,
+    [48, 64, 3] f32."""
+    scene, cam_params = jax_scene("colonnade")
+    return path_li_golden_jax(scene, cam_params)
+
+
+def atrium_golden_jax(out_dir, small):
+    """The small (1,024 triangles) or full (347,136) atrium, written by
+    tools/make_atrium_assets.py into ``out_dir``, loaded by yuki_tpu's
+    load_pbrt and rendered like the colonnade golden: the image of
+    tests/goldens/torch_atrium_small_64x48_path3_1spp_seed1.npz or
+    tests/goldens/torch_atrium_64x48_path3_1spp_seed1.npz."""
+    import os
+    import sys
+
+    from yuki_tpu.app.settings import SceneLoadSettings
+    from yuki_tpu.scene.pbrt import load_pbrt
+
+    sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..",
+                                    "tools"))
+    from make_atrium_assets import write_scene
+
+    jax_native_bvh()
+    write_scene(str(out_dir), small=small)
+    scene, cam_params, _ = load_pbrt(
+        SceneLoadSettings(path=os.path.join(str(out_dir), "atrium.pbrt")))
+    return path_li_golden_jax(scene, cam_params)
 
 
 def render_both(depth, spp=1, clamp=None, spl=1, seed=7, strat=None):

@@ -9,11 +9,19 @@ PyTorch twin beside it.
 
 Ported so far: ROADMAP "Slice A" (transforms, camera, film, the uniform
 sampler, the scene builder and Cornell box, the watertight trace, the
-shading body, the fused dense wave, the wave renderer) and "Slice B1"
-(the native BVH builder, treelets, the colonnade, the treelet walks,
-sphere queries, textures, the shade and resolve kernels and
-``integrators.path_li``) and "B2a" (the treelet dispatch's probe, its
-divergent branch, the overflow re-run and the walk fallback).
+shading body, the fused dense wave, the wave renderer), "Slice B1" (the
+native BVH builder, treelets, the colonnade, the treelet walks, sphere
+queries, textures, the shade and resolve kernels and
+``integrators.path_li``), "B2a"/"B2b" (the treelet dispatch: probe, rows,
+cull, slot stream, overflow re-run, walk fallback), the dense ``path_li``
+route, the bundle walker, the pair walks, the skip queries, the
+stratified sampler and the one-kernel wave; then the headless app: the
+pbrt, PLY and Mitsuba loaders with the image decoder, the atrium asset
+(``scene/atrium.py``), the film's bookkeeping, the threaded ``Renderer``,
+``tonemap``, ``profiling``, ``app/`` (settings, scene load dispatch, EXR,
+headless render) and ``python -m yuki_tpu_torch``.  Not yet: the XLA
+shading chain, Whitted and the debug integrators, the BVH walk, the
+bundle engine, the viewer and multi-device (ROADMAP Queue 1).
 """
 
 from .device import default_device, resolve_device

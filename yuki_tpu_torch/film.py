@@ -3,8 +3,10 @@
 Port of ``yuki_tpu/film.py``.  Pixels live on the device in tile-major
 layout ``[n_tiles, tile_dim, tile_dim, 3]`` so a whole rendered wave
 lands with one indexed add; sample counts are an ``[n_tiles]`` vector and
-``image()`` reassembles and sample-normalises the [H,W,3] plane.  Tile
-generation and the centre-out spiral (film.rs:299-376) are host code.
+``image_device()`` reassembles and sample-normalises the [H,W,3] plane.
+``generation`` counts clears and reuses, so that a render whose film was
+cleared under it drops its waves (``renderer``).  Tile generation and the
+centre-out spiral (film.rs:299-376) are host code.
 """
 
 from __future__ import annotations
@@ -104,10 +106,16 @@ class Film:
         self.samples = torch.zeros(
             (n_tiles,), dtype=torch.int32, device=self.device
         )
+        self.generation = 0
 
     @property
     def n_tiles(self) -> int:
         return self.tiles_buf.shape[0]
+
+    def clear(self):
+        self.tiles_buf = torch.zeros_like(self.tiles_buf)
+        self.samples = torch.zeros_like(self.samples)
+        self.generation += 1
 
     def add_tiles(self, tile_ids: torch.Tensor, tile_pixels: torch.Tensor):
         """Add a rendered wave: tile_ids [B], pixels [B,td,td,3].  Each
@@ -122,7 +130,19 @@ class Film:
             0, ids, torch.ones_like(ids, dtype=torch.int32)
         )
 
-    def image_tensor(self) -> torch.Tensor:
+    def mark_tiles(self, tile_ids):
+        """Magenta in-progress markers (film.rs:184-207): sets the tiles to
+        magenta * their sample count (at least 1) so the displayed average
+        is magenta.  Out-of-range ids (wave padding) are dropped."""
+        ids = torch.as_tensor(tile_ids, device=self.device).long()
+        ids = ids[(ids >= 0) & (ids < self.n_tiles)]
+        n = torch.clamp(self.samples[ids], min=1).to(torch.float32)
+        magenta = torch.tensor([1.0, 0.0, 1.0], dtype=torch.float32,
+                               device=self.device)
+        self.tiles_buf[ids] = (magenta * n[:, None, None, None]).expand(
+            -1, self.tile_dim, self.tile_dim, 3)
+
+    def image_device(self) -> torch.Tensor:
         """Sample-normalised [H,W,3] image on the film's device."""
         tx, ty = self.grid
         td = self.tile_dim
@@ -133,4 +153,28 @@ class Film:
         return img[: self.res[1], : self.res[0]]
 
     def image(self) -> np.ndarray:
-        return self.image_tensor().cpu().numpy()
+        return self.image_device().cpu().numpy()
+
+    def raw_sums(self) -> np.ndarray:
+        """Unnormalized [H,W,3] sums (for parity with the reference's raw
+        EXR in non-accumulating mode divide by spp yourself)."""
+        tx, ty = self.grid
+        td = self.tile_dim
+        img = self.tiles_buf.cpu().numpy().reshape(ty, tx, td, td, 3)
+        img = img.transpose(0, 2, 1, 3, 4).reshape(ty * td, tx * td, 3)
+        return img[: self.res[1], : self.res[0]]
+
+
+def film_or_new(film, settings: FilmSettings, device=None) -> Film:
+    """Reuse-or-realloc on settings change (film.rs:378-406); a new film
+    goes on ``device`` (None: the card), a reused one stays where it is."""
+    rx, ry = settings.effective_res()
+    if (
+        film is None
+        or settings.clear
+        or film.res != (rx, ry)
+        or film.tile_dim != settings.tile_dim
+    ):
+        return Film(rx, ry, settings.tile_dim, device=device)
+    film.generation += 1
+    return film

@@ -1,18 +1,21 @@
 """Path integrator: port of ``yuki_tpu/integrators/__init__.py``'s
-``PathParams`` (:40-42), ``LiResult`` (:93-97) and ``path_li`` (:190-392).
+``WhittedParams`` (:34-36), ``PathParams`` (:40-42), ``LiResult``
+(:93-97) and ``path_li`` (:190-392).
 
 The dense path-tracing wave (``ops/path_fused.py``) is the path tracer
 for the dense scenes it accepts.  ``path_li`` is the path tracer for
 every other scene, dense (the dense trace sweeps) or treelet (the
 adaptive dispatch): its fused-shade branch (:234-314), bounce by bounce a
 closest-hit query, the shade kernel, one light-major occlusion query for
-every light's shadow rays, and the resolve kernel.  Both samplers run
+every light's shadow rays, and the resolve kernel, each in a
+``profiling.pass_scope`` range named as yuki_tpu's.  Both samplers run
 there; a StratifiedSampler's values of each bounce are computed first
 and read by the shade kernel as planes.  yuki_tpu's XLA shading chain
 (:316-377: make_surface, gather_materials, _nee, bsdf_sample, built on
 ``surface.py``, ``bsdf.py`` and ``lights.py``), which runs where the fused
 gate fails, is not ported: ``path_li`` raises there.  Whitted and the
-debug integrators are not ported either.
+debug integrators are not ported either: ``WhittedParams`` exists so that
+settings files naming it parse, and the renderer raises for it.
 """
 
 from __future__ import annotations
@@ -21,6 +24,17 @@ from dataclasses import dataclass
 from typing import NamedTuple, Optional
 
 import torch
+
+from ..profiling import pass_scope
+
+
+@dataclass(frozen=True)
+class WhittedParams:
+    """yuki_tpu's WhittedParams (:34-36), so that settings naming the
+    Whitted integrator parse; ``renderer.make_wave_renderer`` raises for
+    it (whitted_li is not ported)."""
+
+    max_depth: int = 3
 
 
 @dataclass(frozen=True)
@@ -98,16 +112,22 @@ def path_li(scene, meta, params: PathParams, sampler, ctx, o, d,
                if strat else None)
         ray_count = ray_count + alive.to(torch.int32)
         t_max = torch.where(alive, traverse.F32_MAX, 0.0).to(torch.float32)
-        hit = traverse.intersect(data, meta, o, d, t_max, skip_sort=True)
+        with pass_scope("trace.closest"):
+            hit = traverse.intersect(data, meta, o, d, t_max,
+                                     skip_sort=True)
         missed = alive & ~hit.hit
         alive = alive & hit.hit
-        (o2, d2, beta2, alive2, spec2, no, nd, nt, ns_skip, nw, nc,
-         ne) = shade_fused.shade_fused(tables, hit, o, d, beta, alive,
-                                       specular_bounce, ph, dim0, bounce,
-                                       spl)
-        occ = traverse.any_intersect(data, meta, no, nd, nt, ns_skip,
-                                     skip_sort=True)
-        radiance = shade_fused.resolve_fused(tables, radiance, beta, alive,
-                                             missed, ne, occ, nw, nc, bounce)
+        with pass_scope("shade.fused"):
+            (o2, d2, beta2, alive2, spec2, no, nd, nt, ns_skip, nw, nc,
+             ne) = shade_fused.shade_fused(tables, hit, o, d, beta, alive,
+                                           specular_bounce, ph, dim0,
+                                           bounce, spl)
+        with pass_scope("trace.occlusion"):
+            occ = traverse.any_intersect(data, meta, no, nd, nt, ns_skip,
+                                         skip_sort=True)
+        with pass_scope("shade.resolve"):
+            radiance = shade_fused.resolve_fused(tables, radiance, beta,
+                                                 alive, missed, ne, occ, nw,
+                                                 nc, bounce)
         o, d, beta, alive, specular_bounce = o2, d2, beta2, alive2, spec2
     return LiResult(li=radiance, ray_count=ray_count)

@@ -63,6 +63,7 @@ from dataclasses import dataclass
 import torch
 
 from ..integrators import PathParams
+from ..profiling import pass_scope
 from ..sampling import (GOLDEN, MASK32, SampleCtx, StratifiedSampler,
                         UniformSampler)
 from ..scene.data import LIGHT_RECT
@@ -798,12 +799,15 @@ def path_li_wave(tb: WaveTables, px: torch.Tensor, py: torch.Tensor,
     spl = strat_planes(sampler, px, py, sample_index, seed, tb.n_lights,
                        tb.max_depth)
     if PATH_FUSED_ONEKERNEL:
-        out = wave(px, py, sample_index, seed, tb, spl)
+        with pass_scope("path_fused.wave1k"):
+            out = wave(px, py, sample_index, seed, tb, spl)
         return out[:3].t(), out[3].to(torch.int32)
-    st, ph = raygen_trace(px, py, sample_index, seed, tb,
-                          None if spl is None else spl[:2])
-    for b in range(tb.max_depth):
-        st = bounce(st, ph, b, tb, _bounce_planes(spl, tb, b))
+    with pass_scope("path_fused.raygen_trace"):
+        st, ph = raygen_trace(px, py, sample_index, seed, tb,
+                              None if spl is None else spl[:2])
+    with pass_scope("path_fused.bounces"):
+        for b in range(tb.max_depth):
+            st = bounce(st, ph, b, tb, _bounce_planes(spl, tb, b))
     li = torch.stack([st[_ST["rx"]], st[_ST["ry"]], st[_ST["rz"]]], dim=-1)
     return li, st[_ST["rc"]].to(torch.int32)
 

@@ -1,14 +1,11 @@
 """Built-in Cornell box scene (yuki/src/scene/mod.rs:154-530); port of
 ``yuki_tpu/scene/cornell.py`` with the same geometry, materials, light and
-procedural back-wall texture.
+back-wall texture.
 
-The reference embeds a 1K tiling basecolor PNG for the back wall; that
-asset is absent, so both packages synthesise the same deterministic
-8-bit tile texture.  Should the PNG appear under ``res/tiling_58-1K/``,
-this port raises instead of decoding it: the image decoder
-(``textures.decode_image_file``) is not ported yet (ROADMAP Queue 1,
-"textures decoder"), and silently using the stand-in would diverge from
-``yuki_tpu``.
+The reference embeds a 1K tiling basecolor PNG for the back wall.  As in
+``yuki_tpu`` (:44-62), the PNG is decoded if it is present under
+``res/tiling_58-1K/``; otherwise both packages synthesise the same
+deterministic 8-bit tile texture.  The repo does not hold the PNG.
 """
 
 from __future__ import annotations
@@ -46,12 +43,15 @@ TILING_ASSET = os.path.join(
 )
 
 
-def _check_no_tiling_asset(path: str = TILING_ASSET) -> None:
-    if os.path.exists(path):
-        raise NotImplementedError(
-            f"{path} exists, but decoding it needs textures.decode_image_file, "
-            "which is not ported yet (ROADMAP Queue 1, textures decoder)"
-        )
+def _load_tiling_asset(path: str = None):
+    """The real back-wall texture (scene/mod.rs:193-201), decoded from
+    ``path`` (default TILING_ASSET) if it exists, else None."""
+    path = TILING_ASSET if path is None else path
+    if not os.path.exists(path):
+        return None
+    from ..textures import decode_image_file
+
+    return decode_image_file(path)
 
 
 def _tiling_texture(size: int = 256) -> np.ndarray:
@@ -79,9 +79,10 @@ def _tiling_texture(size: int = 256) -> np.ndarray:
     ) / np.float32(255.0)
 
 
-def cornell(device=None) -> tuple[Scene, CameraParameters, FilmSettings]:
-    """The Cornell box on ``device`` (None: default_device())."""
-    _check_no_tiling_asset()
+def cornell(split_method: str = "middle", max_shapes_in_node: int = 1,
+            device=None) -> tuple[Scene, CameraParameters, FilmSettings]:
+    """The Cornell box on ``device`` (None: default_device()); the BVH
+    arguments and their defaults are yuki_tpu's."""
     b = SceneBuilder("Cornell Box")
 
     handedness_swap = tf.Transform.from_matrix(
@@ -89,7 +90,8 @@ def cornell(device=None) -> tuple[Scene, CameraParameters, FilmSettings]:
     )
     xform = tf.scale(0.001, 0.001, 0.001) @ handedness_swap
 
-    tex = b.add_texture(_tiling_texture())
+    asset = _load_tiling_asset()
+    tex = b.add_texture(asset if asset is not None else _tiling_texture())
     white = b.add_matte(kd=(180 / 255.0,) * 3)
     image = b.add_matte(kd=(1.0, 1.0, 1.0), kd_tex=tex)
     red = b.add_matte(kd=(180 / 255.0, 0.0, 0.0))
@@ -183,9 +185,8 @@ def cornell(device=None) -> tuple[Scene, CameraParameters, FilmSettings]:
     # Copper sphere.
     b.add_sphere(tf.translation((0.186, 0.082, -0.168)), 0.082, copper)
 
-    # yuki_tpu's cornell() defaults: middle split, one shape per leaf.
-    scene = b.build(split_method="middle", max_shapes_in_node=1,
-                    device=device)
+    scene = b.build(split_method=split_method,
+                    max_shapes_in_node=max_shapes_in_node, device=device)
 
     cam = CameraParameters(
         position=(0.278, 0.273, 0.800),
