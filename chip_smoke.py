@@ -152,7 +152,25 @@ beside this file.  It imports no JAX.  Phases:
      2), Filmic, 640x480, 256-tile waves): exit 0, the EXR read back equal
      bit for bit to an in-process Renderer film of the same settings
      through filmic, and a trace naming path_fused.raygen_trace and
-     path_fused.bounces; with the command's wall time.
+     path_fused.bounces; with the command's wall time; then the CLI again
+     with no settings file (InitialSettings: Cornell, Whitted(3),
+     StratifiedSampler(1, 1), 640x480, Filmic), its EXR equal bit for bit
+     to the in-process render;
+ 16. the shading chain, Whitted and the debug views: Cornell's 64x48
+     Whitted(3) 2 spp render against
+     tests/goldens/cornell_64x48_whitted3_2spp_seed42.npz and the
+     colonnade's 1 spp against
+     tests/goldens/torch_colonnade_64x48_whitted3_1spp_seed1.npz (the deep
+     bounds); the 1080p Whitted(3) 1 spp frames of Cornell (4096-tile
+     waves) and the colonnade (2048-tile waves; its queries take the
+     coherence sort), each the median wall time of three, with
+     closest-hit rays, launches per kernel, tree steps and host reads;
+     the 1080p Cornell Path d5 1 spp frame through path_li with the fused
+     wave off, by the shading chain (FUSED_SHADE_MODE "off") against the
+     shade kernels (the deep bounds, rays within 1%), each timed; the four
+     debug views at 1080p on Cornell and the colonnade, one frame each,
+     with the BVH walk's steps and host reads; the card's 64x48
+     BVHIntersections film of Cornell equal bit for bit to the CPU's.
 
 Prints one JSON line describing the kernels, the card's name and power
 limit, then as its last line {"ok": true, "device": {...}}.  Any failed
@@ -181,6 +199,10 @@ ATRIUM_GOLDEN = os.path.join(REPO, "tests", "goldens",
                              "torch_atrium_small_64x48_path3_1spp_seed1.npz")
 ATRIUM_FULL_GOLDEN = os.path.join(REPO, "tests", "goldens",
                                   "torch_atrium_64x48_path3_1spp_seed1.npz")
+WHITTED_GOLDEN = os.path.join(REPO, "tests", "goldens",
+                              "cornell_64x48_whitted3_2spp_seed42.npz")
+COL_WHITTED_GOLDEN = os.path.join(
+    REPO, "tests", "goldens", "torch_colonnade_64x48_whitted3_1spp_seed1.npz")
 SLICE_BLOCKS = 64  # camera-wave 1024-ray blocks the plain walks run on
 SOUP_TRIS = 4096  # the dense band's top (DENSE_TRI_THRESHOLD)
 SOUP_RAYS = 65536
@@ -3111,6 +3133,231 @@ def phase_headless(torch, np, dev, card):
           f"trace {len(text)} bytes [{card}]")
 
 
+def _frames(torch, fn, n=3):
+    """n calls of fn (a frame), each from launch counts at 0: (results,
+    wall seconds, the first call's launches, dispatch counts and Whitted
+    steps)."""
+    from yuki_tpu_torch import integrators as tintg
+    from yuki_tpu_torch import traverse
+
+    out, walls = [], []
+    for i in range(n):
+        torch.cuda.synchronize()
+        reset_all_launches()
+        tintg.reset_counts()
+        t0 = time.monotonic()
+        res = fn()
+        torch.cuda.synchronize()
+        walls.append(time.monotonic() - t0)
+        if i == 0:
+            launches = {k: v for k, v in all_launches().items() if v}
+            counts = {**traverse.counts(), **tintg.COUNTS}
+        out.append(res)
+    return out, walls, launches, counts
+
+
+def _walls(walls):
+    med = sorted(walls)[len(walls) // 2]
+    return med, ", ".join(f"{w:.3f}" for w in walls)
+
+
+def phase_whitted(torch, np, dev, card, col_scene, col_cam):
+    """Phase 16's Whitted: Cornell's 64x48 render against its golden and
+    the colonnade's against the treelet golden, then the 1080p frames of
+    both (median of three)."""
+    from yuki_tpu_torch.film import FilmSettings
+    from yuki_tpu_torch.integrators import WhittedParams
+    from yuki_tpu_torch.renderer import render_frame
+    from yuki_tpu_torch.sampling import UniformSampler
+    from yuki_tpu_torch.scene.cornell import cornell
+
+    scene, cam, _ = cornell(device=dev)
+    for name, sc, cm, gold, spp, seed in (
+            ("cornell", scene, cam, WHITTED_GOLDEN, 2, 42),
+            ("colonnade", col_scene, col_cam, COL_WHITTED_GOLDEN, 1, 1)):
+        res = render_frame(sc, cm, FilmSettings(res=(64, 48), tile_dim=16),
+                           UniformSampler(spp), WhittedParams(3),
+                           wave_tiles=12, seed=seed)
+        img = res.film.image()
+        ref = np.load(gold)["img"]
+        check(img.shape == ref.shape and np.isfinite(img).all(),
+              f"whitted golden {name}: shape {img.shape} or non-finite")
+        n_bad, limit, mean_rel = deep_parity(np, ref, img, spp)
+        print(f"golden {name} 64x48 Whitted(3) {spp}spp seed {seed} on the "
+              f"card: divergent px {n_bad} (limit {limit}), mean rel diff "
+              f"{mean_rel:.3g}")
+
+    fs = FilmSettings(res=RES, tile_dim=16)
+    for name, sc, cm, wave in (("cornell", scene, cam, WAVE_TILES),
+                               ("colonnade", col_scene, col_cam,
+                                COL_WAVE_TILES)):
+        frames, walls, launches, counts = _frames(torch, lambda: render_frame(
+            sc, cm, fs, UniformSampler(1), WhittedParams(3), wave_tiles=wave,
+            seed=1))
+        img = frames[0].film.image()
+        rays = frames[0].ray_count
+        check(all(f.ray_count == rays for f in frames),
+              f"whitted {name}: ray counts differ between frames")
+        check(img.shape == (RES[1], RES[0], 3) and np.isfinite(img).all()
+              and float(img.mean()) > 0.0,
+              f"whitted {name}: non-finite or black frame")
+        if name == "cornell":
+            ok = {"dense_closest", "dense_any"} <= set(launches)
+        else:  # coherent camera waves; shadow rays on either engine
+            ok = "rows_closest" in launches and bool(
+                {"rows_any", "slot_any"} & set(launches))
+        check(ok, f"whitted {name}: launches {launches}")
+        med, all_w = _walls(walls)
+        print(f"whitted {name} {RES[0]}x{RES[1]} Whitted(3) 1spp {wave}-tile "
+              f"waves seed 1: wall {med:.3f} s (median of {all_w}), {rays} "
+              f"closest-hit rays = {rays / med / 1e6:.2f} Mrays/s, "
+              f"{counts['whitted_steps']} tree steps, "
+              f"{counts['host_syncs']} host reads, launches {launches}, "
+              f"dispatch {counts}, image mean {float(img.mean()):.5f} [{card}]")
+
+
+def phase_path_chain(torch, np, dev, card):
+    """Phase 16's path chain: the 1080p Cornell frame at depth 5, 1 spp,
+    through path_li with the fused wave off, by the shading chain against
+    the shade kernels' route (median of three each)."""
+    from yuki_tpu_torch import integrators as tintg
+    from yuki_tpu_torch.film import FilmSettings
+    from yuki_tpu_torch.integrators import PathParams
+    from yuki_tpu_torch.ops import path_fused as tpf
+    from yuki_tpu_torch.renderer import render_frame
+    from yuki_tpu_torch.sampling import UniformSampler
+    from yuki_tpu_torch.scene.cornell import cornell
+
+    scene, cam, _ = cornell(device=dev)
+    fs = FilmSettings(res=RES, tile_dim=16)
+    out = {}
+    tpf.PATH_FUSED_MODE = "off"
+    try:
+        for mode in ("off", "auto"):
+            tintg.FUSED_SHADE_MODE = mode
+            out[mode] = _frames(torch, lambda: render_frame(
+                scene, cam, fs, UniformSampler(1), PathParams(DEPTH),
+                wave_tiles=WAVE_TILES, seed=1))
+    finally:
+        tpf.PATH_FUSED_MODE = "auto"
+        tintg.FUSED_SHADE_MODE = "auto"
+    chain, fused = out["off"], out["auto"]
+    check(not {"shade", "resolve"} & set(chain[2]),
+          f"path chain: the shade kernels launched ({chain[2]})")
+    check({"shade", "resolve"} <= set(fused[2]),
+          f"path fused route: launches {fused[2]}")
+    got, ref = chain[0][0].film.image(), fused[0][0].film.image()
+    rays_c, rays_f = chain[0][0].ray_count, fused[0][0].ray_count
+    check(np.isfinite(got).all() and float(got.mean()) > 0.0,
+          "path chain: non-finite or black frame")
+    check(abs(rays_c - rays_f) <= max(16, 0.01 * rays_f),
+          f"path chain: rays {rays_c} vs the fused route's {rays_f}")
+    n_bad, limit, mean_rel = deep_parity(np, ref, got)
+    (med_c, all_c), (med_f, all_f) = _walls(chain[1]), _walls(fused[1])
+    print(f"path chain cornell {RES[0]}x{RES[1]} d{DEPTH} 1spp "
+          f"{WAVE_TILES}-tile waves through path_li: chain {med_c:.3f} s "
+          f"(median of {all_c}), {rays_c} closest-hit rays, launches "
+          f"{chain[2]}, {chain[3]['host_syncs']} host reads; shade kernels "
+          f"{med_f:.3f} s (median of {all_f}), {rays_f} rays, launches "
+          f"{fused[2]}; chain against the kernels: divergent px {n_bad} "
+          f"(limit {limit}), mean rel diff {mean_rel:.3g} [{card}]")
+
+
+def phase_debug_views(torch, np, dev, card, col_scene, col_cam):
+    """Phase 16's debug views: each of the four at 1080p on Cornell and on
+    the colonnade (one frame each, the BVH walk's steps and host reads
+    beside BVHIntersections), then the card's 64x48 BVHIntersections
+    film against the CPU's, bit for bit."""
+    from yuki_tpu_torch.film import FilmSettings
+    from yuki_tpu_torch.integrators import DEBUG_VIEWS
+    from yuki_tpu_torch.renderer import render_frame
+    from yuki_tpu_torch.sampling import UniformSampler
+    from yuki_tpu_torch.scene.cornell import cornell
+
+    scene, cam, _ = cornell(device=dev)
+    fs = FilmSettings(res=RES, tile_dim=16)
+    for name, sc, cm, wave in (("cornell", scene, cam, WAVE_TILES),
+                               ("colonnade", col_scene, col_cam,
+                                COL_WAVE_TILES)):
+        parts = []
+        for view in DEBUG_VIEWS:
+            frames, walls, launches, counts = _frames(
+                torch, lambda: render_frame(sc, cm, fs, UniformSampler(1),
+                                            view, wave_tiles=wave, seed=1),
+                n=1)
+            img = frames[0].film.image()
+            check(np.isfinite(img).all() and float(img.max()) > 0.0,
+                  f"{view} {name}: non-finite or black frame")
+            part = f"{view} {walls[0]:.3f} s"
+            if view == "bvh_intersections":
+                check(counts["bvh_walks"] > 0 and not launches,
+                      f"{view} {name}: walks {counts['bvh_walks']}, "
+                      f"launches {launches}")
+                part += (f" ({counts['bvh_walks']} walks, "
+                         f"{counts['bvh_steps']} steps = host reads, "
+                         f"{int(img[..., 0].max())} steps at most a ray, "
+                         f"{float(img[..., 0].mean()):.2f} a ray)")
+            else:
+                part += f" (launches {launches})"
+            parts.append(part)
+        print(f"debug views {name} {RES[0]}x{RES[1]} 1spp {wave}-tile waves,"
+              f" one frame each (first call): {'; '.join(parts)} [{card}]")
+    cpu_scene, cpu_cam, _ = cornell(device="cpu")
+    films = [render_frame(sc, cm, FilmSettings(res=(64, 48), tile_dim=16),
+                          UniformSampler(1), "bvh_intersections",
+                          wave_tiles=12, seed=1).film.image()
+             for sc, cm in ((scene, cam), (cpu_scene, cpu_cam))]
+    check(np.array_equal(films[0].view(np.uint32), films[1].view(np.uint32)),
+          "bvh_intersections: the card's 64x48 film differs from the CPU's")
+    print("bvh_intersections cornell 64x48: the card's film equals the "
+          "CPU's bit for bit")
+
+
+def phase_headless_defaults(torch, np, dev, card):
+    """Phase 15's second CLI run, with no settings file: InitialSettings
+    (Cornell, Whitted(3), StratifiedSampler(1, 1), 640x480, Filmic)
+    against the in-process render, bit for bit."""
+    import tempfile
+
+    from yuki_tpu_torch.app.exr import read_exr
+    from yuki_tpu_torch.app.settings import InitialSettings
+    from yuki_tpu_torch.app.util import try_load_scene
+    from yuki_tpu_torch.film import film_or_new
+    from yuki_tpu_torch.tonemap import FilmicParams, filmic
+
+    s = InitialSettings()
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "x.exr")
+        t0 = time.monotonic()
+        proc = subprocess.run(
+            [sys.executable, "-m", "yuki_tpu_torch", f"--out={out}"],
+            cwd=tmp, env=dict(os.environ, PYTHONPATH=REPO),
+            capture_output=True, text=True, timeout=600)
+        wall = time.monotonic() - t0
+        check(proc.returncode == 0, f"headless defaults: exit "
+              f"{proc.returncode}: {proc.stderr[-2000:]}")
+        got = read_exr(out)
+    scene, cam, _, _ = try_load_scene(s.load_settings, device=dev)
+    film = film_or_new(None, s.film_settings, device=dev)
+    torch.cuda.synchronize()
+    reset_all_launches()
+    run_renderer(torch, scene, cam, film, s.sampler, s.integrator,
+                 s.film_settings, s.render_settings, seed=0)
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in all_launches().items() if v}
+    check({"dense_closest", "dense_any"} <= set(counts),
+          f"headless defaults: in-process launches {counts}")
+    ref = filmic(film.image_device(), FilmicParams()).cpu().numpy()
+    check(got.shape == ref.shape and np.array_equal(
+        got.view(np.uint32), ref.view(np.uint32)),
+        "headless defaults: the EXR differs from the in-process render")
+    check(float(ref.mean()) > 0.0, "headless defaults: black image")
+    print(f"headless python -m yuki_tpu_torch with no settings file "
+          f"(Whitted(3), StratifiedSampler(1, 1), 640x480, Filmic): exit 0 "
+          f"in {wall:.3f} s wall, EXR equal to the in-process render bit "
+          f"for bit, in-process launches {counts} [{card}]")
+
+
 def main():
     try:
         import numpy as np
@@ -3171,7 +3418,13 @@ def main():
         phase_loaders(torch, np, dev, card)
         phase_atrium(torch, np, dev, card)
         phase_headless(torch, np, dev, card)
+        phase_headless_defaults(torch, np, dev, card)
         print(f"phases 14-15: {time.monotonic() - t_new:.1f} s")
+        t_new = time.monotonic()
+        phase_whitted(torch, np, dev, card, scene, cam)
+        phase_path_chain(torch, np, dev, card)
+        phase_debug_views(torch, np, dev, card, scene, cam)
+        print(f"phase 16: {time.monotonic() - t_new:.1f} s")
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1

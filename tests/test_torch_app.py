@@ -388,19 +388,17 @@ def test_stale_render_filtered(scene_and_cam):
 
 def test_error_reaches_caller(scene_and_cam):
     """A failure in the manager thread arrives as a RenderError naming it
-    (here the unported Whitted integrator)."""
-    from yuki_tpu_torch.integrators import WhittedParams
-
+    (here an integrator name that names none)."""
     scene, cam = scene_and_cam
     fs = FilmSettings(res=(32, 32), tile_dim=16)
     r = Renderer()
     r.launch(scene, cam, film_or_new(None, fs, device="cpu"),
-             UniformSampler(1), WhittedParams(), fs)
+             UniformSampler(1), "no_such_view", fs)
     msgs = run_to_completion(r)
     r.kill()
     assert isinstance(msgs[-1], RenderError)
-    assert "NotImplementedError" in msgs[-1].message
-    assert "Whitted" in msgs[-1].message
+    assert "ValueError" in msgs[-1].message
+    assert "no_such_view" in msgs[-1].message
 
 
 def test_deterministic_across_wave_sizes(scene_and_cam):
@@ -498,9 +496,8 @@ def test_cli_renders_the_in_process_image(tmp_path):
 
 
 @pytest.mark.parametrize("args,names", [
-    ((), ("NotImplementedError", "Whitted")),
     (("--view",), ("NotImplementedError", "viewer")),
-], ids=["default-whitted", "view"])
+], ids=["view"])
 def test_cli_names_what_is_missing(tmp_path, args, names):
     res = _cli(tmp_path, "--device", "cpu", "--out=x.exr", *args)
     assert res.returncode != 0

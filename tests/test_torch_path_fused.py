@@ -323,7 +323,7 @@ def test_gate_rejects_loudly():
                                   PathParams(2), tp.TD, tp.TILES)(
         tp.ORIGINS[:1], 0, 0)
     assert px.shape == (1, tp.TD, tp.TD, 3) and torch.isfinite(px).all()
-    with pytest.raises(NotImplementedError, match="PathParams"):
+    with pytest.raises(ValueError, match="unknown integrator 'whitted'"):
         make_wave_renderer(scene, camera, UniformSampler(1), "whitted",
                            tp.TD, tp.TILES)
 

@@ -14,7 +14,7 @@ import torch
 import torch_parity as tp
 from yuki_tpu_torch import transforms as tf
 from yuki_tpu_torch.camera import Camera
-from yuki_tpu_torch.integrators import PathParams
+from yuki_tpu_torch.integrators import PathParams, use_fused_shade
 from yuki_tpu_torch.ops import path_fused as tpf
 from yuki_tpu_torch.ops import shade_fused as tsf
 from yuki_tpu_torch.ops import trace_treelets as ttt
@@ -90,12 +90,15 @@ def test_gates_raise():
     px, rays = mwr(dense_band)(tp.ORIGINS[:1], 0, 1)
     assert px.shape == (1, tp.TD, tp.TD, 3) and torch.isfinite(px).all()
     assert float(rays) >= tp.TD * tp.TD
+    # A textured sphere on a treelet scene: the fused shade gate fails and
+    # path_li takes the shading chain.
     textured_sphere = _soup_scene(DENSE_TRI_THRESHOLD + 10, sphere_tex=True)
     assert textured_sphere.meta.traversal == "treelet"
-    with pytest.raises(NotImplementedError,
-                       match=r"the XLA shading chain \(surface\.py, "
-                       r"bsdf\.py, lights\.py\), which is not ported"):
-        mwr(textured_sphere)
+    assert not use_fused_shade(textured_sphere.meta, UniformSampler(1))
+    tsf.reset_launches()
+    px, rays = mwr(textured_sphere)(tp.ORIGINS[:1], 0, 1)
+    assert px.shape == (1, tp.TD, tp.TD, 3) and torch.isfinite(px).all()
+    assert float(rays) >= tp.TD * tp.TD
     # The stratified sampler is accepted: path_li hands the shade kernel
     # its values as planes.
     reduced, _ = tp.port_scene("reduced")

@@ -13,7 +13,7 @@ import time
 import numpy as np
 import jax.numpy as jnp
 
-from torch_scenes import REDUCED, textured_treelet
+from torch_scenes import REDUCED, lightless, sun_sphere, textured_treelet
 
 RES = (64, 48)
 TD = 8
@@ -246,9 +246,14 @@ def divergent_rays(n, seed, boxes=None, span=6.0):
     return o, d
 
 
+SCENE_BUILDERS = {"pointspot": pointspot, "midsize": midsize,
+                  "textured-treelet": textured_treelet, "lit-soup": lit_soup,
+                  "sun-sphere": sun_sphere, "lightless": lightless}
+
+
 def jax_scene(name):
-    """(JAX scene, JAX camera params) for 'cornell' | 'pointspot' |
-    'midsize'."""
+    """(JAX scene, JAX camera params) for 'cornell', 'colonnade',
+    'reduced' or a name of SCENE_BUILDERS."""
     from yuki_tpu import camera, transforms
     from yuki_tpu.scene import data
     from yuki_tpu.scene.cornell import cornell
@@ -262,10 +267,7 @@ def jax_scene(name):
 
         scene, cam, _ = colonnade(**(REDUCED if name == "reduced" else {}))
         return scene, cam
-    return {"pointspot": pointspot, "midsize": midsize,
-            "textured-treelet": textured_treelet, "lit-soup": lit_soup}[name](
-        data, transforms, camera
-    )
+    return SCENE_BUILDERS[name](data, transforms, camera)
 
 
 def port_scene(name):
@@ -283,10 +285,7 @@ def port_scene(name):
         scene, cam, _ = colonnade(
             device="cpu", **(REDUCED if name == "reduced" else {}))
         return scene, cam
-    return {"pointspot": pointspot, "midsize": midsize,
-            "textured-treelet": textured_treelet, "lit-soup": lit_soup}[name](
-        data, transforms, camera, device="cpu"
-    )
+    return SCENE_BUILDERS[name](data, transforms, camera, device="cpu")
 
 
 # --- the JAX wave's tables (yuki_tpu path_fused.path_li_wave:1053-1097) ---
@@ -724,3 +723,100 @@ def render_both(depth, spp=1, clamp=None, spl=1, seed=7, strat=None):
     )
     px, rays = render(ORIGINS, 0, seed)
     return ref, rays_ref, px.numpy(), float(rays)
+
+
+# --- the shading chain's modules, eagerly on both sides ------------------
+
+
+def chain_inputs(name, n=1024, seed=5):
+    """Inputs for holding a shading-chain module against yuki_tpu's: the
+    JAX scene, the port's scene from its leaves, and n rays from a numpy
+    seed (half camera rays through random points of the 64x48 film, half
+    from random points of the scene box in random directions, so that
+    back faces and sphere insides are hit) with their closest hits by the
+    port's query.  Returns (jscene, tscene, o, d, hit: dict of torch
+    tensors)."""
+    import torch
+
+    from yuki_tpu_torch import traverse
+    from yuki_tpu_torch.camera import Camera
+
+    jscene, _ = jax_scene(name)
+    tscene = bridged(jscene)
+    _, cam = port_scene(name)
+    rng = np.random.default_rng(seed)
+    m = n // 2
+    p_film = (rng.random((m, 2)) * np.array(RES)).astype(np.float32)
+    o_cam, d_cam = Camera.create(cam, *RES).ray(torch.as_tensor(p_film))
+    lo = np.asarray(jscene.data.world_lo)
+    hi = np.asarray(jscene.data.world_hi)
+    o_rnd = (lo + rng.random((n - m, 3)) * (hi - lo)).astype(np.float32)
+    d_rnd = rng.standard_normal((n - m, 3)).astype(np.float32)
+    d_rnd /= np.linalg.norm(d_rnd, axis=1, keepdims=True)
+    o = torch.cat([o_cam, torch.as_tensor(o_rnd)]).contiguous()
+    d = torch.cat([d_cam, torch.as_tensor(d_rnd)]).contiguous()
+    t_max = torch.full((n,), traverse.F32_MAX)
+    hit = traverse.intersect(tscene.data, tscene.meta, o, d, t_max)
+    return jscene, tscene, o, d, hit._asdict()
+
+
+def to_jnp(x):
+    """A torch tensor, or a NamedTuple or dict of them, as jnp arrays."""
+    if isinstance(x, dict):
+        return {k: to_jnp(v) for k, v in x.items()}
+    if isinstance(x, tuple):
+        return type(x)(*(to_jnp(v) for v in x))
+    return jnp.asarray(x.numpy())
+
+
+def xla_fn(fn):
+    """A transcendental evaluated by XLA on the CPU, as eager yuki_tpu
+    evaluates it, for the port's torch code."""
+    import torch
+
+    return lambda *xs: torch.as_tensor(np.array(fn(*(x.numpy() for x in xs))))
+
+
+def ulps(a, b):
+    """Elementwise distance in float32 ulps (0 where both are equal,
+    signed zeros included)."""
+    a = np.asarray(a, np.float32).reshape(-1)
+    b = np.asarray(b, np.float32).reshape(-1)
+
+    def key(x):
+        i = x.view(np.int32).astype(np.int64)
+        return np.where(i < 0, -(i & 0x7FFFFFFF), i)
+
+    return np.where(a == b, 0, np.abs(key(a) - key(b)))
+
+
+def whitted_golden_jax(scene, cam_params, w=64, h=48, depth=3, seed=1):
+    """A JAX scene at w x h, Whitted(``depth``), 1 spp (UniformSampler),
+    ``seed``, rendered by yuki_tpu's whitted_li on the CPU (a treelet
+    scene traverses with yuki_tpu's threaded BVH walk there): [h, w, 3]
+    f32."""
+    from yuki_tpu import integrators as jintg
+    from yuki_tpu.camera import Camera as JCamera
+    from yuki_tpu.sampling import SampleCtx, UniformSampler as JUniform
+
+    cam = JCamera.create(cam_params, w, h)
+    px, py = jnp.meshgrid(jnp.arange(w, dtype=jnp.int32),
+                          jnp.arange(h, dtype=jnp.int32), indexing="xy")
+    px, py = px.reshape(-1), py.reshape(-1)
+    ctx = SampleCtx(px=px, py=py, sample_index=jnp.uint32(0),
+                    seed=jnp.uint32(seed))
+    sampler = JUniform(1)
+    u = sampler.get_2d(ctx, 0)
+    o, d = cam.ray(jnp.stack([px.astype(jnp.float32),
+                              py.astype(jnp.float32)], -1) + u)
+    res = jintg.whitted_li(scene.data, scene.meta, jintg.WhittedParams(depth),
+                           sampler, ctx, o, d)
+    return np.asarray(res.li).reshape(h, w, 3)
+
+
+def colonnade_whitted_golden_jax():
+    """The colonnade at 64x48, Whitted(3), 1 spp, seed 1, rendered by
+    yuki_tpu on the CPU: the image of
+    tests/goldens/torch_colonnade_64x48_whitted3_1spp_seed1.npz."""
+    scene, cam_params = jax_scene("colonnade")
+    return whitted_golden_jax(scene, cam_params)

@@ -115,3 +115,55 @@ def wide_camera(sd, tf, cam_mod, n_tris, n_spheres, seed=0, **build):
         up=(0.0, 1.0, 0.0), fov=cam_mod.FoV.x(150.0),
     )
     return b.build(**build), cam
+
+
+def sun_sphere(sd, tf, cam_mod, **build):
+    """A textured sphere (the fused shade gate refuses it: path_li takes
+    the shading chain) on a floor beside a glass box, under a distant sun
+    and a point light."""
+    b = sd.SceneBuilder("sun-sphere")
+    img = np.random.default_rng(4).integers(0, 256, (8, 8, 3)) / 255.0
+    tex = b.add_texture(img.astype(np.float32))
+    floor = b.add_matte(kd=(0.6, 0.6, 0.55), sigma=0.2)
+    glass = b.add_glass(r=(1.0, 1.0, 1.0), t=(0.9, 0.95, 1.0), eta=1.5)
+    s = 4.0
+    b.add_mesh(tf.Transform.identity(), [0, 2, 1, 0, 3, 2],
+               [(-s, 0, -s), (s, 0, -s), (s, 0, s), (-s, 0, s)],
+               material=floor)
+    lo, hi = (0.4, 0.0, -0.6), (1.4, 1.0, 0.4)
+    corners = np.array([[x, y, z] for x in (lo[0], hi[0])
+                        for y in (lo[1], hi[1]) for z in (lo[2], hi[2])],
+                       np.float32)
+    faces = [0, 1, 3, 0, 3, 2, 4, 6, 7, 4, 7, 5, 0, 4, 5, 0, 5, 1,
+             2, 3, 7, 2, 7, 6, 0, 2, 6, 0, 6, 4, 1, 5, 7, 1, 7, 3]
+    b.add_mesh(tf.Transform.identity(), faces, corners, material=glass)
+    b.add_sphere(tf.translation((-0.9, 0.7, 0.0)), 0.7,
+                 b.add_matte(kd=(1.0, 1.0, 1.0), kd_tex=tex))
+    b.add_distant_light((1.5, 1.4, 1.3), (0.3, 1.0, 0.4))
+    b.add_point_light(tf.translation((0.0, 3.0, 2.0)), (6.0, 6.0, 6.0))
+    cam = cam_mod.CameraParameters(
+        position=(0.0, 1.8, 5.0), target=(0.0, 0.5, 0.0),
+        up=(0.0, 1.0, 0.0), fov=cam_mod.FoV.x(50.0),
+    )
+    return b.build(**build), cam
+
+
+def lightless(sd, tf, cam_mod, **build):
+    """No light at all, a grey-blue sky (the background) over a floor, a
+    metal and a glass sphere: path_li's chain adds only the sky."""
+    b = sd.SceneBuilder("lightless")
+    b.background = np.array([0.4, 0.5, 0.7], np.float32)
+    floor = b.add_matte(kd=(0.5, 0.45, 0.4))
+    metal = b.add_metal(eta=(0.2, 0.9, 1.1), k=(3.9, 2.4, 2.2),
+                        roughness=0.2)
+    s = 4.0
+    b.add_mesh(tf.Transform.identity(), [0, 2, 1, 0, 3, 2],
+               [(-s, 0, -s), (s, 0, -s), (s, 0, s), (-s, 0, s)],
+               material=floor)
+    b.add_sphere(tf.translation((0.8, 0.5, 0.0)), 0.5, metal)
+    b.add_sphere(tf.translation((-0.8, 0.6, 0.2)), 0.6, b.add_glass())
+    cam = cam_mod.CameraParameters(
+        position=(0.0, 1.5, 4.5), target=(0.0, 0.4, 0.0),
+        up=(0.0, 1.0, 0.0), fov=cam_mod.FoV.x(55.0),
+    )
+    return b.build(**build), cam

@@ -19,9 +19,14 @@ stratified sampler and the one-kernel wave; then the headless app: the
 pbrt, PLY and Mitsuba loaders with the image decoder, the atrium asset
 (``scene/atrium.py``), the film's bookkeeping, the threaded ``Renderer``,
 ``tonemap``, ``profiling``, ``app/`` (settings, scene load dispatch, EXR,
-headless render) and ``python -m yuki_tpu_torch``.  Not yet: the XLA
-shading chain, Whitted and the debug integrators, the BVH walk, the
-bundle engine, the viewer and multi-device (ROADMAP Queue 1).
+headless render) and ``python -m yuki_tpu_torch``; then the shading chain
+(``vecmath``, ``intersect``'s triangle and slab tests, ``surface``,
+``bsdf``, ``lights`` and ``path_li``'s chain branch), Whitted, the four
+debug views and the threaded BVH on the device with its walks
+(``bvh.BvhArrays``, ``traverse.intersect_bvh``, ``any_intersect_bvh``),
+so that every integrator and the app's default settings render.  Not
+yet: the bundle engine, the numpy BVH builder, ``debug_rays``, the viewer
+and multi-device (ROADMAP Queue 1).
 """
 
 from .device import default_device, resolve_device

@@ -14,7 +14,8 @@ Treelet scenes also carry ``"treelets.*"`` and ``"chunks.*"`` (the
 ``n_supers``, ``n_treelets`` and ``ts_max`` as ints; ``rows`` is the
 port's ``[T*K, 12]`` layout, i.e. the first 12 columns of yuki_tpu's
 ``tris_padded``), and any scene may carry ``"bvh.*"`` (the ``BvhHost``
-fields, kept on the host as numpy).
+fields, kept on the host as numpy; ``SceneData.bvh`` is their threaded
+form on ``device``).
 """
 
 from __future__ import annotations
@@ -92,9 +93,6 @@ def scene_from_numpy(leaves: dict, meta: dict, device=None) -> Scene:
                       for f in dataclasses.fields(cls)})
         for group, cls in _GROUPS.items()
     }
-    data = SceneData(**groups, **{k: tensor(k) for k in _TOP},
-                     treelets=treelet_group("treelets"),
-                     chunks=treelet_group("chunks"))
     bvh_host = None
     if "bvh.node_lo" in leaves:
         bvh_host = BvhHost(**{
@@ -102,6 +100,10 @@ def scene_from_numpy(leaves: dict, meta: dict, device=None) -> Scene:
                      else np.array(leaves[f"bvh.{f.name}"]))
             for f in dataclasses.fields(BvhHost)
         })
+    data = SceneData(**groups, **{k: tensor(k) for k in _TOP},
+                     treelets=treelet_group("treelets"),
+                     chunks=treelet_group("chunks"),
+                     bvh=None if bvh_host is None else bvh_host.to_device(dev))
     known = {f.name for f in dataclasses.fields(SceneMeta)}
     fields = {k: v for k, v in meta.items() if k in known}
     for k in ("light_types", "material_types"):

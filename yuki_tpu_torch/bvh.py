@@ -8,11 +8,13 @@ on degenerate splits; leaves are capped at ``max_leaf_size`` primitives.
 The build runs in the native C++ builder (``native/bvh_builder.cpp``);
 ``links`` holds yuki_tpu's octant-threaded (hit, miss) tables.
 
-The port uses the BVH only on the host: its root box gives the scene
-bounds and its leaf order is what ``treelets.build_treelets`` cuts.  Not
-ported yet (ROADMAP Queue 1): the numpy builder (``bvh.py:148-282``, the
-JAX package's fallback when no C++ toolchain is present) and the device
-arrays plus the threaded walk ``BvhArrays`` / ``traverse.intersect_bvh``.
+On the host its root box gives the scene bounds and its leaf order is
+what ``treelets.build_treelets`` cuts.  ``BvhHost.to_device`` gives
+``BvhArrays`` (:40-48), the threaded BVH on the scene's device that
+``traverse.intersect_bvh`` and ``any_intersect_bvh`` walk: one node id a
+ray, the octant's hit link on a box hit, its miss link otherwise.  Not
+ported (ROADMAP Queue 1): the numpy builder (``bvh.py:148-282``, the JAX
+package's fallback when no C++ toolchain is present).
 """
 
 from __future__ import annotations
@@ -20,8 +22,21 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import numpy as np
+import torch
 
 from .native import native_build_bvh
+
+
+@dataclass
+class BvhArrays:
+    """The threaded BVH on a device."""
+
+    node_lo: torch.Tensor  # [M,3] f32
+    node_hi: torch.Tensor  # [M,3] f32
+    prim_offset: torch.Tensor  # [M] i32 (leaf: first index into prim_order)
+    prim_count: torch.Tensor  # [M] i32 (0 = interior)
+    links: torch.Tensor  # [8,M,2] i32 per octant (hit, miss); -1 ends
+    prim_order: torch.Tensor  # [P] i32 leaf order -> original prim index
 
 
 @dataclass
@@ -43,6 +58,14 @@ class BvhHost:
 
     def bounds(self) -> tuple[np.ndarray, np.ndarray]:
         return self.node_lo[0], self.node_hi[0]
+
+    def to_device(self, device) -> BvhArrays:
+        """The walk's arrays on ``device``, bit for bit."""
+        return BvhArrays(**{
+            name: torch.as_tensor(np.ascontiguousarray(getattr(self, name)),
+                                  device=device)
+            for name in ("node_lo", "node_hi", "prim_offset", "prim_count",
+                         "links", "prim_order")})
 
 
 def build_bvh(tri_p: np.ndarray, split_method: str = "sah",

@@ -37,7 +37,8 @@ TRACE_FILE = "trace.json"
 # these names out of device busy time.
 SCOPES = ("trace.closest", "shade.fused", "trace.occlusion",
           "shade.resolve", "path_fused.wave1k", "path_fused.raygen_trace",
-          "path_fused.bounces")
+          "path_fused.bounces", "shade.surface", "shade.nee",
+          "shade.bsdf_sample")
 
 
 def pass_scope(name: str):

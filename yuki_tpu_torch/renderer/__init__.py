@@ -1,17 +1,14 @@
 """Render runtime: port of ``yuki_tpu/renderer/__init__.py``.
 
-  make_wave_renderer -> the per-wave render step (:60-172).  Only the
-                        path tracer is ported, with both samplers
-                        (UniformSampler and StratifiedSampler).  Scenes
-                        that pass ``path_fused.wave_supported`` take the
-                        fused wave (:107-121) unless
-                        ``path_fused.PATH_FUSED_MODE`` is "off"; every
-                        other scene takes camera rays +
-                        ``integrators.path_li`` (:122-128), over the dense
-                        queries or the treelet dispatch, where
-                        ``check_path_li_supported`` accepts it; anything
-                        else (Whitted, the debug integrators) raises
-                        ``NotImplementedError`` naming what is missing.
+  make_wave_renderer -> the per-wave render step (:60-172), dispatched as
+                        yuki_tpu's (:107-140): Path takes the fused dense
+                        wave where ``path_fused.wave_supported`` holds
+                        (unless ``path_fused.PATH_FUSED_MODE`` is "off"),
+                        else camera rays + ``integrators.path_li``;
+                        ``WhittedParams`` takes ``whitted_li``; the four
+                        debug strings (``integrators.DEBUG_VIEWS``) take
+                        their views; anything else raises ValueError.
+                        Both samplers run on every route.
   Renderer           -> the facade owning one manager thread: launch /
                         check_status / kill with a monotone render id
                         filtering stale messages (:205-269).
@@ -47,7 +44,8 @@ import torch
 
 from ..camera import Camera, CameraParameters
 from ..film import Film, FilmSettings, film_tiles
-from ..integrators import PathParams, check_path_li_supported, path_li
+from ..integrators import (DEBUG_VIEWS, PathParams, WhittedParams, path_li,
+                           use_fused_shade, whitted_li)
 from ..ops import path_fused, shade_fused
 from ..sampling import SampleCtx, force_single_sample
 
@@ -82,11 +80,9 @@ def make_wave_renderer(scene, camera: Camera, sampler, integrator,
     generations per call and returns their pixel SUM, added in sample
     order as yuki_tpu's scan does (:154-164).  ``wave_tiles`` is the
     intended wave size; a call may pass fewer tiles."""
-    if not isinstance(integrator, PathParams):
-        raise NotImplementedError(
-            f"integrator {integrator!r}: only PathParams is ported "
-            "(Whitted and the debug integrators are not ported)"
-        )
+    if not isinstance(integrator, (PathParams, WhittedParams)) and (
+            integrator not in DEBUG_VIEWS):
+        raise ValueError(f"unknown integrator {integrator!r}")
     if wave_tiles < 1 or samples_per_launch < 1:
         raise ValueError("wave_tiles and samples_per_launch must be >= 1")
     meta = scene.meta
@@ -103,7 +99,8 @@ def make_wave_renderer(scene, camera: Camera, sampler, integrator,
         py = (origins[:, 1, None, None] + iy[None]).reshape(-1)
         return px.contiguous(), py.contiguous()
 
-    if (path_fused.PATH_FUSED_MODE != "off"
+    if (isinstance(integrator, PathParams)
+            and path_fused.PATH_FUSED_MODE != "off"
             and path_fused.wave_supported(meta, sampler)):
         tables = path_fused.make_tables(scene, camera, integrator)
 
@@ -113,8 +110,22 @@ def make_wave_renderer(scene, camera: Camera, sampler, integrator,
                                                  sample_index, seed, sampler)
             return li, rcount.to(torch.float32).sum()
     else:
-        check_path_li_supported(meta, sampler)
-        tables = shade_fused.make_shade_tables(scene, integrator)
+        if isinstance(integrator, PathParams):
+            tables = (shade_fused.make_shade_tables(scene, integrator)
+                      if use_fused_shade(meta, sampler) else None)
+
+            def li_fn(ctx, o, d):
+                return path_li(scene, meta, integrator, sampler, ctx, o, d,
+                               tables, dim=2)
+        elif isinstance(integrator, WhittedParams):
+            def li_fn(ctx, o, d):
+                return whitted_li(scene, meta, integrator, sampler, ctx, o,
+                                  d, dim=2)
+        else:
+            view = DEBUG_VIEWS[integrator]
+
+            def li_fn(ctx, o, d):
+                return view(scene, meta, o, d)
 
         def render_one(origins, sample_index: int, seed: int):
             px, py = pixels(origins)
@@ -124,8 +135,7 @@ def make_wave_renderer(scene, camera: Camera, sampler, integrator,
             p_film = torch.stack([px.to(torch.float32),
                                   py.to(torch.float32)], dim=-1) + u
             o, d = camera.ray(p_film)
-            res = path_li(scene, meta, integrator, sampler, ctx,
-                          o.contiguous(), d.contiguous(), tables, dim=2)
+            res = li_fn(ctx, o.contiguous(), d.contiguous())
             return res.li, res.ray_count.to(torch.float32).sum()
 
     def call(origins, sample_index: int, seed: int):

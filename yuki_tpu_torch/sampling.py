@@ -29,6 +29,9 @@ import torch
 from .vecmath import sqrt as _sqrt
 
 MASK32 = 0xFFFFFFFF
+# concentric_sample_disk's transcendentals, named once so that a test can
+# evaluate them one way on both sides.
+_cos, _sin = torch.cos, torch.sin
 GOLDEN = 0x9E3779B9
 
 
@@ -239,7 +242,7 @@ def concentric_sample_disk(u: torch.Tensor) -> torch.Tensor:
         (math.pi / 2.0) - (math.pi / 4.0) * (ox / oy_s),
     )
     r = torch.where(use_x, ox, oy)
-    d = torch.stack([torch.cos(theta), torch.sin(theta)], dim=-1) * r[..., None]
+    d = torch.stack([_cos(theta), _sin(theta)], dim=-1) * r[..., None]
     return torch.where(degenerate[..., None], torch.zeros_like(d), d)
 
 

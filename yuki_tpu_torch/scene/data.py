@@ -9,7 +9,8 @@ computed in numpy exactly as ``yuki_tpu`` computes them, so the two
 packages hold the same bits.
 
 ``build`` makes the SAH BVH on the host for every scene (its root box is
-the scene box); scenes above ``DENSE_TRI_THRESHOLD`` triangles also get
+the scene box; its threaded form on the device, ``SceneData.bvh``, is
+what ``traverse.intersect_bvh`` walks); scenes above ``DENSE_TRI_THRESHOLD`` triangles also get
 the two-level treelet structure the treelet walk reads and the flat
 ~128-triangle chunk cut the adaptive dispatch's probe, cull and slot
 stream read (``traverse``).
@@ -153,6 +154,7 @@ class SceneData:
     world_hi: Any  # [3]
     treelets: Any = None  # treelets.TreeletArrays (treelet scenes only)
     chunks: Any = None  # treelets.TreeletArrays: flat ~128-tri cut
+    bvh: Any = None  # bvh.BvhArrays, the threaded BVH the walks read
 
 
 @dataclass
@@ -606,6 +608,7 @@ class SceneBuilder:
             world_hi=_t(world_hi, dev),
             treelets=treelet_arrays,
             chunks=chunk_arrays,
+            bvh=bvh_host.to_device(dev),
         )
         meta = SceneMeta(
             name=self.name,

@@ -1,6 +1,7 @@
-"""Scene queries for the path integrator: port of ``yuki_tpu/traverse.py``'s
-``SceneHit``, ``intersect``, ``any_intersect``, ``intersect_dense``,
-``any_intersect_dense`` and the coherence sort (``ray_sort_key``,
+"""Scene queries: port of ``yuki_tpu/traverse.py``'s ``SceneHit``,
+``intersect``, ``any_intersect``, ``intersect_dense``,
+``any_intersect_dense``, the threaded BVH walks (``intersect_bvh``,
+``any_intersect_bvh``) and the coherence sort (``ray_sort_key``,
 ``_sorted_call``).
 
 Dense scenes (<= DENSE_TRI_THRESHOLD triangles) sweep every triangle with
@@ -54,6 +55,20 @@ multiply by a reciprocal, so t may differ by an ulp between them.
 ``COUNTS`` records calls per branch, overflow rays, wide re-runs,
 fallbacks and host reads (``counts()``).
 
+``intersect(with_stats=True)`` takes the threaded BVH walk
+(``intersect_bvh``, traverse.py:171-228) on every scene, dense or treelet,
+and also returns each ray's node steps (the BVHIntersections view).  The
+walk is plain tensor code, as yuki_tpu's is XLA code: each step every
+live ray slab-tests its node, tests the leaf's primitives up to the
+scene's fattest leaf masked, and follows its octant's hit or miss link.
+One host read a step ends the loop when no ray is left, as ``jnp.any`` in
+the while_loop's cond; rays that have ended drop out of the working set
+whenever it halves (each ray's result does not depend on the others).
+``any_intersect_bvh`` is the occlusion walk (:845-880), which no
+integrator calls (the dispatch serves every occlusion query); the tests
+hold the dispatch against it.  ``COUNTS`` adds the walks and their
+steps.
+
 Then the spheres, brute-force: a sphere wins a closest hit only when
 strictly closer than the triangle hit (traverse.py:660-669), and any
 sphere hit occludes (:843).
@@ -65,7 +80,7 @@ from typing import NamedTuple
 
 import torch
 
-from .intersect import ray_spheres
+from .intersect import ray_spheres, ray_triangle, slab_test
 from .ops import trace_stream as ts
 from .ops.trace import (F32_MAX, any_trace, dense_trace, dense_trace_skip,
                         pack_triangles)
@@ -74,10 +89,11 @@ from .ops.trace_rows import (QUAD, row_words_interval, rows_any_w,
                              rows_closest_w)
 from .ops.trace_treelets import treelet_any, treelet_closest
 from .ops.trace_walker import walker_any_w, walker_closest_w
+from .vecmath import recip
 
-__all__ = ["F32_MAX", "SceneHit", "any_intersect", "any_intersect_dense",
-           "counts", "intersect", "intersect_dense", "ray_sort_key",
-           "reset_counts"]
+__all__ = ["F32_MAX", "SceneHit", "any_intersect", "any_intersect_bvh",
+           "any_intersect_dense", "counts", "intersect", "intersect_bvh",
+           "intersect_dense", "ray_sort_key", "reset_counts"]
 
 # Rows-engine capacity of the dispatch probe (traverse.py:319-320).
 _ROWS_C = 160
@@ -95,6 +111,7 @@ COUNTS = {
     "closest_slot": 0, "closest_rows": 0, "closest_walker": 0,
     "any_slot": 0, "any_rows": 0, "any_walker": 0,
     "overflow_rays": 0, "wide_reruns": 0, "fallbacks": 0,
+    "bvh_walks": 0, "bvh_steps": 0,
 }
 
 
@@ -143,6 +160,152 @@ def _octant(d):
     """Direction octant: bit a set where d[..., a] < 0 (i32)."""
     neg = (d < 0.0).to(torch.int32)
     return neg[..., 0] | (neg[..., 1] << 1) | (neg[..., 2] << 2)
+
+
+class _WalkSet:
+    """The rays a BVH walk still steps: per-ray tensors ``state`` (the
+    walk's loop state, written back into ``out`` when the set shrinks
+    and at the end) and ``fixed`` (its inputs), over the lanes ``idx``
+    of the full batch."""
+
+    def __init__(self, n, device, state, fixed):
+        self.idx = torch.arange(n, device=device)
+        self.state, self.fixed = state, fixed
+        self.out = {k: v.clone() for k, v in state.items()}
+
+    def write_back(self):
+        for k, v in self.state.items():
+            self.out[k][self.idx] = v
+
+    def live(self, node) -> int:
+        """The number of live rays (one host read, counted); drops the
+        ended ones once they are half of the set."""
+        COUNTS["bvh_steps"] += 1
+        live = node >= 0
+        n_live = ts.host_int(live.sum())
+        if 0 < n_live <= node.shape[0] // 2:
+            self.write_back()
+            keep = torch.nonzero(live).squeeze(1)
+            self.idx = self.idx[keep]
+            for group in (self.state, self.fixed):
+                for k in group:
+                    group[k] = group[k][keep]
+        return n_live
+
+
+def _bvh_start(scene, o, d):
+    """(inverse directions, each ray's row base into the flattened octant
+    links, the links [8*M, 2])."""
+    bvh = scene.bvh
+    if bvh is None:
+        raise ValueError("the scene carries no threaded BVH (SceneData.bvh)")
+    n_nodes = bvh.node_lo.shape[0]
+    return (recip(d), _octant(d).to(torch.int64) * n_nodes,
+            bvh.links.reshape(-1, 2))
+
+
+def _leaf_prim(bvh, offset, k):
+    """The k-th primitive of each lane's leaf, its index clamped into
+    prim_order (lanes past the leaf's count are masked by the caller)."""
+    last = bvh.prim_order.shape[0] - 1
+    return bvh.prim_order[torch.clamp(offset + k, max=last).to(torch.int64)]
+
+
+def _next_node(links, oct_base, nd, box_hit):
+    """The octant's hit link on a box hit, its miss link otherwise."""
+    link = links[oct_base + nd]
+    return torch.where(box_hit, link[:, 0], link[:, 1])
+
+
+def intersect_bvh(scene, o, d, t_max, max_leaf: int, with_stats=False,
+                  skip_light=None):
+    """Closest triangle hit by the threaded BVH walk (traverse.py:171-228).
+    Returns (t, prim i32, b0, b1[, steps i32: nodes visited]).
+    ``skip_light`` [N] i32: each lane ignores the triangles of that area
+    light (-2: none)."""
+    bvh, tris = scene.bvh, scene.tris
+    inv_d, oct_base, links = _bvh_start(scene, o, d)
+    n, dev = o.shape[0], o.device
+    COUNTS["bvh_walks"] += 1
+    fixed = dict(o=o, d=d, inv_d=inv_d, oct_base=oct_base)
+    if skip_light is not None:
+        fixed["skip"] = skip_light
+    ws = _WalkSet(n, dev, dict(
+        node=torch.zeros(n, dtype=torch.int32, device=dev),
+        t=t_max.to(torch.float32),
+        prim=torch.full((n,), -1, dtype=torch.int32, device=dev),
+        b0=torch.zeros(n, dtype=torch.float32, device=dev),
+        b1=torch.zeros(n, dtype=torch.float32, device=dev),
+        steps=torch.zeros(n, dtype=torch.int32, device=dev)), fixed)
+    st, fx = ws.state, ws.fixed
+    while ws.live(st["node"]):
+        o_, d_, t = fx["o"], fx["d"], st["t"]
+        prim, b0, b1 = st["prim"], st["b0"], st["b1"]
+        active = st["node"] >= 0
+        nd = torch.clamp(st["node"], min=0).to(torch.int64)
+        box_hit = slab_test(o_, fx["inv_d"], t, bvh.node_lo[nd],
+                            bvh.node_hi[nd]) & active
+        count = bvh.prim_count[nd]
+        offset = bvh.prim_offset[nd]
+        leaf_live = box_hit & (count > 0)
+        # The leaf's primitives, masked up to the fattest leaf.
+        for k in range(max_leaf):
+            lane = leaf_live & (k < count)
+            pidx = _leaf_prim(bvh, offset, k)
+            pl = pidx.to(torch.int64)
+            th = ray_triangle(o_, d_, t, tris.p0[pl], tris.p1[pl],
+                              tris.p2[pl])
+            closer = lane & th.hit & (th.t < t)
+            if skip_light is not None:
+                closer = closer & (tris.area_light[pl] != fx["skip"])
+            t = torch.where(closer, th.t, t)
+            prim = torch.where(closer, pidx, prim)
+            b0 = torch.where(closer, th.b0, b0)
+            b1 = torch.where(closer, th.b1, b1)
+        nxt = _next_node(links, fx["oct_base"], nd, box_hit)
+        st.update(node=torch.where(active, nxt, st["node"]), t=t, prim=prim,
+                  b0=b0, b1=b1, steps=st["steps"] + active.to(torch.int32))
+    ws.write_back()
+    out = ws.out
+    res = (out["t"], out["prim"], out["b0"], out["b1"])
+    return res + (out["steps"],) if with_stats else res
+
+
+def any_intersect_bvh(scene, meta, o, d, t_max, skip_light) -> torch.Tensor:
+    """Occlusion by the threaded BVH walk (traverse.py:845-880): a lane
+    ends at its first blocker, triangles of its ``skip_light`` [N] i32
+    passed over; then any sphere hit occludes.  Returns [N] bool."""
+    bvh, tris = scene.bvh, scene.tris
+    inv_d, oct_base, links = _bvh_start(scene, o, d)
+    n, dev = o.shape[0], o.device
+    COUNTS["bvh_walks"] += 1
+    ws = _WalkSet(n, dev, dict(
+        node=torch.zeros(n, dtype=torch.int32, device=dev),
+        occ=torch.zeros(n, dtype=torch.bool, device=dev)), dict(
+        o=o, d=d, inv_d=inv_d, oct_base=oct_base, t_max=t_max,
+        skip=skip_light))
+    st, fx = ws.state, ws.fixed
+    while ws.live(st["node"]):
+        occ = st["occ"]
+        active = (st["node"] >= 0) & ~occ
+        nd = torch.clamp(st["node"], min=0).to(torch.int64)
+        box_hit = slab_test(fx["o"], fx["inv_d"], fx["t_max"],
+                            bvh.node_lo[nd], bvh.node_hi[nd]) & active
+        count = bvh.prim_count[nd]
+        offset = bvh.prim_offset[nd]
+        leaf_live = box_hit & (count > 0)
+        for k in range(meta.bvh_max_leaf):
+            lane = leaf_live & (k < count)
+            pl = _leaf_prim(bvh, offset, k).to(torch.int64)
+            th = ray_triangle(fx["o"], fx["d"], fx["t_max"], tris.p0[pl],
+                              tris.p1[pl], tris.p2[pl])
+            occ = occ | (lane & th.hit
+                         & (tris.area_light[pl] != fx["skip"]))
+        nxt = _next_node(links, fx["oct_base"], nd, box_hit)
+        st.update(occ=occ, node=torch.where(
+            active, torch.where(occ, -1, nxt), -1).to(torch.int32))
+    ws.write_back()
+    return ws.out["occ"] | ray_spheres(o, d, t_max, scene.spheres).hit
 
 
 def _morton_part(x):
@@ -367,9 +530,11 @@ def _any_dispatch(scene, meta, o, d, t_max, skip):
 
 
 def intersect(scene, meta, o, d, t_max, skip_light=None, skip_sort=False,
-              bary_count=None) -> SceneHit:
-    """Full scene closest hit: the dense sweep or the treelet dispatch,
-    then the spheres.
+              bary_count=None, with_stats=False):
+    """Full scene closest hit: the dense sweep or the treelet dispatch
+    (with ``with_stats``: the threaded BVH walk on either), then the
+    spheres.  Returns SceneHit, or (SceneHit, steps [N] i32) with
+    ``with_stats``.
 
     ``skip_light`` [N] i32 (or None): each lane ignores the triangles of
     that area light; -2 matches none (combined closest + shadow waves).
@@ -378,7 +543,10 @@ def intersect(scene, meta, o, d, t_max, skip_light=None, skip_sort=False,
     ``bary_count`` (with ``skip_sort`` only, as in yuki_tpu): barycentrics
     only for the first bary_count lanes rounded up to 128, zeros past them
     unless the wave fell back to the treelet walk."""
-    if meta.traversal == "dense":
+    if with_stats:
+        t, prim, b0, b1, steps = intersect_bvh(
+            scene, o, d, t_max, meta.bvh_max_leaf, True, skip_light)
+    elif meta.traversal == "dense":
         t, prim, b0, b1 = intersect_dense(scene, o, d, t_max, skip_light)
     else:
         def run(o, d, t_max, sk):
@@ -396,7 +564,7 @@ def intersect(scene, meta, o, d, t_max, skip_light=None, skip_sort=False,
                                        skip_sort)
     sh = ray_spheres(o, d, t_max, scene.spheres)
     sphere_wins = sh.hit & (sh.t < t)
-    return SceneHit(
+    hit = SceneHit(
         hit=(prim >= 0) | sphere_wins,
         t=torch.where(sphere_wins, sh.t, t),
         prim=torch.where(sphere_wins, -1, prim),
@@ -404,6 +572,7 @@ def intersect(scene, meta, o, d, t_max, skip_light=None, skip_sort=False,
         b0=b0,
         b1=b1,
     )
+    return (hit, steps) if with_stats else hit
 
 
 def any_intersect(scene, meta, o, d, t_max, skip_light,
