@@ -170,7 +170,30 @@ beside this file.  It imports no JAX.  Phases:
      shade kernels (the deep bounds, rays within 1%), each timed; the four
      debug views at 1080p on Cornell and the colonnade, one frame each,
      with the BVH walk's steps and host reads; the card's 64x48
-     BVHIntersections film of Cornell equal bit for bit to the CPU's.
+     BVHIntersections film of Cornell equal bit for bit to the CPU's;
+ 17. the web viewer: make_server(InitialSettings(), port=0) on the card
+     in a temporary directory, a render with the page's defaults (Path
+     d3, Stratified 4 spp, 640x480, Filmic) polled to done, /image.png
+     decoded with zlib and equal to the tone-mapped film, debug rays at
+     the film's centre for Path and Whitted, /bvh?level=3, /scene_stats,
+     both EXR exports read back, /kill; then ``python -m yuki_tpu_torch
+     --view --port 0`` as a subprocess answering /status; the render's
+     launches (raygen_trace and bounce alone) and film (render_frame's
+     bit for bit), each debug ray's (dense_closest alone);
+ 18. the bundle engine on the colonnade wave's bounce-1 rays and their
+     shadow rays (sorted): the slot walks against their plain versions on
+     4096 bundle-slot rows (bun 4 closest, bun 8 occlusion), then
+     intersect with bun_closest 4 and 8 and any_intersect with bun_any 8
+     against the slot stream on the divergent branch (prim apart from
+     counted ties, t within an ulp, occlusion equal), each timed with its
+     slot rows, overflow rays and wide re-runs;
+ 19. make_sharded_wave_renderer on a 4096-tile wave of the 1080p Cornell
+     film (Path d5, 1 spp): a 4-entry tiles mesh and a 2 x 2 mesh, every
+     entry cuda:0, bit for bit against the single-device path_li render
+     (the samples axis against the summed generations), each render's
+     launches path_li's kernels;
+ 20. the numpy BVH builder on the colonnade against the native one, field
+     for field, with both build times.
 
 Prints one JSON line describing the kernels, the card's name and power
 limit, then as its last line {"ok": true, "device": {...}}.  Any failed
@@ -3358,6 +3381,442 @@ def phase_headless_defaults(torch, np, dev, card):
           f"for bit, in-process launches {counts} [{card}]")
 
 
+def _http(method, url, body=None, timeout=120.0):
+    """(status, bytes) of one request with its own timeout."""
+    import urllib.request
+
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(url, data=data, method=method)
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        return r.status, r.read()
+
+
+def decode_png(np, png):
+    """[H,W,3] uint8 of an 8-bit RGB PNG whose rows all use filter 0 (the
+    viewer's encoder), by zlib."""
+    import struct
+    import zlib
+
+    check(png[:8] == b"\x89PNG\r\n\x1a\n", "png: bad signature")
+    pos, idat, w, h = 8, b"", 0, 0
+    while pos < len(png):
+        n, = struct.unpack(">I", png[pos:pos + 4])
+        kind, data = png[pos + 4:pos + 8], png[pos + 8:pos + 8 + n]
+        if kind == b"IHDR":
+            w, h, depth, ctype = struct.unpack(">IIBB", data[:10])
+            check((depth, ctype) == (8, 2), f"png: depth {depth} type {ctype}")
+        elif kind == b"IDAT":
+            idat += data
+        pos += 12 + n
+    raw = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, 1 + 3 * w)
+    check(not raw[:, 0].any(), "png: a row filter is not 0")
+    return raw[:, 1:].reshape(h, w, 3)
+
+
+def _wait_done(base, deadline_s):
+    """Poll /status until the render is done; fails on an error line or
+    at the deadline.  Returns the status text and the seconds waited."""
+    t0 = time.monotonic()
+    text = ""
+    while time.monotonic() - t0 < deadline_s:
+        _, body = _http("GET", base + "/status", timeout=30)
+        text = json.loads(body)["text"]
+        check(not text.startswith("error"), f"viewer render: {text}")
+        if text.startswith("done"):
+            return text, time.monotonic() - t0
+        time.sleep(0.05)
+    raise SmokeFailure(f"viewer render not done in {deadline_s} s: {text!r}")
+
+
+def phase_viewer(torch, np, dev, card):
+    """Phase 17: the web viewer on the card.  make_server with
+    InitialSettings on 127.0.0.1 (port 0) in a temporary working
+    directory: the page, a render with the page's defaults (Path, max
+    depth 3, Stratified, 4 spp, 640x480, Filmic) polled to done, the PNG
+    decoded and held against the tone-mapped film, debug rays at the
+    film's centre for Path and (after a Whitted render) Whitted, the BVH
+    overlay at level 3, the scene stats, both EXR exports read back, kill;
+    then ``python -m yuki_tpu_torch --view --port 0`` as a subprocess
+    whose /status must answer.  Every request and wait has a deadline.
+    The launch counts are set to 0 before each render and debug ray and
+    read after it: the Path render launches raygen_trace and bounce and
+    nothing else, its film equals render_frame's with the page's settings
+    bit for bit, and each debug ray launches dense_closest alone."""
+    import queue
+    import tempfile
+    import threading
+
+    from yuki_tpu_torch.app.exr import read_exr
+    from yuki_tpu_torch.app.settings import InitialSettings
+    from yuki_tpu_torch.app.viewer import make_server, srgb_bytes
+    from yuki_tpu_torch.film import FilmSettings
+    from yuki_tpu_torch.integrators import PathParams
+    from yuki_tpu_torch.renderer import render_frame
+    from yuki_tpu_torch.sampling import StratifiedSampler
+    from yuki_tpu_torch.tonemap import FilmicParams, filmic
+
+    page = {"integrator": "Path", "max_depth": 3, "sampler": "Stratified",
+            "spp": 4, "res": "640x480", "exposure": 1.0, "tonemap": "Filmic"}
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        srv = make_server(InitialSettings(), port=0, device=dev)
+        th = threading.Thread(target=srv.serve_forever, daemon=True)
+        th.start()
+        state = srv.viewer_state
+        base = f"http://127.0.0.1:{srv.server_address[1]}"
+        try:
+            code, body = _http("GET", base + "/", timeout=30)
+            check(code == 200 and b"yuki-tpu" in body
+                  and b"%CAM_POS%" not in body, "viewer: index page")
+            torch.cuda.synchronize()
+            reset_all_launches()
+            t0 = time.monotonic()
+            _http("POST", base + "/render", page, timeout=60)
+            text, _ = _wait_done(base, 300)
+            render_s = time.monotonic() - t0
+            torch.cuda.synchronize()
+            render_counts = {k: v for k, v in all_launches().items() if v}
+            check(set(render_counts) == {"raygen_trace", "bounce"},
+                  f"viewer: the Path render launched {render_counts}, not "
+                  "raygen_trace and bounce alone")
+            t0 = time.monotonic()
+            code, png = _http("GET", base + "/image.png", timeout=60)
+            png_s = time.monotonic() - t0
+            check(code == 200, f"viewer: /image.png status {code}")
+            got = decode_png(np, png)
+            film_img = state.film.image_device().cpu()
+            want = srgb_bytes(filmic(film_img, FilmicParams()).numpy())
+            check(got.shape == (480, 640, 3) and np.array_equal(got, want),
+                  "viewer: the PNG differs from the tone-mapped film")
+            check(float(film_img.mean()) > 0.0, "viewer: black film")
+            ref = render_frame(state.scene, state.cam_params,
+                               FilmSettings(res=(640, 480)),
+                               StratifiedSampler(2, 2), PathParams(3))
+            check(torch.equal(ref.film.image_device(),
+                              state.film.image_device()),
+                  "viewer: the film differs from render_frame's with the "
+                  "page's settings")
+            parts = []
+            for kind in ("Path", "Whitted"):
+                if kind == "Whitted":
+                    torch.cuda.synchronize()
+                    reset_all_launches()
+                    _http("POST", base + "/render", dict(
+                        page, integrator="Whitted", sampler="Uniform",
+                        spp=1), timeout=60)
+                    _wait_done(base, 300)
+                    torch.cuda.synchronize()
+                    whitted_counts = {k: v for k, v in
+                                      all_launches().items() if v}
+                    check(whitted_counts.get("dense_closest", 0) > 0,
+                          f"viewer: the Whitted render launched "
+                          f"{whitted_counts}")
+                torch.cuda.synchronize()
+                reset_all_launches()
+                t0 = time.monotonic()
+                _, body = _http("POST", base + "/debug_ray",
+                                {"fx": 0.5, "fy": 0.5}, timeout=120)
+                ms = (time.monotonic() - t0) * 1e3
+                torch.cuda.synchronize()
+                ray_counts = {k: v for k, v in all_launches().items() if v}
+                check(set(ray_counts) == {"dense_closest"},
+                      f"viewer: the {kind} debug ray launched {ray_counts}")
+                segs = json.loads(body)["segments"]
+                check(len(segs) >= 2 and abs(segs[0]["x0"] - 320) < 2
+                      and abs(segs[0]["y0"] - 240) < 2,
+                      f"viewer: {kind} debug ray segments {segs[:2]}")
+                types = sorted({s["type"] for s in segs})
+                parts.append(f"{kind} {len(segs)} segments {types} "
+                             f"in {ms:.1f} ms, launches {ray_counts}")
+            _, body = _http("GET", base + "/bvh?level=3", timeout=60)
+            n_bvh = len(json.loads(body)["segments"])
+            check(n_bvh > 0 and n_bvh % 12 == 0, f"viewer: bvh {n_bvh}")
+            _, body = _http("GET", base + "/scene_stats", timeout=30)
+            check("triangles: 36" in json.loads(body)["text"],
+                  "viewer: scene stats")
+            film_img = state.film.image_device().cpu()
+            for tm, want in ((False, film_img.numpy()),
+                             (True, filmic(film_img, FilmicParams()).numpy())):
+                _, body = _http("POST", base + "/save_exr",
+                                {"tonemapped": tm}, timeout=60)
+                path = json.loads(body)["path"]
+                img = read_exr(os.path.join(tmp, path))
+                check(np.array_equal(img.view(np.uint32),
+                                     want.view(np.uint32)),
+                      f"viewer: {path} differs from the film")
+            _http("POST", base + "/kill", timeout=60)
+        finally:
+            srv.shutdown()
+            srv.server_close()
+            state.renderer.kill()
+            os.chdir(cwd)
+        print(f"viewer make_server on the card: render with the page's "
+              f"defaults (Path d3, Stratified 4 spp, 640x480, Filmic) "
+              f"{render_s:.3f} s from POST to done ({text.splitlines()[0]}),"
+              f" launches {render_counts}, film equal to render_frame's bit "
+              f"for bit; /image.png {png_s * 1e3:.1f} ms ({len(png)} bytes) "
+              f"equal to the tone-mapped film; Whitted render launches "
+              f"{whitted_counts}; debug rays: {'; '.join(parts)}; bvh "
+              f"level 3 {n_bvh // 12} boxes; both EXRs read back bit for "
+              f"bit [{card}]")
+
+        lines = queue.Queue()
+        t0 = time.monotonic()
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "yuki_tpu_torch", "--view", "--port", "0"],
+            cwd=tmp, env=dict(os.environ, PYTHONPATH=REPO),
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        try:
+            threading.Thread(target=lambda: [lines.put(x)
+                                             for x in proc.stdout],
+                             daemon=True).start()
+            url, seen = None, []
+            while url is None:
+                left = 120.0 - (time.monotonic() - t0)
+                try:
+                    line = lines.get(timeout=max(min(left, 1.0), 0.0))
+                except queue.Empty:
+                    check(left > 0 and proc.poll() is None,
+                          f"viewer CLI: no URL line (exit {proc.poll()}): "
+                          f"{''.join(seen)[-2000:]}")
+                    continue
+                seen.append(line)
+                if "viewer on http://" in line:
+                    url = line.strip().split("viewer on ")[1]
+            up_s = time.monotonic() - t0
+            code, body = _http("GET", url + "/status", timeout=30)
+            check(code == 200 and "text" in json.loads(body),
+                  "viewer CLI: /status")
+        finally:
+            proc.terminate()
+            try:
+                proc.wait(timeout=20)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait(timeout=20)
+    print(f"viewer CLI python -m yuki_tpu_torch --view --port 0: serving in "
+          f"{up_s:.3f} s ({url}), /status answered, terminated [{card}]")
+
+
+def phase_bundles(torch, np, scene, rays, card):
+    """Phase 18: the bundle engine on the colonnade wave's bounce-1 rays
+    and their shadow rays (sorted by ray_sort_key, as intersect sorts
+    them).  The slot walks against their plain versions on a slice of
+    bundle-slot rows (bun 4 closest, bun 8 occlusion with the skip ids);
+    then intersect with bun_closest 4 and 8 and any_intersect with
+    bun_any 8 against the default slot stream, the divergent branch forced
+    (traverse._coherent False for both): prim and occlusion equal apart
+    from counted ties, t within an ulp; each with its ms per call, slot
+    rows, overflow rays and wide re-runs."""
+    import dataclasses
+
+    from yuki_tpu_torch import traverse
+    from yuki_tpu_torch.ops import trace_bundles as tb
+    from yuki_tpu_torch.ops import trace_stream as ts
+
+    o2, d2, t2, no2, nd2, nt2, sk2 = rays
+    data, meta = scene.data, scene.meta
+    ch = data.chunks
+    k = ch.leaf_size
+
+    def sorted_rays(*x):
+        order = torch.argsort(traverse.ray_sort_key(data, x[0], x[1]),
+                              stable=True)
+        return [v[order].contiguous() for v in x]
+
+    for what, bun, name, xs in (
+            ("bounce-1 rays", 4, "slot_closest", sorted_rays(o2, d2, t2)),
+            ("shadow rays", 8, "slot_any", sorted_rays(no2, nd2, nt2, sk2))):
+        o, d, t = xs[:3]
+        extra = xs[3].to(torch.float32) if name == "slot_any" else None
+        c = meta.c_closest if name == "slot_closest" else meta.c_any
+        mults = ((4 * meta.slot_mult_tight, 4 * meta.slot_mult + 4)
+                 if name == "slot_closest" else
+                 (4 * max(3, meta.slot_mult_tight - 1),
+                  4 * max(4, meta.slot_mult - 2) + 4))
+        bw = tb.bundle_words(ts.cross_words(ch, o, d, t), bun)
+        _, slots = tb._bundle_slots(ch, bw, c, *mults, bun)
+        check(slots is not None, f"bundles: the {what}' budget blew")
+        _, slot_bun, row_chunk, valid = slots
+        stream = tb._pack_bundles(o, d, t, extra, slot_bun, valid, bun)
+        rows = min(row_chunk.numel(), 4096)
+        rc, st = row_chunk[:rows].contiguous(), stream[:rows * 128]
+        kern, plain = getattr(ts, name), getattr(ts, name + "_plain")
+        got = kern(ch.rows, k, rc, st)
+        ref = plain(ch.rows, k, rc, st)
+        torch.cuda.synchronize()
+        check(torch.equal(got, ref), f"{name} on {what}' bundle-slot rows "
+              "differs from its plain version")
+        ms_k = cuda_ms(torch, lambda: kern(ch.rows, k, row_chunk, stream), 5)
+        print(f"{name} on bundle-slot rows [{what}, bun {bun}, {rows} of "
+              f"{row_chunk.numel()} rows, {int((st[:, 6] > 0).sum())} live "
+              f"lanes]: equal to its plain version bit for bit; whole "
+              f"stream {ms_k:.4f} ms [{card}]")
+
+    saved = traverse._coherent
+    traverse._coherent = lambda rw: False
+    try:
+        def run(label, m, closest):
+            if closest:
+                call = lambda: traverse.intersect(data, m, o2, d2, t2)
+            else:
+                call = lambda: traverse.any_intersect(data, m, no2, nd2, nt2,
+                                                      sk2)
+            traverse.reset_counts()
+            out = call()
+            torch.cuda.synchronize()
+            c = traverse.counts()
+            ms = cuda_ms(torch, call, 3)
+            return out, c, ms
+
+        base_c, cb, ms_c = run("slot", meta, True)
+        base_a, ab, ms_a = run("slot", meta, False)
+        check(cb["closest_slot"] == 1 and ab["any_slot"] == 1,
+              f"bundles: the default engine was not the slot stream: {cb} "
+              f"{ab}")
+        lines = [f"slot stream: closest {ms_c:.3f} ms ({cb['slot_rows']} "
+                 f"slot rows, {cb['overflow_rays']} overflow rays, "
+                 f"{cb['wide_reruns']} wide re-runs), occlusion "
+                 f"{ms_a:.3f} ms ({ab['slot_rows']} slot rows, "
+                 f"{ab['overflow_rays']} overflow, {ab['wide_reruns']} "
+                 "re-runs)"]
+        for bun in (4, 8):
+            m = dataclasses.replace(meta, bun_closest=bun)
+            hit, c, ms = run(f"bun {bun}", m, True)
+            check(c["closest_bundle"] == 1 and not c["fallbacks"],
+                  f"bundles: bun_closest {bun} did not take the engine: {c}")
+            ulp = (hit.t.view(torch.int32)
+                   - base_c.t.view(torch.int32)).abs()
+            same = hit.prim == base_c.prim
+            ties = int((~same & (ulp <= 1)).sum())
+            check(int((~same).sum()) == ties,
+                  f"bundles: bun {bun}: prim differs beyond ties")
+            max_ulp = int(ulp[same].max())
+            check(max_ulp <= 1 and torch.equal(hit.hit, base_c.hit),
+                  f"bundles: bun {bun}: t {max_ulp} ulps apart")
+            lines.append(
+                f"bun_closest {bun}: {ms:.3f} ms ({c['bundle_rows']} "
+                f"bundle-slot rows = {c['bundle_rows'] * 128} lanes, "
+                f"{c['overflow_rays']} overflow rays, {c['wide_reruns']} "
+                f"wide re-runs; prim equal apart from {ties} ties, t within "
+                f"{max_ulp} ulp)")
+        m = dataclasses.replace(meta, bun_any=8)
+        occ, c, ms = run("bun 8", m, False)
+        check(c["any_bundle"] == 1 and not c["fallbacks"],
+              f"bundles: bun_any 8 did not take the engine: {c}")
+        n_occ = int((occ != base_a).sum())
+        check(n_occ == 0, f"bundles: bun_any 8: {n_occ} verdicts differ")
+        lines.append(f"bun_any 8: {ms:.3f} ms ({c['bundle_rows']} "
+                     f"bundle-slot rows, {c['overflow_rays']} overflow, "
+                     f"{c['wide_reruns']} re-runs; occlusion equal)")
+    finally:
+        traverse._coherent = saved
+    print(f"bundle engine on the colonnade [{o2.shape[0]} bounce-1 rays, "
+          f"{no2.shape[0]} shadow rays, sorted, divergent branch]: "
+          f"{'; '.join(lines)} [{card}]")
+
+
+def phase_parallel(torch, np, dev, card):
+    """Phase 19: make_sharded_wave_renderer on one 4096-tile wave of the
+    1080p Cornell film (Path d5, UniformSampler(1), 16-pixel tiles, seed
+    1), meshes whose entries all name the card: 4 tiles shards, and 2 x 2
+    tiles x samples (2 samples a launch), against the single-device
+    renderer's path_li route (PATH_FUSED_MODE "off") over the same
+    origins: tiles bit for bit, the samples axis equal to the summed
+    generations, rays equal.  The launch counts are set to 0 before each
+    render and read after it: every one launches dense_closest and shade,
+    and nothing beyond path_li's kernels (dense_closest, dense_any, shade,
+    resolve)."""
+    from yuki_tpu_torch.camera import Camera
+    from yuki_tpu_torch.film import FilmSettings, film_tiles
+    from yuki_tpu_torch.integrators import PathParams
+    from yuki_tpu_torch.ops import path_fused
+    from yuki_tpu_torch.parallel import (default_mesh,
+                                         make_sharded_wave_renderer)
+    from yuki_tpu_torch.renderer import make_wave_renderer
+    from yuki_tpu_torch.sampling import UniformSampler
+    from yuki_tpu_torch.scene.cornell import cornell
+
+    scene, cam_p, _ = cornell(device=dev)
+    cam = Camera.create(cam_p, *RES)
+    tiles = film_tiles(FilmSettings(res=RES, tile_dim=16))[:WAVE_TILES]
+    origins = torch.as_tensor([[t.x0, t.y0] for t in tiles],
+                              dtype=torch.int32, device=dev)
+    params, sampler = PathParams(max_depth=DEPTH), UniformSampler(1)
+    path_li_kernels = {"dense_closest", "dense_any", "shade", "resolve"}
+
+    def launched(what):
+        torch.cuda.synchronize()
+        counts = {k: v for k, v in all_launches().items() if v}
+        check(counts.get("dense_closest", 0) > 0 and counts.get("shade", 0)
+              > 0 and set(counts) <= path_li_kernels,
+              f"parallel {what}: launched {counts}, not path_li's kernels")
+        return counts
+
+    saved = path_fused.PATH_FUSED_MODE
+    path_fused.PATH_FUSED_MODE = "off"
+    try:
+        single = make_wave_renderer(scene, cam, sampler, params, 16,
+                                    WAVE_TILES)
+        reset_all_launches()
+        (g0, r0), ms0 = timed_once(torch, lambda: single(origins, 0, 1))
+        counts0 = launched("single device")
+        g1, r1 = single(origins, 1, 1)
+    finally:
+        path_fused.PATH_FUSED_MODE = saved
+    parts = []
+    for shape, spl, want, want_r in (((4, 1), 1, g0, r0),
+                                     ((2, 2), 2, g0 + g1, r0 + r1)):
+        mesh = default_mesh(*shape, devices=[dev] * (shape[0] * shape[1]))
+        fn = make_sharded_wave_renderer(scene, cam, sampler, params, 16, mesh,
+                                        samples_per_launch=spl)
+        reset_all_launches()
+        (px, rays), ms = timed_once(torch, lambda: fn(origins, 0, 1))
+        counts = launched(f"{shape}")
+        check(torch.equal(px, want), f"parallel {shape}: tiles differ from "
+              "the single-device render")
+        check(float(rays) == float(want_r), f"parallel {shape}: rays "
+              f"{float(rays)} != {float(want_r)}")
+        parts.append(f"{shape[0]} x {shape[1]} mesh ({spl} sample(s) a "
+                     f"launch) {ms:.1f} ms, launches {counts}, equal bit "
+                     "for bit")
+    check(float(g0.mean()) > 0.0, "parallel: black tiles")
+    print(f"parallel Cornell {RES[0]}x{RES[1]} Path d{DEPTH} 1 spp, one "
+          f"{WAVE_TILES}-tile wave, every mesh entry cuda:0: single device "
+          f"(path_li) {ms0:.1f} ms, {int(float(r0))} rays, launches "
+          f"{counts0}; "
+          f"{'; '.join(parts)} [{card}]")
+
+
+def phase_numpy_bvh(torch, np, scene, card):
+    """Phase 20: the numpy BVH builder on the colonnade's triangles (sah,
+    four shapes a leaf, as the scene builds) against the native builder,
+    field for field, with both build times (host)."""
+    from yuki_tpu_torch.bvh import build_bvh
+
+    tr = scene.data.tris
+    tri_p = np.stack([tr.p0.cpu().numpy(), tr.p1.cpu().numpy(),
+                      tr.p2.cpu().numpy()], axis=1)
+    times = {}
+    hosts = {}
+    for native in (True, False):
+        t0 = time.monotonic()
+        hosts[native] = build_bvh(tri_p, "sah", 4, use_native=native)
+        times[native] = time.monotonic() - t0
+    a, b = hosts[True], hosts[False]
+    for f in ("node_lo", "node_hi", "prim_offset", "prim_count", "child0",
+              "child1", "axis", "depth", "links", "prim_order"):
+        x, y = getattr(a, f), getattr(b, f)
+        check(x.shape == y.shape and x.tobytes() == y.tobytes(),
+              f"numpy BVH builder: {f} differs from the native builder's")
+    check(a.max_leaf == b.max_leaf, "numpy BVH builder: max_leaf differs")
+    print(f"numpy BVH builder on the colonnade ({tri_p.shape[0]} triangles, "
+          f"sah, 4 a leaf, {a.node_lo.shape[0]} nodes): every field equal to "
+          f"the native builder's; native {times[True]:.3f} s, numpy "
+          f"{times[False]:.3f} s (host) [{card}]")
+
+
 def main():
     try:
         import numpy as np
@@ -3425,6 +3884,12 @@ def main():
         phase_path_chain(torch, np, dev, card)
         phase_debug_views(torch, np, dev, card, scene, cam)
         print(f"phase 16: {time.monotonic() - t_new:.1f} s")
+        t_new = time.monotonic()
+        phase_viewer(torch, np, dev, card)
+        phase_bundles(torch, np, scene, rays, card)
+        phase_parallel(torch, np, dev, card)
+        phase_numpy_bvh(torch, np, scene, card)
+        print(f"phases 17-20: {time.monotonic() - t_new:.1f} s")
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1

@@ -496,11 +496,15 @@ def test_cli_renders_the_in_process_image(tmp_path):
 
 
 @pytest.mark.parametrize("args,names", [
-    (("--view",), ("NotImplementedError", "viewer")),
+    (("--view", "--scene=x.obj"),
+     ("ValueError", "unknown scene extension", ".obj")),
 ], ids=["view"])
 def test_cli_names_what_is_missing(tmp_path, args, names):
-    res = _cli(tmp_path, "--device", "cpu", "--out=x.exr", *args)
+    """The CLI exits non-zero naming what it lacks: the viewer (no --out)
+    loads its scene before it serves, so a scene file of a format no
+    loader reads fails at once."""
+    res = _cli(tmp_path, "--device", "cpu", *args)
     assert res.returncode != 0
     for name in names:
         assert name in res.stderr, res.stderr[-3000:]
-    assert not (tmp_path / "x.exr").exists()
+    assert "viewer on http://" not in res.stdout

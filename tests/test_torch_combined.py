@@ -13,8 +13,8 @@ coherent wave), the slot stream (a divergent wave), the bundle walker
 (both walker flags) and the fallback (a slot budget of zero rows: the
 treelet walk, with the shadow lanes' prim patched from the occlusion
 walk).  Half of each soup carries area-light id 0.  Also: a scene built
-with bun_closest or bun_any above 1 raises where yuki_tpu would take its
-bundle engine, and not where it would not.
+with bun_closest or bun_any above 1 takes the bundle engine where
+yuki_tpu takes it, and not where it does not.
 """
 
 import dataclasses
@@ -143,25 +143,53 @@ def test_bary_count(soups, monkeypatch, engine):
 
 
 def test_bundle_engine_raises(soups):
-    """bun_closest / bun_any > 1 select yuki_tpu's bundle engine on the
-    divergent branch (closest only without a skip): not ported, so the
-    port raises there and nowhere else."""
+    """bun_closest / bun_any > 1 take the bundle engine on the divergent
+    branch (closest queries only without a skip), and nowhere else; its
+    results agree with the slot stream's:
+    occlusion bit for bit, prim apart from ties (t within an ulp: the
+    engine folds scaled hits before its divide, the stream divides each
+    slot's), hits exactly."""
     scene = soups["treelet"]
     o, d, t, skip = combined_wave(scene, 7, False)
     co, cd, ct, cs = combined_wave(scene, 7, True)
     data = scene.data
-    meta = dataclasses.replace(scene.meta, bun_closest=2)
-    with pytest.raises(NotImplementedError,
-                       match=r"bundle engine \(ops/trace_bundles\.py.*is not "
-                       r"ported"):
-        traverse.intersect(data, meta, o[:N], d[:N], t[:N], skip_sort=True)
-    traverse.intersect(data, meta, o, d, t, skip, skip_sort=True)
-    traverse.intersect(data, meta, co[:N], cd[:N], ct[:N], skip_sort=True)
-    traverse.any_intersect(data, meta, o[N:], d[N:], t[N:], skip[N:])
-    meta = dataclasses.replace(scene.meta, bun_any=2)
-    with pytest.raises(NotImplementedError,
-                       match=r"bundle engine \(ops/trace_bundles\.py.*is not "
-                       r"ported"):
-        traverse.any_intersect(data, meta, o[N:], d[N:], t[N:], skip[N:],
-                               skip_sort=True)
-    traverse.intersect(data, meta, o[:N], d[:N], t[:N], skip_sort=True)
+
+    def counted(meta, call, *args, **kw):
+        traverse.reset_counts()
+        out = call(data, meta, *args, **kw)
+        return out, traverse.counts()
+
+    base = dataclasses.replace(scene.meta, bun_closest=1, bun_any=1)
+    ref, _ = counted(base, traverse.intersect, o[:N], d[:N], t[:N],
+                     skip_sort=True)
+    ref_occ, _ = counted(base, traverse.any_intersect, o[N:], d[N:], t[N:],
+                         skip[N:])
+    for bun in (2, 8):
+        meta = dataclasses.replace(scene.meta, bun_closest=bun)
+        hit, c = counted(meta, traverse.intersect, o[:N], d[:N], t[:N],
+                         skip_sort=True)
+        assert c["closest_bundle"] == 1 and c["closest_slot"] == 0, c
+        assert c["bundle_rows"] > 0 and not c["fallbacks"], c
+        assert torch.equal(hit.hit, ref.hit)
+        same = hit.prim == ref.prim
+        gap = (hit.t.view(torch.int32) - ref.t.view(torch.int32)).abs()
+        assert int(gap.max()) <= 1 and same.float().mean() > 0.99
+        assert torch.equal(hit.t[same & (gap == 0)],
+                           ref.t[same & (gap == 0)])
+        _, c = counted(meta, traverse.intersect, o, d, t, skip,
+                       skip_sort=True)
+        assert c["closest_slot"] == 1 and c["closest_bundle"] == 0, c
+        _, c = counted(meta, traverse.intersect, co[:N], cd[:N], ct[:N],
+                       skip_sort=True)
+        assert c["closest_rows"] == 1 and c["closest_bundle"] == 0, c
+        _, c = counted(meta, traverse.any_intersect, o[N:], d[N:], t[N:],
+                       skip[N:])
+        assert c["any_slot"] == 1 and c["any_bundle"] == 0, c
+        meta = dataclasses.replace(scene.meta, bun_any=bun)
+        occ, c = counted(meta, traverse.any_intersect, o[N:], d[N:], t[N:],
+                         skip[N:], skip_sort=True)
+        assert c["any_bundle"] == 1 and c["any_slot"] == 0, c
+        assert torch.equal(occ, ref_occ)
+        _, c = counted(meta, traverse.intersect, o[:N], d[:N], t[:N],
+                       skip_sort=True)
+        assert c["closest_slot"] == 1 and c["closest_bundle"] == 0, c

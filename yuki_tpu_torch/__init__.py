@@ -24,9 +24,18 @@ headless render) and ``python -m yuki_tpu_torch``; then the shading chain
 ``bsdf``, ``lights`` and ``path_li``'s chain branch), Whitted, the four
 debug views and the threaded BVH on the device with its walks
 (``bvh.BvhArrays``, ``traverse.intersect_bvh``, ``any_intersect_bvh``),
-so that every integrator and the app's default settings render.  Not
-yet: the bundle engine, the numpy BVH builder, ``debug_rays``, the viewer
-and multi-device (ROADMAP Queue 1).
+so that every integrator and the app's default settings render; then
+the web viewer (``app/viewer.py``, the default ``python -m
+yuki_tpu_torch``) with its debug rays (``integrators/debug_rays.py``) and
+BVH overlay (``bvh.BvhHost.node_bounds``), the bundle engine
+(``ops/trace_bundles.py``, behind ``SceneMeta.bun_closest`` /
+``bun_any`` > 1), multi-device rendering (``parallel``, asked for
+explicitly: the ``Renderer`` renders on the scene's device, where
+yuki_tpu's shards each wave over every local device), the numpy BVH
+builder (``bvh.build_bvh(use_native=False)``), ``build_treelets``'
+``pack_chunks`` and the stand-alone row queries.  The port now does all
+that ``yuki_tpu`` does; only yuki_tpu's benchmark probes
+(``benchmarks/``) have no counterpart (ROADMAP Queue 2).
 """
 
 from .device import default_device, resolve_device

@@ -3,11 +3,13 @@
 Usage:
   python -m yuki_tpu_torch --out=render.exr [--scene=path]
       [--settings=settings.yaml] [--profile=DIR] [--device=cuda|cpu]
+  python -m yuki_tpu_torch [--view] [--port=8000] [...]   # web viewer
 
 Headless when --out is given, like the reference's ``--out=FILE`` flag
-(main.rs:94-137); settings.yaml is read from the working directory by
-default if present.  Renders on the card unless ``--device cpu``.  The
-web viewer (``--view``, or no ``--out``) is not ported.
+(main.rs:94-137); otherwise the web viewer serves on 127.0.0.1:PORT (0:
+any free port) and prints its URL.  settings.yaml is
+read from the working directory by default if present.  Renders on the
+card unless ``--device cpu``.
 """
 
 from __future__ import annotations
@@ -44,34 +46,38 @@ def main(argv=None) -> int:
         help="yaml settings file (default: ./settings.yaml if present)",
     )
     parser.add_argument("--view", action="store_true",
-                        help="start the web viewer (not ported)")
+                        help="start the web viewer (also the default without "
+                        "--out)")
     parser.add_argument(
         "--profile",
         help="capture a torch.profiler trace of the render into this "
         "directory (DIR/trace.json, Chrome trace format)",
     )
+    parser.add_argument("--port", type=int, default=8000,
+                        help="viewer port (default: 8000; 0: any free port)")
     parser.add_argument("--device", default="cuda",
                         help="torch device to render on (default: cuda)")
     args = parser.parse_args(argv)
 
-    if args.view or not args.out:
-        raise NotImplementedError(
-            "the web viewer (yuki_tpu/app/viewer.py) is not ported; "
-            "render headless with --out=FILE.exr"
-        )
-
     _setup_logging()
 
-    from .app import headless
     from .app.settings import load_settings
-    from .profiling import device_trace
 
     settings = load_settings(args.settings)
     if args.scene:
         settings.load_settings.path = args.scene
 
-    with device_trace(args.profile):
-        headless.render(settings, args.out, device=args.device)
+    if args.out:
+        from .app import headless
+        from .profiling import device_trace
+
+        with device_trace(args.profile):
+            headless.render(settings, args.out, device=args.device)
+        return 0
+
+    from .app import viewer
+
+    viewer.serve(settings, port=args.port, device=args.device)
     return 0
 
 

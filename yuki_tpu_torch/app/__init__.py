@@ -1,2 +1,2 @@
-"""Application layer: settings, scene load dispatch, headless rendering
-and EXR output (port of ``yuki_tpu/app``; the web viewer is not ported)."""
+"""Application layer: settings, scene load dispatch, headless rendering,
+EXR output and the web viewer (port of ``yuki_tpu/app``)."""

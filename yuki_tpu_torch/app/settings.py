@@ -74,6 +74,15 @@ def _sampler_from_dict(d: dict):
     )
 
 
+# The debug views' settings-file names -> the integrators' registry keys.
+VIEW_NAMES = {
+    "BVHIntersections": "bvh_intersections",
+    "GeometryNormals": "geometry_normals",
+    "ShadingNormals": "shading_normals",
+    "ShadingUVs": "shading_uvs",
+}
+
+
 def _integrator_from_dict(d: dict):
     kind = d.get("type", "Whitted")
     if kind == "Whitted":
@@ -84,12 +93,7 @@ def _integrator_from_dict(d: dict):
             max_depth=int(d.get("max_depth", 3)),
             indirect_clamp=None if clamp is None else float(clamp),
         )
-    return {
-        "BVHIntersections": "bvh_intersections",
-        "GeometryNormals": "geometry_normals",
-        "ShadingNormals": "shading_normals",
-        "ShadingUVs": "shading_uvs",
-    }[kind]
+    return VIEW_NAMES[kind]
 
 
 def load_settings(path: Optional[str]) -> InitialSettings:
@@ -161,12 +165,7 @@ def save_settings(s: InitialSettings, path: str) -> None:
         }
     else:
         integrator = {
-            "type": {
-                "bvh_intersections": "BVHIntersections",
-                "geometry_normals": "GeometryNormals",
-                "shading_normals": "ShadingNormals",
-                "shading_uvs": "ShadingUVs",
-            }[s.integrator]
+            "type": {v: k for k, v in VIEW_NAMES.items()}[s.integrator]
         }
     doc = {
         "film_settings": {

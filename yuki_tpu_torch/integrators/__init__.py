@@ -44,6 +44,7 @@ from .. import bsdf as bsdf_mod
 from .. import lights as lights_mod
 from .. import traverse
 from ..ops import trace_stream as ts
+from ..ops._build import bump
 from ..profiling import pass_scope
 from ..scene.data import MAT_GLASS
 from ..surface import Surface, make_surface, spawn_ray, spawn_ray_to
@@ -386,7 +387,7 @@ def whitted_li(scene, meta, params: WhittedParams, sampler, ctx, o, d,
     cur_active = torch.ones(n, dtype=torch.bool, device=dev)
     step = 0
     while step < n_steps and _host_any(cur_active | (sp > 0)):
-        COUNTS["whitted_steps"] += 1
+        bump(COUNTS, "whitted_steps")
         dim0 = dim + step * dims_per_step
         ray_count = ray_count + cur_active.to(torch.int32)
         t_max = torch.where(cur_active, traverse.F32_MAX,

@@ -58,6 +58,7 @@ NVCC_FLAGS = (
 )
 
 _lock = threading.Lock()
+_count_lock = threading.Lock()
 _lib = None
 ptxas_report = ""  # -Xptxas -v output of the build that made the library
 
@@ -269,6 +270,14 @@ def dispatch(t) -> bool:
     if t.device.type == "cpu":
         return False
     raise RuntimeError(f"no kernel or plain version for device {t.device}")
+
+
+def bump(counts: dict, key: str, n: int = 1) -> None:
+    """Add ``n`` to ``counts[key]`` under a lock: the launch and dispatch
+    counters are module-level dicts that the viewer's request threads and
+    the renderer's manager thread update at once."""
+    with _count_lock:
+        counts[key] += n
 
 
 def launch_check(err: int, what: str) -> None:

@@ -705,7 +705,7 @@ def raygen_trace(px: torch.Tensor, py: torch.Tensor, sample_index: int,
         _build.stream(dev),
     )
     _build.launch_check(err, "raygen_trace")
-    LAUNCHES["raygen_trace"] += 1
+    _build.bump(LAUNCHES, "raygen_trace")
     return st, ph
 
 
@@ -738,7 +738,7 @@ def bounce(st: torch.Tensor, ph: torch.Tensor, bounce_index: int,
         spl_p, _build.stream(dev),
     )
     _build.launch_check(err, "bounce")
-    LAUNCHES["bounce"] += 1
+    _build.bump(LAUNCHES, "bounce")
     return out
 
 
@@ -779,7 +779,7 @@ def wave(px: torch.Tensor, py: torch.Tensor, sample_index: int, seed: int,
         spl_p, _build.ptr(out), _build.stream(dev),
     )
     _build.launch_check(err, "wave")
-    LAUNCHES["wave"] += 1
+    _build.bump(LAUNCHES, "wave")
     return out
 
 

@@ -1026,7 +1026,7 @@ def shade_planes(tb: ShadeTables, rh, prim, ph, texp, dim0: int,
         _build.stream(dev),
     )
     _build.launch_check(err, "shade")
-    LAUNCHES["shade"] += 1
+    _build.bump(LAUNCHES, "shade")
     return out
 
 
@@ -1137,7 +1137,7 @@ def resolve_planes(rs, nee, n_lights: int, bounce: int,
         int(bool(has_clamp)), _build.ptr(out), _build.stream(dev),
     )
     _build.launch_check(err, "resolve")
-    LAUNCHES["resolve"] += 1
+    _build.bump(LAUNCHES, "resolve")
     return out
 
 

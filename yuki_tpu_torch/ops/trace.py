@@ -269,7 +269,7 @@ def _closest_sweep(tris_packed, tri_light, o, d, t_max, skip_light):
             _build.ptr(t_max), skip, n, _build.ptr(t), _build.ptr(prim),
             _build.ptr(b0), _build.ptr(b1), _build.stream(dev))
         _build.launch_check(err, name)
-        LAUNCHES[name] += 1
+        _build.bump(LAUNCHES, name)
     return t, prim, b0, b1
 
 
@@ -310,5 +310,5 @@ def any_trace(tris_packed, tri_light, o, d, t_max, skip_light):
             _build.ptr(t_max), _build.ptr(skip_light), n, _build.ptr(occ),
             _build.stream(dev))
         _build.launch_check(err, "dense_any")
-        LAUNCHES["dense_any"] += 1
+        _build.bump(LAUNCHES, "dense_any")
     return occ

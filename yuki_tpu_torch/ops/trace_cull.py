@@ -131,5 +131,5 @@ def candidate_lists_fused(ch, o, d, t_max, C: int = C_MAIN,
             _build.ptr(d), _build.ptr(t_max), n, _build.ptr(lists),
             _build.ptr(ov), _build.stream(dev))
         _build.launch_check(err, "cull")
-        LAUNCHES["cull"] += 1
+        _build.bump(LAUNCHES, "cull")
     return lists, ov > 0

@@ -351,7 +351,7 @@ def pairs_closest_walk(tl, runs, pair_treelet, packed, n: int):
             _build.ptr(t), _build.ptr(prim),
             _build.ptr(b0), _build.ptr(b1), _build.stream(dev))
         _build.launch_check(err, "pairs_closest")
-        LAUNCHES["pairs_closest"] += 1
+        _build.bump(LAUNCHES, "pairs_closest")
     return t, prim, b0, b1
 
 
@@ -372,7 +372,7 @@ def pairs_any_walk(tl, runs, pair_treelet, packed, n: int):
             _build.ptr(order), nb, _build.ptr(packed), n,
             _build.ptr(occ), _build.stream(dev))
         _build.launch_check(err, "pairs_any")
-        LAUNCHES["pairs_any"] += 1
+        _build.bump(LAUNCHES, "pairs_any")
     return occ
 
 

@@ -11,7 +11,11 @@ as one lane's recheck passes.
 ``row_words_interval`` is the dispatch's probe: conservative union words
 per row.  ``rows_closest_w`` / ``rows_any_w`` walk them; rays of a row
 whose list was cut at C, or of a segment whose pair demand blew the pair
-budget, are flagged overflow and re-run by the caller.
+budget, are flagged overflow and re-run by the caller.  The exact union
+words (``row_words_of`` over ``trace_stream.cross_words``) feed
+``row_candidate_lists`` and the stand-alone queries ``rows_closest`` /
+``rows_any`` (trace_rows.py:39-56, :428-477), which nothing on a frame
+path calls.
 
 Kernels (a CUDA tensor launches the hand-written kernel in
 ``csrc/trace_rows.cu`` or raises; a CPU tensor runs the plain PyTorch
@@ -35,8 +39,9 @@ import torch
 
 from . import _build
 from .trace import ray_shear, scaled_min8, watertight_scaled
-from .trace_stream import LANES, extract_lists, n_words, pack_bits
+from .trace_stream import LANES, cross_words, extract_lists, n_words, pack_bits
 
+C_ROW = 64  # union candidates per 128-ray row of the stand-alone queries
 QUAD = 4  # pairs per TPU grid step: each row's pair count rounds up to it
 SEG_R = 2048  # rows per pair-budget segment
 
@@ -67,6 +72,23 @@ def axis_interval(lo_a, hi_a, olo, ohi, dlo, dhi):
     t_ex = torch.where(pos, t_ex_pos,
                        torch.where(neg, t_ex_neg, float("inf")))
     return t_en, t_ex
+
+
+def row_words_of(words, rows: int):
+    """Per-ray crossing words [N, W] -> per-row union words [rows, W]: the
+    OR over each row's 128 rays (``row_words_of``)."""
+    grouped = words.reshape(rows, LANES, words.shape[1])
+    out = grouped[:, 0].clone()
+    for r in range(1, LANES):
+        out |= grouped[:, r]
+    return out
+
+
+def row_candidate_lists(ch, o, d, t_max, C: int):
+    """Per-row union lists of the chunks each 128-ray row's rays cross
+    exactly: (lists [rows, C] i32 (-1 pad), row overflow [rows] bool)."""
+    words = cross_words(ch, o, d, t_max)
+    return extract_lists(row_words_of(words, o.shape[0] // LANES), C)
 
 
 def row_words_interval(ch, o, d, t_max, group: int = LANES):
@@ -324,7 +346,7 @@ def rows_closest_walk(ch, lists, o, d, t_max, skip=None):
             None if skip is None else _build.ptr(skip), _build.ptr(out),
             _build.stream(dev))
         _build.launch_check(err, name)
-        LAUNCHES[name] += 1
+        _build.bump(LAUNCHES, name)
     return out
 
 
@@ -344,7 +366,7 @@ def rows_any_walk(ch, lists, o, d, t_max, skip):
             _build.ptr(o), _build.ptr(d), _build.ptr(t_max), _build.ptr(skip),
             _build.ptr(occ), _build.stream(dev))
         _build.launch_check(err, "rows_any")
-        LAUNCHES["rows_any"] += 1
+        _build.bump(LAUNCHES, "rows_any")
     return occ
 
 
@@ -377,3 +399,16 @@ def rows_any_w(ch, row_words, o, d, t_max, skip_light, *, C: int,
     occ = rows_any_walk(ch, lists, o, d, t_max,
                         skip_light.to(torch.float32).contiguous())
     return occ > 0, overflow.repeat_interleave(LANES)
+
+
+def rows_closest(ch, o, d, t_max, C: int = C_ROW, mult: int = 16):
+    """Stand-alone row-union closest hit (``rows_closest``): the exact
+    crossing words' row unions, then ``rows_closest_w``."""
+    rw = row_words_of(cross_words(ch, o, d, t_max), o.shape[0] // LANES)
+    return rows_closest_w(ch, rw, o, d, t_max, C=C, mult=mult)
+
+
+def rows_any(ch, o, d, t_max, skip_light, C: int = C_ROW, mult: int = 16):
+    """Stand-alone row-union occlusion (``rows_any``)."""
+    rw = row_words_of(cross_words(ch, o, d, t_max), o.shape[0] // LANES)
+    return rows_any_w(ch, rw, o, d, t_max, skip_light, C=C, mult=mult)

@@ -53,7 +53,7 @@ CROSS_S = 24  # crossed words per ray in the two-level cull
 
 LAUNCHES = {"cross_words": 0, "slot_closest": 0, "slot_closest_skip": 0,
             "slot_any": 0}
-STATS = {"host_syncs": 0}
+STATS = {"host_syncs": 0, "slot_rows": 0, "bundle_rows": 0}
 
 
 def reset_launches() -> None:
@@ -64,7 +64,7 @@ def reset_launches() -> None:
 def host_int(x) -> int:
     """Read a one-element tensor on the host (a device sync on the card),
     counted in STATS."""
-    STATS["host_syncs"] += 1
+    _build.bump(STATS, "host_syncs")
     return int(x)
 
 
@@ -203,7 +203,7 @@ def cross_words(ch, o, d, t_max):
             _build.ptr(d), _build.ptr(t_max), n, _build.ptr(words),
             _build.stream(dev))
         _build.launch_check(err, "cross_words")
-        LAUNCHES["cross_words"] += 1
+        _build.bump(LAUNCHES, "cross_words")
     return words
 
 
@@ -251,11 +251,32 @@ def extract_compact(words, word_base, C: int):
     return _extract_phase2(words, word_base, C), count > C
 
 
-def extract_lists(words, C: int):
+def extract_lists(words, C: int, wc: int | None = None):
     """(lists [R, C] i32 ascending (-1 pad), overflow [R] bool) from dense
-    words [R, W] (``extract_lists`` without its ``wc`` option)."""
-    count = popcount32(words).sum(dim=1)
-    return _extract_phase2(words, None, C), count > C
+    words [R, W] (``extract_lists``, trace_stream.py:411-449).
+
+    With ``wc`` below W the extraction runs in two phases, as yuki_tpu's:
+    each row's first ``wc`` nonzero words are compacted (column order
+    kept, chunk-id base 32 * column, -32 on pad columns), then the lists
+    are drawn from the compacted words.  A row with more than ``wc``
+    nonzero words is flagged overflow, like a row with more than C
+    candidates; its list holds the candidates of its first ``wc`` nonzero
+    words."""
+    r, w = words.shape
+    overflow = popcount32(words).sum(dim=1) > C
+    if wc is None or wc >= w:
+        return _extract_phase2(words, None, C), overflow
+    nz = words != 0
+    overflow = overflow | (nz.sum(dim=1) > wc)
+    rank = torch.cumsum(nz, dim=1) - 1
+    keep = nz & (rank < wc)
+    at = torch.where(keep, rank, wc)
+    cols = torch.arange(w, dtype=torch.int64, device=words.device).expand(r, w)
+    comp = words.new_zeros((r, wc + 1)).scatter_(1, at, torch.where(keep,
+                                                                   words, 0))
+    ids = torch.full((r, wc + 1), -1, dtype=torch.int64, device=words.device)
+    ids.scatter_(1, at, torch.where(keep, cols, -1))
+    return _extract_phase2(comp[:, :wc], ids[:, :wc] * 32, C), overflow
 
 
 # --------------------------------------------------------------------
@@ -263,10 +284,11 @@ def extract_lists(words, C: int):
 # --------------------------------------------------------------------
 
 
-def slot_layout(n: int, n_chunks: int, lists, C: int):
+def slot_layout(n: int, n_chunks: int, lists, C: int, spr: int = LANES):
     """Candidates sorted chunk-major (``slot_layout``): returns (pos_s, seg,
     aligned_off, total_slots) with each chunk's candidates padded to whole
-    128-slot rows.  A stable sort; the order within a chunk changes no
+    rows of ``spr`` slots (128; the bundle engine's rows hold 128 // bun
+    bundle-slots).  A stable sort; the order within a chunk changes no
     result."""
     dev = lists.device
     keys = torch.where(lists >= 0, lists, n_chunks).reshape(-1)
@@ -274,30 +296,30 @@ def slot_layout(n: int, n_chunks: int, lists, C: int):
     seg = torch.searchsorted(
         keys_s, torch.arange(n_chunks + 1, dtype=keys_s.dtype, device=dev))
     counts = seg[1:] - seg[:-1]
-    aligned = -(-counts // LANES) * LANES
+    aligned = -(-counts // spr) * spr
     aligned_off = torch.cat([torch.zeros(1, dtype=aligned.dtype, device=dev),
                              torch.cumsum(aligned, dim=0)])
     return pos_s, seg, aligned_off, aligned_off[-1]
 
 
 def slot_fill(n: int, n_chunks: int, pos_s, seg, aligned_off, C: int,
-              max_rows: int):
-    """Slot rows (``slot_fill``): (slot_pos [max_rows, 128] (candidate
+              max_rows: int, spr: int = LANES):
+    """Slot rows (``slot_fill``): (slot_pos [max_rows, spr] (candidate
     position ray * C + k, sentinel n * C when empty), row_chunk [max_rows]
-    i32, valid [max_rows, 128] bool)."""
+    i32, valid [max_rows, spr] bool)."""
     dev = pos_s.device
     total_cap = n * C
     g_tab = aligned_off[:-1] - seg[:-1]
-    row_off = aligned_off // LANES
+    row_off = aligned_off // spr
     rows_iota = torch.arange(max_rows, dtype=row_off.dtype, device=dev)
     row_chunk = torch.clamp(
         torch.searchsorted(row_off, rows_iota, right=True) - 1,
         0, n_chunks - 1)
-    row_start = rows_iota * LANES - g_tab[row_chunk]
-    lane = torch.arange(LANES, dtype=row_off.dtype, device=dev)
+    row_start = rows_iota * spr - g_tab[row_chunk]
+    lane = torch.arange(spr, dtype=row_off.dtype, device=dev)
     at = row_start[:, None] + lane
     valid = (at < seg[row_chunk + 1][:, None]) & (
-        rows_iota[:, None] * LANES < aligned_off[-1])
+        rows_iota[:, None] * spr < aligned_off[-1])
     slot_pos = torch.where(valid, pos_s[torch.clamp(at, 0, total_cap - 1)],
                            total_cap)
     return slot_pos, row_chunk.to(torch.int32), valid
@@ -452,7 +474,7 @@ def slot_closest(rows, leaf_size: int, row_chunk, stream, with_skip=False):
             n_rows, _build.ptr(stream), int(with_skip), _build.ptr(out),
             _build.stream(dev))
         _build.launch_check(err, name)
-        LAUNCHES[name] += 1
+        _build.bump(LAUNCHES, name)
     return out
 
 
@@ -469,7 +491,7 @@ def slot_any(rows, leaf_size: int, row_chunk, stream):
             dev.index, _build.ptr(rows), leaf_size, _build.ptr(row_chunk),
             n_rows, _build.ptr(stream), _build.ptr(occ), _build.stream(dev))
         _build.launch_check(err, "slot_any")
-        LAUNCHES["slot_any"] += 1
+        _build.bump(LAUNCHES, "slot_any")
     return occ
 
 
@@ -507,6 +529,7 @@ def _slots(ch, lists, C, mult, mult_wide, budget_n):
         return None
     slot_pos, row_chunk, valid = slot_fill(n, n_c, pos_s, seg, aligned_off,
                                            C, total // LANES)
+    _build.bump(STATS, "slot_rows", total // LANES)
     slot_ray = torch.where(valid, slot_pos // C, 0)
     return slot_pos, slot_ray, row_chunk, valid
 

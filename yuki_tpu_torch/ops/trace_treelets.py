@@ -418,7 +418,7 @@ def treelet_votes(tl, o, d, t_max):
         _build.stream(dev),
     )
     _build.launch_check(err, "treelet_votes")
-    LAUNCHES["treelet_votes"] += 1
+    _build.bump(LAUNCHES, "treelet_votes")
     return votes
 
 
@@ -450,7 +450,7 @@ def treelet_closest(tl, o, d, t_max):
         _build.ptr(t), _build.ptr(prim), _build.ptr(b0), _build.ptr(b1), _build.stream(dev),
     )
     _build.launch_check(err, "treelet_closest")
-    LAUNCHES["treelet_closest"] += 1
+    _build.bump(LAUNCHES, "treelet_closest")
     return t, prim, b0, b1
 
 
@@ -473,5 +473,5 @@ def treelet_any(tl, o, d, t_max, skip_light):
         _build.ptr(occ), _build.stream(dev),
     )
     _build.launch_check(err, "treelet_any")
-    LAUNCHES["treelet_any"] += 1
+    _build.bump(LAUNCHES, "treelet_any")
     return occ

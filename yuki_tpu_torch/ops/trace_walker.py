@@ -329,7 +329,7 @@ def walker_closest_walk(ch, lists, o, d, t_max, skip=None):
             None if skip is None else _build.ptr(skip), _build.ptr(t),
             _build.ptr(prim), _build.stream(dev))
         _build.launch_check(err, name)
-        LAUNCHES[name] += 1
+        _build.bump(LAUNCHES, name)
     return t, prim
 
 
@@ -350,7 +350,7 @@ def walker_any_walk(ch, lists, o, d, t_max, skip):
             _build.ptr(o), _build.ptr(d), _build.ptr(t_max), _build.ptr(skip),
             _build.ptr(occ), _build.stream(dev))
         _build.launch_check(err, "walker_any")
-        LAUNCHES["walker_any"] += 1
+        _build.bump(LAUNCHES, "walker_any")
     return occ
 
 

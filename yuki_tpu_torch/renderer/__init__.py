@@ -22,7 +22,9 @@
   render_frame       -> the same wave loop, called synchronously.
 
 yuki_tpu shards each wave over every local device (:311-330); the port
-renders on the scene's device (multi-device is ROADMAP Queue 1 item 9).
+renders on the scene's device, and shards only where the caller asks for
+it through ``parallel.make_sharded_wave_renderer`` (that route runs
+``path_li``, not the fused wave).
 The manager thread launches on that device's default stream, which the
 kernels' wrappers take as the thread's current stream.  The caller reads
 the film only after ``RenderFinished`` or ``kill``, which joins the thread.

@@ -26,9 +26,11 @@ origin, direction bits) and the results unsorted (``_sorted_call``):
    the bundle walker instead (``ops/trace_walker.py``, traverse.py:485-498
    and :723-735): crossing words of the whole wave, the OR of each 8-ray
    bundle's words, one walk per bundle, no sort, pack or merge.  Both flags
-   keep yuki_tpu's default, False.  A scene built with ``bun_closest`` or
-   ``bun_any`` above 1 would take yuki_tpu's bundle engine there, which is
-   not ported: that raises.
+   keep yuki_tpu's default, False.  Without them, a scene built with
+   ``bun_closest`` (closest queries without a skip) or ``bun_any`` above 1
+   takes the bundle engine there (``ops/trace_bundles.py``,
+   traverse.py:510-518 and :738-746): crossing words, the OR of each
+   bun-ray bundle's words, and the slot walks on bundle-slot rows.
 4. Rays that any engine flags overflow re-run through the wide pass at
    C_WIDE (occlusion: only those not yet occluded, since occlusion is
    monotone in the candidate set), with the slot budget of the overflow
@@ -82,8 +84,10 @@ import torch
 
 from .intersect import ray_spheres, ray_triangle, slab_test
 from .ops import trace_stream as ts
+from .ops._build import bump
 from .ops.trace import (F32_MAX, any_trace, dense_trace, dense_trace_skip,
                         pack_triangles)
+from .ops.trace_bundles import bundle_words, bundles_any_w, bundles_closest_w
 from .ops.trace_cull import candidate_lists_fused
 from .ops.trace_rows import (QUAD, row_words_interval, rows_any_w,
                              rows_closest_w)
@@ -109,7 +113,8 @@ WALKER_MULT_ANY = (16, 32)
 
 COUNTS = {
     "closest_slot": 0, "closest_rows": 0, "closest_walker": 0,
-    "any_slot": 0, "any_rows": 0, "any_walker": 0,
+    "closest_bundle": 0,
+    "any_slot": 0, "any_rows": 0, "any_walker": 0, "any_bundle": 0,
     "overflow_rays": 0, "wide_reruns": 0, "fallbacks": 0,
     "bvh_walks": 0, "bvh_steps": 0,
 }
@@ -118,11 +123,13 @@ COUNTS = {
 def reset_counts() -> None:
     for k in COUNTS:
         COUNTS[k] = 0
-    ts.STATS["host_syncs"] = 0
+    for k in ts.STATS:
+        ts.STATS[k] = 0
 
 
 def counts() -> dict:
-    """The dispatch's counters, with the host reads of the slot stream."""
+    """The dispatch's counters, with the slot stream's host reads and the
+    slot and bundle-slot rows it laid out."""
     return {**COUNTS, **ts.STATS}
 
 
@@ -180,7 +187,7 @@ class _WalkSet:
     def live(self, node) -> int:
         """The number of live rays (one host read, counted); drops the
         ended ones once they are half of the set."""
-        COUNTS["bvh_steps"] += 1
+        bump(COUNTS, "bvh_steps")
         live = node >= 0
         n_live = ts.host_int(live.sum())
         if 0 < n_live <= node.shape[0] // 2:
@@ -226,7 +233,7 @@ def intersect_bvh(scene, o, d, t_max, max_leaf: int, with_stats=False,
     bvh, tris = scene.bvh, scene.tris
     inv_d, oct_base, links = _bvh_start(scene, o, d)
     n, dev = o.shape[0], o.device
-    COUNTS["bvh_walks"] += 1
+    bump(COUNTS, "bvh_walks")
     fixed = dict(o=o, d=d, inv_d=inv_d, oct_base=oct_base)
     if skip_light is not None:
         fixed["skip"] = skip_light
@@ -278,7 +285,7 @@ def any_intersect_bvh(scene, meta, o, d, t_max, skip_light) -> torch.Tensor:
     bvh, tris = scene.bvh, scene.tris
     inv_d, oct_base, links = _bvh_start(scene, o, d)
     n, dev = o.shape[0], o.device
-    COUNTS["bvh_walks"] += 1
+    bump(COUNTS, "bvh_walks")
     ws = _WalkSet(n, dev, dict(
         node=torch.zeros(n, dtype=torch.int32, device=dev),
         occ=torch.zeros(n, dtype=torch.bool, device=dev)), dict(
@@ -357,14 +364,6 @@ def _sorted_call(scene, o, d, t_max, extra, fn, skip_sort: bool = False):
     return tuple(x[inv] if x.ndim else x for x in outs)
 
 
-def _no_bundle_engine(which: str):
-    return NotImplementedError(
-        f"meta.{which} > 1 selects yuki_tpu's bundle engine "
-        "(ops/trace_bundles.py: the slot layout, _pack_bundles, "
-        "bundles_closest_w and bundles_any_w), which is not ported; build "
-        f"the scene with {which} = 1")
-
-
 def _rows_demand(row_words):
     """The rows engine's pair demand (traverse.py:323-339): per row the
     popcount clamped to [1, _ROWS_C], aligned to QUAD, summed."""
@@ -379,7 +378,7 @@ def _compact_indices(mask):
     (traverse.py:342-353), whose padding only served static shapes.  The
     count is a host read."""
     idx = torch.nonzero(mask).squeeze(1)
-    ts.STATS["host_syncs"] += 1
+    bump(ts.STATS, "host_syncs")
     return idx, idx.numel()
 
 
@@ -422,19 +421,24 @@ def _closest_dispatch(scene, meta, o, d, t_max, skip=None, n_bary=None):
     ch, tl = scene.chunks, scene.treelets
     row_words = row_words_interval(ch, o, d, t_max)
     if _coherent(row_words):
-        COUNTS["closest_rows"] += 1
+        bump(COUNTS, "closest_rows")
         t, prim, ov = rows_closest_w(ch, row_words, o, d, t_max, C=_ROWS_C,
                                      mult=_ROWS_MULT, skip=skip)
         ok = True
     elif WALKER_CLOSEST:
-        COUNTS["closest_walker"] += 1
+        bump(COUNTS, "closest_walker")
         t, prim, ov, ok = walker_closest_w(
             ch, ts.cross_words(ch, o, d, t_max), o, d, t_max,
             mult=WALKER_MULT[0], mult_wide=WALKER_MULT[1], skip=skip)
     elif meta.bun_closest > 1 and skip is None:
-        raise _no_bundle_engine("bun_closest")
+        bump(COUNTS, "closest_bundle")
+        bun = meta.bun_closest
+        t, prim, ov, ok = bundles_closest_w(
+            ch, bundle_words(ts.cross_words(ch, o, d, t_max), bun), o, d,
+            t_max, C=meta.c_closest, mult=4 * meta.slot_mult_tight,
+            mult_wide=4 * meta.slot_mult + 4, bun=bun)
     else:
-        COUNTS["closest_slot"] += 1
+        bump(COUNTS, "closest_slot")
         budget = dict(mult=meta.slot_mult_tight, mult_wide=meta.slot_mult,
                       skip=skip)
         if ch.n_treelets >= ts.CROSS_2L_MIN_CHUNKS:
@@ -447,13 +451,13 @@ def _closest_dispatch(scene, meta, o, d, t_max, skip=None, n_bary=None):
                 C=ts.C_MAIN, **budget)
     if ok:
         idx, n_ov = _compact_indices(ov)
-        COUNTS["overflow_rays"] += n_ov
+        bump(COUNTS, "overflow_rays", n_ov)
         if n_ov > ts.OV_CAP:
             ok = False
         elif n_ov:
             # The compacted lanes are all live: yuki_tpu's dead tail of
             # the static cap (skip -2, t_max 0) is not built.
-            COUNTS["wide_reruns"] += 1
+            bump(COUNTS, "wide_reruns")
             t_w, p_w, _, _, ov2, ok2 = ts.stream_closest(
                 ch, scene.tris.shading_packed, o[idx], d[idx], t_max[idx],
                 C=ts.C_WIDE, mult=(ts.WIDE_LOW_MULT, ts.WIDE_TIGHT_MULT),
@@ -463,7 +467,7 @@ def _closest_dispatch(scene, meta, o, d, t_max, skip=None, n_bary=None):
             prim[idx] = p_w
             ok = ok2 and not ts.host_int(ov2.any())
     if not ok:
-        COUNTS["fallbacks"] += 1
+        bump(COUNTS, "fallbacks")
         t, prim, b0, b1 = treelet_closest(tl, o, d, t_max)
         if skip is not None:
             # The walk has no skip: shadow lanes read only .hit, from the
@@ -485,19 +489,25 @@ def _any_dispatch(scene, meta, o, d, t_max, skip):
     ch, tl = scene.chunks, scene.treelets
     row_words = row_words_interval(ch, o, d, t_max)
     if _coherent(row_words):
-        COUNTS["any_rows"] += 1
+        bump(COUNTS, "any_rows")
         occ, ov = rows_any_w(ch, row_words, o, d, t_max, skip, C=_ROWS_C,
                              mult=_ROWS_MULT)
         ok = True
     elif WALKER_ANY:
-        COUNTS["any_walker"] += 1
+        bump(COUNTS, "any_walker")
         occ, ov, ok = walker_any_w(
             ch, ts.cross_words(ch, o, d, t_max), o, d, t_max, skip,
             mult=WALKER_MULT_ANY[0], mult_wide=WALKER_MULT_ANY[1])
     elif meta.bun_any > 1:
-        raise _no_bundle_engine("bun_any")
+        bump(COUNTS, "any_bundle")
+        bun = meta.bun_any
+        occ, ov, ok = bundles_any_w(
+            ch, bundle_words(ts.cross_words(ch, o, d, t_max), bun), o, d,
+            t_max, skip, C=meta.c_any,
+            mult=4 * max(3, meta.slot_mult_tight - 1),
+            mult_wide=4 * max(4, meta.slot_mult - 2) + 4, bun=bun)
     else:
-        COUNTS["any_slot"] += 1
+        bump(COUNTS, "any_slot")
         budget = dict(mult=max(3, meta.slot_mult_tight - 1),
                       mult_wide=max(4, meta.slot_mult - 2))
         if ch.n_treelets >= ts.CROSS_2L_MIN_CHUNKS:
@@ -512,11 +522,11 @@ def _any_dispatch(scene, meta, o, d, t_max, skip):
         # An occluded verdict is final even from a cut list: only the
         # unoccluded overflow rays re-run (traverse.py:771-777).
         idx, n_ov = _compact_indices(ov & ~occ)
-        COUNTS["overflow_rays"] += n_ov
+        bump(COUNTS, "overflow_rays", n_ov)
         if n_ov > ts.OV_CAP:
             ok = False
         elif n_ov:
-            COUNTS["wide_reruns"] += 1
+            bump(COUNTS, "wide_reruns")
             occ_w, ov2, ok2 = ts.stream_any(
                 ch, o[idx], d[idx], t_max[idx], skip[idx], C=ts.C_WIDE,
                 mult=(ts.WIDE_LOW_MULT, ts.WIDE_TIGHT_MULT),
@@ -524,7 +534,7 @@ def _any_dispatch(scene, meta, o, d, t_max, skip):
             occ[idx] = occ_w
             ok = ok2 and not ts.host_int((ov2 & ~occ_w).any())
     if not ok:
-        COUNTS["fallbacks"] += 1
+        bump(COUNTS, "fallbacks")
         return treelet_any(tl, o, d, t_max, skip)
     return occ
 

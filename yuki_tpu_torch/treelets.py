@@ -14,8 +14,13 @@ Layout change from yuki_tpu: the triangle rows are ``[T*K, 12]`` f32
 (p0, p1, p2 | area_light | prim_id | pad) instead of ``[T*K, 128]``; the
 128-column padding existed only for the TPU's DMA alignment.  Columns
 0-10 hold yuki_tpu's values, including the padding rows' light id -3 and
-prim id -1.  ``yuki_tpu``'s ``pack_chunks`` option (a benchmark-only
-experiment) is not ported.
+prim id -1.
+
+``pack_chunks`` (chunk mode, super_size == leaf_size only) greedily
+merges DFS-consecutive cut subtrees into one chunk while their prim count
+fits leaf_size, as yuki_tpu's (:63-130).  yuki_tpu measured it a
+negative (fewer chunks, looser boxes, more crossings a ray) and uses it
+only in a benchmark; no scene build here passes it.
 """
 
 from __future__ import annotations
@@ -48,9 +53,11 @@ class TreeletArrays:
 
 def build_treelets(bvh: BvhHost, tri_p: np.ndarray, tri_light: np.ndarray,
                    leaf_size: int = 16, super_size: int = 2048,
-                   device=None) -> TreeletArrays:
+                   pack_chunks: bool = False, device=None) -> TreeletArrays:
     """Cut the built BVH into supers/treelets (host numpy), then move the
-    tables to ``device`` (None: ``device.default_device()``)."""
+    tables to ``device`` (None: ``device.default_device()``).
+    ``pack_chunks``: merge consecutive cut subtrees into chunks of at most
+    leaf_size prims, each chunk its own super."""
     n_nodes = len(bvh.child0)
 
     # Subtree prim counts + first-prim offsets via reverse topological
@@ -84,6 +91,28 @@ def build_treelets(bvh: BvhHost, tri_p: np.ndarray, tri_light: np.ndarray,
 
     treelets = []  # (lo, hi, prim_start, prim_count)
     super_rows = []  # (lo, hi, t_first, t_count)
+    if pack_chunks:
+        if super_size != leaf_size:
+            raise ValueError("pack_chunks is chunk mode only: super_size "
+                             f"{super_size} != leaf_size {leaf_size}")
+        groups, cur, cur_n = [], [], 0
+        for n in super_roots:
+            c = int(counts[n])
+            if cur and cur_n + c > leaf_size:
+                groups.append(cur)
+                cur, cur_n = [], 0
+            cur.append(n)
+            cur_n += c
+        if cur:
+            groups.append(cur)
+        for g in groups:
+            lo = np.min([bvh.node_lo[n] for n in g], axis=0)
+            hi = np.max([bvh.node_hi[n] for n in g], axis=0)
+            start = int(min(first[n] for n in g))
+            count = int(sum(counts[n] for n in g))
+            super_rows.append((lo, hi, len(treelets), 1))
+            treelets.append((lo, hi, start, count))
+        super_roots = []
     for sr in super_roots:
         t_first = len(treelets)
         local = cut(sr, leaf_size)

@@ -25,7 +25,7 @@ components.
 
 from __future__ import annotations
 
-import functools
+import threading
 
 import torch
 
@@ -35,15 +35,24 @@ def sqrt(x: torch.Tensor) -> torch.Tensor:
     return torch.sqrt(x.to(torch.float64)).to(x.dtype)
 
 
-@functools.lru_cache(maxsize=None)
-def _const(value: float, device: torch.device) -> torch.Tensor:
-    return torch.tensor(value, dtype=torch.float32, device=device)
+_consts: dict = {}
+_consts_lock = threading.Lock()
 
 
 def const(value: float, like: torch.Tensor) -> torch.Tensor:
     """A float32 scalar tensor on ``like``'s device (cached, read only),
-    to divide by."""
-    return _const(float(value), like.device)
+    to divide by.  The cache is filled under a lock: the viewer's request
+    threads and the renderer's manager thread shade at once."""
+    key = (float(value), like.device)
+    c = _consts.get(key)
+    if c is None:
+        with _consts_lock:
+            c = _consts.get(key)
+            if c is None:
+                c = torch.tensor(key[0], dtype=torch.float32,
+                                 device=like.device)
+                _consts[key] = c
+    return c
 
 
 def recip(x: torch.Tensor) -> torch.Tensor:
