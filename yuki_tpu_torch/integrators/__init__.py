@@ -45,7 +45,7 @@ from .. import lights as lights_mod
 from .. import traverse
 from ..ops import trace_stream as ts
 from ..ops._build import bump
-from ..profiling import pass_scope
+from ..profiling import host_read, pass_scope
 from ..scene.data import MAT_GLASS
 from ..surface import Surface, make_surface, spawn_ray, spawn_ray_to
 from ..vecmath import const, dot, is_black
@@ -119,8 +119,10 @@ def whitted_step_budget(depth_cap: int, has_glass: bool) -> int:
 
 
 def _host_any(mask: torch.Tensor) -> bool:
-    """Whether any lane is set: one counted host read."""
-    return bool(ts.host_int(mask.any()))
+    """Whether any lane is set: one host read, counted in the dispatch's
+    ``host_syncs`` and in ``host_reads.whitted``."""
+    bump(ts.STATS, "host_syncs")
+    return bool(host_read(mask.any(), "whitted"))
 
 
 # --- next-event estimation (:100-187) --------------------------------------
@@ -386,58 +388,64 @@ def whitted_li(scene, meta, params: WhittedParams, sampler, ctx, o, d,
     cur_spec = torch.zeros(n, dtype=torch.bool, device=dev)
     cur_active = torch.ones(n, dtype=torch.bool, device=dev)
     step = 0
-    while step < n_steps and _host_any(cur_active | (sp > 0)):
-        bump(COUNTS, "whitted_steps")
-        dim0 = dim + step * dims_per_step
-        ray_count = ray_count + cur_active.to(torch.int32)
-        t_max = torch.where(cur_active, traverse.F32_MAX,
-                            0.0).to(torch.float32)
-        with pass_scope("trace.closest"):
-            hit = traverse.intersect(data, meta, cur_o, cur_d, t_max)
-        missed = cur_active & ~hit.hit
-        radiance = radiance + torch.where(missed[..., None],
-                                          cur_scale * data.background, 0.0)
-        live = cur_active & hit.hit
-        with pass_scope("shade.surface"):
-            si = make_surface(data, hit, cur_o, cur_d)
-            mp = bsdf_mod.gather_materials(data, si, meta)
-        with pass_scope("shade.nee"):
-            direct, _ = _nee(data, meta, sampler, ctx, si, mp, dim0, live)
-        emit_mask = cur_spec | (cur_depth == 0)
-        direct = direct + torch.where(
-            emit_mask[..., None],
-            lights_mod.area_light_radiance(data, si, -cur_d), 0.0)
-        radiance = radiance + torch.where(live[..., None], cur_scale * direct,
-                                          0.0)
+    while step < n_steps:
+        with pass_scope("whitted.step"):
+            if not _host_any(cur_active | (sp > 0)):
+                break
+            bump(COUNTS, "whitted_steps")
+            dim0 = dim + step * dims_per_step
+            ray_count = ray_count + cur_active.to(torch.int32)
+            t_max = torch.where(cur_active, traverse.F32_MAX,
+                                0.0).to(torch.float32)
+            with pass_scope("trace.closest"):
+                hit = traverse.intersect(data, meta, cur_o, cur_d, t_max)
+            missed = cur_active & ~hit.hit
+            radiance = radiance + torch.where(
+                missed[..., None], cur_scale * data.background, 0.0)
+            live = cur_active & hit.hit
+            with pass_scope("shade.surface"):
+                si = make_surface(data, hit, cur_o, cur_d)
+                mp = bsdf_mod.gather_materials(data, si, meta)
+            with pass_scope("shade.nee"):
+                direct, _ = _nee(data, meta, sampler, ctx, si, mp, dim0,
+                                 live)
+            emit_mask = cur_spec | (cur_depth == 0)
+            direct = direct + torch.where(
+                emit_mask[..., None],
+                lights_mod.area_light_radiance(data, si, -cur_d), 0.0)
+            radiance = radiance + torch.where(live[..., None],
+                                              cur_scale * direct, 0.0)
 
-        # Specular children (whitted.rs:38-70), weighted f * |wi . ns|.
-        can_recurse = live & (cur_depth + 1 < depth_cap)
-        bs_r = bsdf_mod.bsdf_sample_specular(mp, si, si.wo, False)
-        bs_t = bsdf_mod.bsdf_sample_specular(mp, si, si.wo, True)
+            # Specular children (whitted.rs:38-70), weighted f |wi . ns|.
+            can_recurse = live & (cur_depth + 1 < depth_cap)
+            bs_r = bsdf_mod.bsdf_sample_specular(mp, si, si.wo, False)
+            bs_t = bsdf_mod.bsdf_sample_specular(mp, si, si.wo, True)
 
-        def child(bs):
-            scale = bs.f * torch.abs(dot(bs.wi, si.ns))[..., None]
-            scale = torch.where(torch.isfinite(scale), scale,
-                                0.0) * cur_scale
-            return {"o": spawn_ray(si, bs.wi), "d": bs.wi, "scale": scale,
-                    "depth": cur_depth + 1, "spec": bs.is_specular}
+            def child(bs):
+                scale = bs.f * torch.abs(dot(bs.wi, si.ns))[..., None]
+                scale = torch.where(torch.isfinite(scale), scale,
+                                    0.0) * cur_scale
+                return {"o": spawn_ray(si, bs.wi), "d": bs.wi,
+                        "scale": scale, "depth": cur_depth + 1,
+                        "spec": bs.is_specular}
 
-        r_valid = can_recurse & bs_r.valid
-        sp = _push(stack, sp, child(bs_t), can_recurse & bs_t.valid)
-        # Next: the reflection child where valid, else a pop, else idle.
-        popped = ~r_valid & (sp > 0)
-        item, sp = _pop(stack, sp, popped)
-        refl = child(bs_r)
-        cur_active = r_valid | popped
-        sel, act = r_valid[..., None], cur_active[..., None]
-        cur_o = torch.where(act, torch.where(sel, refl["o"], item["o"]),
-                            center)
-        cur_d = torch.where(act, torch.where(sel, refl["d"], item["d"]),
-                            benign)
-        cur_scale = torch.where(sel, refl["scale"], item["scale"])
-        cur_depth = torch.where(r_valid, refl["depth"], item["depth"])
-        cur_spec = torch.where(r_valid, refl["spec"], item["spec"])
-        step += 1
+            r_valid = can_recurse & bs_r.valid
+            sp = _push(stack, sp, child(bs_t), can_recurse & bs_t.valid)
+            # Next: the reflection child where valid, else a pop, else
+            # idle.
+            popped = ~r_valid & (sp > 0)
+            item, sp = _pop(stack, sp, popped)
+            refl = child(bs_r)
+            cur_active = r_valid | popped
+            sel, act = r_valid[..., None], cur_active[..., None]
+            cur_o = torch.where(act, torch.where(sel, refl["o"], item["o"]),
+                                center)
+            cur_d = torch.where(act, torch.where(sel, refl["d"], item["d"]),
+                                benign)
+            cur_scale = torch.where(sel, refl["scale"], item["scale"])
+            cur_depth = torch.where(r_valid, refl["depth"], item["depth"])
+            cur_spec = torch.where(r_valid, refl["spec"], item["spec"])
+            step += 1
     return LiResult(li=radiance, ray_count=ray_count)
 
 

@@ -36,6 +36,7 @@ from __future__ import annotations
 
 import torch
 
+from ..profiling import host_read
 from . import _build
 from .trace import F32_MAX, ray_shear, scaled_min8, watertight, watertight_scaled
 
@@ -63,9 +64,9 @@ def reset_launches() -> None:
 
 def host_int(x) -> int:
     """Read a one-element tensor on the host (a device sync on the card),
-    counted in STATS."""
+    counted in STATS and in ``profiling``'s ``host_reads.dispatch``."""
     _build.bump(STATS, "host_syncs")
-    return int(x)
+    return int(host_read(x, "dispatch"))
 
 
 # --------------------------------------------------------------------

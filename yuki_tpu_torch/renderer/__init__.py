@@ -18,7 +18,8 @@
                         ``force_single_sample``, progress with a sliding
                         Mrays/s window and an ETA, the film generation
                         checked before every add, cancellation between
-                        launches, and one host read a wave.
+                        launches, and one host read a wave (the wave's
+                        exact ray count, ``host_reads.renderer``).
   render_frame       -> the same wave loop, called synchronously.
 
 yuki_tpu shards each wave over every local device (:311-330); the port
@@ -28,6 +29,12 @@ it through ``parallel.make_sharded_wave_renderer`` (that route runs
 The manager thread launches on that device's default stream, which the
 kernels' wrappers take as the thread's current stream.  The caller reads
 the film only after ``RenderFinished`` or ``kill``, which joins the thread.
+
+Under a profiler the wave loop's phases are spans (``profiling.SCOPES``):
+``renderer.frame_setup`` (the film, camera, tiles and the wave renderer's
+tables), and per wave ``renderer.wave_prep`` (tile ids and origins to the
+device, ``mark_tiles``), ``renderer.launch`` (each wave-renderer call),
+``renderer.read_rays``, ``renderer.film_add`` and ``renderer.report``.
 """
 
 from __future__ import annotations
@@ -49,6 +56,7 @@ from ..film import Film, FilmSettings, film_tiles
 from ..integrators import (DEBUG_VIEWS, PathParams, WhittedParams, path_li,
                            use_fused_shade, whitted_li)
 from ..ops import path_fused, shade_fused
+from ..profiling import host_read, pass_scope
 from ..sampling import SampleCtx, force_single_sample
 
 _log = logging.getLogger("yuki")
@@ -74,7 +82,7 @@ def make_wave_renderer(scene, camera: Camera, sampler, integrator,
     """Build the per-wave render step.
 
     Returns fn(tile_origins [B,2] int tensor, sample_index int, seed int)
-      -> (pixels [B,td,td,3] f32, rays f32 scalar tensor)
+      -> (pixels [B,td,td,3] f32, rays int64 scalar tensor)
     on the scene's device.  Every lane is one pixel sample (Integrator::
     render's per-pixel loop, integrators/mod.rs:119-185, flattened).
 
@@ -110,7 +118,7 @@ def make_wave_renderer(scene, camera: Camera, sampler, integrator,
             px, py = pixels(origins)
             li, rcount = path_fused.path_li_wave(tables, px, py,
                                                  sample_index, seed, sampler)
-            return li, rcount.to(torch.float32).sum()
+            return li, rcount.sum(dtype=torch.int64)
     else:
         if isinstance(integrator, PathParams):
             tables = (shade_fused.make_shade_tables(scene, integrator)
@@ -138,7 +146,7 @@ def make_wave_renderer(scene, camera: Camera, sampler, integrator,
                                   py.to(torch.float32)], dim=-1) + u
             o, d = camera.ray(p_film)
             res = li_fn(ctx, o.contiguous(), d.contiguous())
-            return res.li, res.ray_count.to(torch.float32).sum()
+            return res.li, res.ray_count.sum(dtype=torch.int64)
 
     def call(origins, sample_index: int, seed: int):
         origins = torch.as_tensor(origins, device=dev).to(torch.int32)
@@ -271,41 +279,44 @@ def _wave_loop(rid, scene, camera_params, film, sampler, integrator,
     dev = scene.device
     if film.tiles_buf.device != dev:
         raise ValueError(f"film on {film.tiles_buf.device}, scene on {dev}")
-    rx, ry = film_settings.effective_res()
-    camera = Camera.create(camera_params, rx, ry)
-    if force_single:
-        sampler = force_single_sample(sampler)
+    with pass_scope("renderer.frame_setup"):
+        rx, ry = film_settings.effective_res()
+        camera = Camera.create(camera_params, rx, ry)
+        if force_single:
+            sampler = force_single_sample(sampler)
 
-    tiles = film_tiles(film_settings)
-    spp = sampler.samples_per_pixel
-    film_generation = film.generation
+        tiles = film_tiles(film_settings)
+        spp = sampler.samples_per_pixel
+        film_generation = film.generation
 
-    # Accumulation replicates the tile list once per sample generation
-    # (render_manager.rs:130-143); otherwise each wave loops spp launches.
-    if film_settings.accumulate:
-        passes = [(s, tiles) for s in range(spp)]
-    else:
-        passes = [(None, tiles)]
+        # Accumulation replicates the tile list once per sample generation
+        # (render_manager.rs:130-143); otherwise each wave loops spp
+        # launches.
+        if film_settings.accumulate:
+            passes = [(s, tiles) for s in range(spp)]
+        else:
+            passes = [(None, tiles)]
 
-    td = film_settings.tile_dim
-    wave_tiles = 1 if render_settings.use_single_render_thread else max(
-        1, min(render_settings.wave_tiles, len(tiles))
-    )
-    # Batch only whole launches (spp % spl == 0 keeps the average exact).
-    spl = max(1, min(render_settings.samples_per_launch, spp))
-    while spp % spl:
-        spl -= 1
-    if film_settings.accumulate or isinstance(integrator, str):
-        spl = 1
-    render_fn = make_wave_renderer(scene, camera, sampler, integrator, td,
-                                   wave_tiles, samples_per_launch=spl)
-    spp_t = torch.tensor(float(spp), dtype=torch.float32, device=dev)
+        td = film_settings.tile_dim
+        wave_tiles = 1 if render_settings.use_single_render_thread else max(
+            1, min(render_settings.wave_tiles, len(tiles))
+        )
+        # Batch only whole launches (spp % spl == 0 keeps the average
+        # exact).
+        spl = max(1, min(render_settings.samples_per_launch, spp))
+        while spp % spl:
+            spl -= 1
+        if film_settings.accumulate or isinstance(integrator, str):
+            spl = 1
+        render_fn = make_wave_renderer(scene, camera, sampler, integrator,
+                                       td, wave_tiles,
+                                       samples_per_launch=spl)
+        spp_t = torch.tensor(float(spp), dtype=torch.float32, device=dev)
 
     start = time.monotonic()
-    # The ray count sums as yuki_tpu's loop does (:424-431): a wave's
-    # launches in float32 on the device, int() of that sum once a wave,
-    # the frame's total as a Python int.  A wave's running sum rounds once
-    # it passes 2^24.
+    # A wave's launches sum their ray counts in int64 on the device, read
+    # once a wave: the frame's total is exact.  (yuki_tpu sums a wave in
+    # float32, :424-431, which rounds past 2^24.)
     total_rays = 0
     # Work unit = tile-sample in both modes, so that the ETA weighs every
     # sample (:365-373).
@@ -336,28 +347,27 @@ def _wave_loop(rid, scene, camera_params, film, sampler, integrator,
         for w0 in range(0, len(pass_tiles), wave_tiles):
             if cancel.is_set():
                 return None
-            wave = pass_tiles[w0: w0 + wave_tiles]
-            ids = np.asarray([t.index for t in wave], dtype=np.int64)
-            origins = np.asarray([[t.x0, t.y0] for t in wave],
-                                 dtype=np.int32)
-            if len(wave) < wave_tiles:
-                # Pad to the wave shape; padded ids fall outside the film
-                # and are dropped by add_tiles and mark_tiles.
-                pad = wave_tiles - len(wave)
-                ids = np.concatenate(
-                    [ids, np.full(pad, film.n_tiles, np.int64)])
-                origins = np.concatenate(
-                    [origins, np.zeros((pad, 2), np.int32)])
-            ids_t = torch.as_tensor(ids, device=dev)
-            origins_t = torch.as_tensor(origins, device=dev)
-            if render_settings.mark_tiles:
-                film.mark_tiles(ids_t)
+            with pass_scope("renderer.wave_prep"):
+                wave = pass_tiles[w0: w0 + wave_tiles]
+                ids = np.asarray([t.index for t in wave], dtype=np.int64)
+                origins = np.asarray([[t.x0, t.y0] for t in wave],
+                                     dtype=np.int32)
+                if len(wave) < wave_tiles:
+                    # Pad to the wave shape; padded ids fall outside the
+                    # film and are dropped by add_tiles and mark_tiles.
+                    pad = wave_tiles - len(wave)
+                    ids = np.concatenate(
+                        [ids, np.full(pad, film.n_tiles, np.int64)])
+                    origins = np.concatenate(
+                        [origins, np.zeros((pad, 2), np.int32)])
+                ids_t = torch.as_tensor(ids, device=dev)
+                origins_t = torch.as_tensor(origins, device=dev)
+                if render_settings.mark_tiles:
+                    film.mark_tiles(ids_t)
             t0 = time.monotonic()
             if film_settings.accumulate:
-                px, rays = render_fn(origins_t, sample_gen, seed)
-                wave_rays = float(rays.item())
-                if film.generation == film_generation:
-                    film.add_tiles(ids_t, px)
+                with pass_scope("renderer.launch"):
+                    px, rays_acc = render_fn(origins_t, sample_gen, seed)
                 units = len(wave)
             else:
                 acc = rays_acc = None
@@ -367,17 +377,23 @@ def _wave_loop(rid, scene, camera_params, film, sampler, integrator,
                     # render_fn returns the SUM over spl consecutive
                     # sample generations; rays accumulate on the device,
                     # read once a wave.
-                    px, rays = render_fn(origins_t, s, seed)
+                    with pass_scope("renderer.launch"):
+                        px, rays = render_fn(origins_t, s, seed)
                     acc = px if acc is None else acc + px
                     rays_acc = rays if rays_acc is None else rays_acc + rays
-                wave_rays = float(rays_acc.item())
-                # One generation holding the spp-sample average, so the
-                # film's count-normalize yields the reference's mean.
-                if film.generation == film_generation:
-                    film.add_tiles(ids_t, acc / spp_t)
                 units = len(wave) * spp
-            total_rays += int(wave_rays)
-            report(wave_rays, time.monotonic() - t0, units)
+            with pass_scope("renderer.read_rays"):
+                wave_rays = host_read(rays_acc, "renderer")
+            with pass_scope("renderer.film_add"):
+                # Without accumulation, one generation holding the
+                # spp-sample average, so the film's count-normalize yields
+                # the reference's mean.
+                if film.generation == film_generation:
+                    film.add_tiles(ids_t, px if film_settings.accumulate
+                                   else acc / spp_t)
+            total_rays += wave_rays
+            with pass_scope("renderer.report"):
+                report(wave_rays, time.monotonic() - t0, units)
 
     return RenderFinished(render_id=rid, ray_count=total_rays,
                           elapsed_s=time.monotonic() - start)
@@ -400,7 +416,8 @@ def render_frame(scene, camera_params: CameraParameters,
     over all its samples and the film receives the spp-sample average once
     per tile; with it, one launch per tile-sample generation."""
     rx, ry = film_settings.effective_res()
-    film = Film(rx, ry, film_settings.tile_dim, device=scene.device)
+    with pass_scope("renderer.frame_setup"):
+        film = Film(rx, ry, film_settings.tile_dim, device=scene.device)
     done = _wave_loop(
         0, scene, camera_params, film, sampler, integrator, film_settings,
         RenderSettings(wave_tiles=wave_tiles,

@@ -26,6 +26,7 @@ from typing import NamedTuple, Union
 
 import torch
 
+from .profiling import host_read, pass_scope
 from .vecmath import sqrt as _sqrt
 
 MASK32 = 0xFFFFFFFF
@@ -151,20 +152,23 @@ class StratifiedSampler:
         return _f32(0.5, like)
 
     def get_1d(self, ctx: SampleCtx, dim: int) -> torch.Tensor:
-        stratum = self._stratum(ctx, dim)
-        x = stratum.to(torch.float32) + self._delta(ctx, dim, stratum)
-        return x / _f32(self.samples_per_pixel, x)
+        with pass_scope("sampling.stratified"):
+            stratum = self._stratum(ctx, dim)
+            x = stratum.to(torch.float32) + self._delta(ctx, dim, stratum)
+            return x / _f32(self.samples_per_pixel, x)
 
     def get_2d(self, ctx: SampleCtx, dim: int) -> torch.Tensor:
-        stratum = self._stratum(ctx, dim)
-        # The reference divides the stratum by pixel_samples_y for its y
-        # index (stratified.rs:131-133); yuki_tpu keeps that, so does this.
-        x = (stratum % self.pixel_samples_x).to(torch.float32)
-        y = (stratum // self.pixel_samples_y).to(torch.float32)
-        x = x + self._delta(ctx, dim, x)
-        y = y + self._delta(ctx, dim + 1, y)
-        return torch.stack([x / _f32(self.pixel_samples_x, x),
-                            y / _f32(self.pixel_samples_y, y)], dim=-1)
+        with pass_scope("sampling.stratified"):
+            stratum = self._stratum(ctx, dim)
+            # The reference divides the stratum by pixel_samples_y for its
+            # y index (stratified.rs:131-133); yuki_tpu keeps that, so does
+            # this.
+            x = (stratum % self.pixel_samples_x).to(torch.float32)
+            y = (stratum // self.pixel_samples_y).to(torch.float32)
+            x = x + self._delta(ctx, dim, x)
+            y = y + self._delta(ctx, dim + 1, y)
+            return torch.stack([x / _f32(self.pixel_samples_x, x),
+                                y / _f32(self.pixel_samples_y, y)], dim=-1)
 
 
 Sampler = Union[UniformSampler, StratifiedSampler]
@@ -189,7 +193,7 @@ def permutation_element(i, l: int, p: torch.Tensor) -> torch.Tensor:
     stratified.rs:147-178).  Rejected lanes re-run the round on their own
     output until every lane lands in [0, l); an extra round never changes
     an accepted lane, so the rounds run in batches of four with one host
-    read per batch."""
+    read per batch (counted in ``host_reads.sampling``)."""
     w = l - 1
     for s in (1, 2, 4, 8, 16):
         w |= w >> s
@@ -218,7 +222,7 @@ def permutation_element(i, l: int, p: torch.Tensor) -> torch.Tensor:
         return i ^ (i >> 5)
 
     i = round_fn(i)
-    while bool((i >= l).any()):
+    while host_read((i >= l).any(), "sampling"):
         for _ in range(4):
             i = torch.where(i < l, i, round_fn(i))
     return ((i + p) & MASK32) % l

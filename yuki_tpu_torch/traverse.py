@@ -82,6 +82,7 @@ from typing import NamedTuple
 
 import torch
 
+from . import profiling
 from .intersect import ray_spheres, ray_triangle, slab_test
 from .ops import trace_stream as ts
 from .ops._build import bump
@@ -121,16 +122,20 @@ COUNTS = {
 
 
 def reset_counts() -> None:
+    """Zero the dispatch's counters and the port's host-read counters."""
     for k in COUNTS:
         COUNTS[k] = 0
     for k in ts.STATS:
         ts.STATS[k] = 0
+    profiling.reset_counts()
 
 
 def counts() -> dict:
-    """The dispatch's counters, with the slot stream's host reads and the
-    slot and bundle-slot rows it laid out."""
-    return {**COUNTS, **ts.STATS}
+    """The dispatch's counters, with the slot stream's host reads
+    (``host_syncs``: the dispatch's and the integrators') and the slot and
+    bundle-slot rows it laid out; and the port's host reads by site
+    (``host_reads.<site>``, ``profiling.counts()``)."""
+    return {**COUNTS, **ts.STATS, **profiling.counts()}
 
 
 class SceneHit(NamedTuple):
@@ -379,6 +384,7 @@ def _compact_indices(mask):
     count is a host read."""
     idx = torch.nonzero(mask).squeeze(1)
     bump(ts.STATS, "host_syncs")
+    bump(profiling.COUNTS, "host_reads.dispatch")
     return idx, idx.numel()
 
 
