@@ -51,6 +51,14 @@ beside this file.  It imports no JAX.  Phases:
   4e. StratifiedSampler(2, 2) on the 1080p Cornell film (4 spp) through
      the wave and through path_li, at depth 2 (rtol 2e-6) and depth 5
      (the chaos-aware bounds);
+  4f. the stratified sampler's draws kernel (strat_draws_kernel) against
+     the torch route on the card, bit for bit, for the Cornell wave's
+     StratifiedSampler(4, 4) planes (27 planes over 1,048,576 lanes),
+     timed beside the torch route, with its bound from strat_draw_ops'
+     tally (each pipe's operations at its rate: 64 lanes an SM a clock
+     on the INT32 ALU, 64 IMAD or 128 FP32 on the FMA pipes, 128 issued)
+     and the planes' bytes; then one 16 spp stratified 1080p frame, counting its
+     launches, its plain draws and the sampler's host reads (both 0);
   5. the colonnade's host build (124,478 triangles): BVH, treelets,
      chunks and slot budgets, each timed;
   6. the treelet path's kernels against their plain versions on one
@@ -262,6 +270,8 @@ KERNELS = {  # name: (source, the TPU kernel it replaces)
                             "yuki_tpu/ops/trace_walker.py:204"),
     "pairs_closest": ("trace_pairs.cu", "yuki_tpu/ops/trace_pairs.py:176"),
     "pairs_any": ("trace_pairs.cu", "yuki_tpu/ops/trace_pairs.py:219"),
+    # No TPU kernel: yuki_tpu draws a StratifiedSampler's values as XLA ops.
+    "strat_draws": ("sampling.cu", "yuki_tpu/sampling.py:180"),
 }
 # The with_skip variants: no main-path frame launches them (no integrator
 # of yuki_tpu makes combined closest + shadow waves); phase 12 drives them.
@@ -1214,6 +1224,101 @@ def phase_strat_frames(torch, np, dev, card):
               f"the wave {wave.ray_count} rays in {wave.elapsed_s:.4f} s, "
               f"path_li {li.ray_count} rays in {li.elapsed_s:.4f} s; "
               f"against the wave: {how} [{card}]")
+
+
+def strat_draw_ops(draws, rounds):
+    """Operations of the draws kernel a lane (sampling.cu) by the pipe that
+    issues them on Hopper: (alu, mul, fp).  ``alu``: 32-bit integer adds,
+    logic ops, shifts, compares, divides and modulos; ``mul``: 32-bit
+    integer multiplies (IMAD, on the FMA pipe); ``fp``: conversions and
+    float adds, multiplies and divides, each counted once.  A pcg hash is
+    7 alu and 2 mul, its key's xor 1 alu.  The lane's pixel hash, jitter
+    base and stratum key: 34 alu, 8 mul.  A draw's stratum key 8 alu and
+    2 mul, a permutation round 25 alu and 7 mul and its loop test 1 alu,
+    the round's multiplier 2 alu, the final add and modulo 2 alu; a
+    jitter hash 9 alu, 2 mul, and 2 fp (its convert and scale); a 1-D
+    value 3 fp more (convert, add, divide), a 2-D one 2 alu (modulo,
+    divide) and 6 fp (two converts, adds and divides).  ``rounds``: the
+    permutation rounds a draw runs (1 for a power-of-two stratum count,
+    whose first round accepts)."""
+    alu, mul, fp = 34, 8, 0
+    for _, k in draws:
+        alu += 8 + 26 * rounds + 4 + 9 * k + (2 if k == 2 else 0)
+        mul += 2 + 7 * rounds + 2 * k
+        fp += 2 * k + (6 if k == 2 else 3)
+    return alu, mul, fp
+
+
+def phase_strat_draws(torch, np, dev, card):
+    """The draws kernel against the torch route on the card (the Cornell
+    wave's planes), timed, with its bound; then a stratified frame's
+    launches, plain draws and sampler host reads."""
+    from yuki_tpu_torch import profiling
+    from yuki_tpu_torch.film import FilmSettings
+    from yuki_tpu_torch.integrators import PathParams
+    from yuki_tpu_torch.ops import path_fused as tpf
+    from yuki_tpu_torch.ops import strat_draws as tsd
+    from yuki_tpu_torch.renderer import render_frame
+    from yuki_tpu_torch.sampling import SampleCtx, StratifiedSampler
+    from yuki_tpu_torch.scene.cornell import cornell
+
+    tb, px, py = _cornell_wave(torch, dev)
+    n, si, seed = px.shape[0], 5, 2 ** 31 + 7
+    sam = StratifiedSampler(4, 4)
+    ctx = SampleCtx(px=px, py=py, sample_index=si, seed=seed)
+    draws = [(0, 2)]
+    for b in range(DEPTH):
+        draws += tpf._bounce_draw_list(2 + b * tb.dims_per_bounce,
+                                       tb.n_lights)
+    tsd.reset_launches()
+    got = tpf.strat_planes(sam, px, py, si, seed, tb.n_lights, DEPTH)
+    ref = tsd.strat_draws_plain(sam, ctx, draws)
+    torch.cuda.synchronize()
+    check(tsd.LAUNCHES["strat_draws"] == 1,
+          f"strat_draws: {tsd.LAUNCHES} launches for one wave call")
+    check(torch.equal(got.view(torch.int32), ref.view(torch.int32)),
+          "strat_draws: the kernel's planes differ from the torch route's")
+    ms_k = cuda_ms(torch, lambda: tpf.strat_planes(
+        sam, px, py, si, seed, tb.n_lights, DEPTH), 20)
+    ms_p = cuda_ms(torch, lambda: tsd.strat_draws_plain(sam, ctx, draws), 3)
+    alu, mul, fp = strat_draw_ops(draws, 1)
+    ops = n * (alu + mul + fp)
+    # Lanes an SM a clock: 64 on the INT32 ALU pipe, 64 IMAD or 128 FP32
+    # on the FMA pipes, 128 issued in all (4 schedulers x 32).
+    clocks = n * max(alu / 64, (mul + fp / 2) / 64, (alu + mul + fp) / 128)
+    t_ops = clocks / (PEAK_OPS / 128) * 1e3
+    t_bytes = nbytes(px, py, got) / PEAK_BYTES * 1e3
+    b_ms, b_by = (t_ops, "operations") if t_ops >= t_bytes else (
+        t_bytes, "bytes")
+    print(f"strat_draws [{n} lanes, {got.shape[0]} planes, "
+          f"{sampler_name(sam)}]: kernel {ms_k:.4f} ms, plain (the torch "
+          f"route) {ms_p:.4f} ms, bound {b_ms:.4f} ms ({b_by}; {ops} "
+          f"operations, {nbytes(px, py, got)} bytes); every plane equal; "
+          f"{ptxas_usage('strat_draws_kernel')} [{card}]")
+    result = {"strat_draws": dict(max_abs_err=0.0, ms=ms_k, plain_ms=ms_p,
+                                  bound_ms=b_ms, bound_by=b_by)}
+
+    scene, cam, _ = cornell(device=dev)
+    fs = FilmSettings(res=RES, tile_dim=16)
+    torch.cuda.synchronize()
+    tsd.reset_launches()
+    profiling.reset_counts()
+    fr = render_frame(scene, cam, fs, sam, PathParams(max_depth=DEPTH),
+                      wave_tiles=WAVE_TILES, samples_per_launch=SPP, seed=1)
+    torch.cuda.synchronize()
+    c = profiling.counts()
+    launches = {"strat_draws": tsd.LAUNCHES["strat_draws"]}
+    check(c.get("sampling.draws_plain", 0) == 0,
+          f"strat frame: {c.get('sampling.draws_plain')} plain draws")
+    check(c.get("host_reads.sampling", 0) == 0,
+          f"strat frame: {c.get('host_reads.sampling')} sampler host reads")
+    print(f"strat frame cornell {RES[0]}x{RES[1]} d{DEPTH} {SPP}spp "
+          f"({sampler_name(sam)}): {fr.ray_count} rays in "
+          f"{fr.elapsed_s:.4f} s, strat_draws launches "
+          f"{launches['strat_draws']}, draws {c.get('sampling.draws_kernel')}"
+          f", host reads {c} [{card}]")
+    profiling.reset_counts()
+    return result, launches
 
 
 def phase_colonnade_build(torch, np, dev):
@@ -3850,6 +3955,9 @@ def main():
         kernels.update(wave_kernels)
         launches.update(wave_launches)
         phase_strat_frames(torch, np, dev, card)
+        draw_kernels, draw_launches = phase_strat_draws(torch, np, dev, card)
+        kernels.update(draw_kernels)
+        launches.update(draw_launches)
         scene, cam = phase_colonnade_build(torch, np, dev)
         col_kernels, rays, wave0 = phase_colonnade_kernels(torch, np, dev,
                                                            scene, cam)

@@ -213,7 +213,7 @@ def test_strat_shade_matches_plain(cuda):
     hit = traverse.intersect(sc.data, sc.meta, o, d, t_max)
     tables = tsf.make_shade_tables(sc, PathParams(DEPTH))
     n_lights = tables.n_lights
-    spl = torch.stack(bounce_draws(sam, ctx, 2, n_lights)).contiguous()
+    spl = bounce_draws(sam, ctx, 2, n_lights)
     rh, prim = tsf.pack_shade(hit, o, d, torch.ones_like(o), hit.hit,
                               torch.zeros_like(hit.hit))
     texp = tsf.texture_planes(tables, prim, rh[tsf._RH["sph"]], hit.b0,

@@ -176,6 +176,10 @@ def test_host_reads_by_site(scene_and_cam, case):
         assert c["host_syncs"] == reads["host_reads.whitted"]
         assert set(reads) == {"host_reads.renderer", "host_reads.sampling",
                               "host_reads.whitted"}
+    # On the CPU every stratified draw takes the torch route, whose
+    # rejection check reads the host once a draw.
+    assert c["sampling.draws_plain"] == reads["host_reads.sampling"]
+    assert "sampling.draws_kernel" not in c
     profiling.reset_counts()
     assert profiling.counts() == {}
 

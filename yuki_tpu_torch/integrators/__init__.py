@@ -213,8 +213,7 @@ def _path_fused(scene, meta, params, sampler, ctx, o, d, tables, dim):
     strat = isinstance(sampler, StratifiedSampler)
     for bounce in range(params.max_depth):
         dim0 = dim + bounce * dims_per_bounce
-        spl = (torch.stack(bounce_draws(sampler, ctx, dim0, n_lights))
-               if strat else None)
+        spl = bounce_draws(sampler, ctx, dim0, n_lights) if strat else None
         ray_count = ray_count + alive.to(torch.int32)
         t_max = torch.where(alive, traverse.F32_MAX, 0.0).to(torch.float32)
         with pass_scope("trace.closest"):

@@ -19,11 +19,13 @@ kernels carry the whole wave, or, with ``PATH_FUSED_ONEKERNEL``, one:
                 path_fused.py:788)
 
 The uniform sampler's values are hashed inside the kernels.  A
-``StratifiedSampler``'s are computed first, by the sampler itself, as
-``[2 + max_depth * (2L+3), N]`` planes (``strat_planes``, yuki_tpu
-path_fused.py:1023-1051: strata depend only on the pixel, sample and
-dimension, never on the path), and each kernel reads its planes in place
-of the hash.
+``StratifiedSampler``'s are computed first as ``[2 + max_depth * (2L+3),
+N]`` planes (``strat_planes``, yuki_tpu path_fused.py:1023-1051: strata
+depend only on the pixel, sample and dimension, never on the path), and
+each kernel reads its planes in place of the hash.  On the card the
+planes are one launch of ``strat_draws_kernel`` (``ops/strat_draws``,
+``csrc/sampling.cu``) a wave call, with no host read; on the CPU they are
+the sampler's torch draws, the kernel's plain twin.
 
 Each wrapper dispatches on where its tensors lie: a CUDA tensor launches
 the hand-written kernel in ``csrc/path_fused.cu`` (or raises); a CPU
@@ -71,6 +73,7 @@ from ..vecmath import sqrt as _sqrt
 from . import _build
 from .shade_fused import (_where3, dim_f32, light_table, pcg, scene_center_diag,
                           shade_body, sphere_table)
+from .strat_draws import strat_draws
 from .trace import F32_MAX, pack_triangles, watertight
 
 MAX_TRIS_WAVE = 1024  # dense-scene gate (yuki_tpu path_fused.py:75)
@@ -385,31 +388,33 @@ def _ph_i32(u: torch.Tensor) -> torch.Tensor:
 
 def strat_planes(sampler, px, py, sample_index: int, seed: int,
                  n_lights: int, max_depth: int):
-    """A StratifiedSampler's values for a whole wave, computed by the
-    sampler: [2 + max_depth * (2L+3), N] f32 planes in yuki_tpu's order
-    (path_fused.py:1036-1049): the pixel jitter (dims 0-1), then per
-    bounce 2 per light, 2 for the BSDF sample and 1 for roulette.  None
-    for the uniform sampler, whose values the kernels hash themselves."""
+    """A StratifiedSampler's values for a whole wave: [2 + max_depth *
+    (2L+3), N] f32 planes in yuki_tpu's order (path_fused.py:1036-1049):
+    the pixel jitter (dims 0-1), then per bounce 2 per light, 2 for the
+    BSDF sample and 1 for roulette; one launch of the draws kernel on the
+    card (``strat_draws``).  None for the uniform sampler, whose values
+    the kernels hash themselves."""
     if not isinstance(sampler, StratifiedSampler):
         return None
     ctx = SampleCtx(px=px, py=py, sample_index=sample_index, seed=seed)
-    dpb = 2 * n_lights + 3
-    vals = list(sampler.get_2d(ctx, 0).unbind(-1))
+    draws = [(0, 2)]
     for b in range(max_depth):
-        d0 = 2 + b * dpb
-        vals += bounce_draws(sampler, ctx, d0, n_lights)
-    return torch.stack(vals).contiguous()
+        draws += _bounce_draw_list(2 + b * (2 * n_lights + 3), n_lights)
+    return strat_draws(sampler, ctx, draws)
 
 
-def bounce_draws(sampler, ctx, dim0: int, n_lights: int) -> list:
+def _bounce_draw_list(dim0: int, n_lights: int) -> list:
+    """One bounce's draws from dimension ``dim0``: a 2-D draw per light,
+    one for the BSDF sample, a 1-D one for roulette."""
+    return ([(dim0 + 2 * li, 2) for li in range(n_lights)]
+            + [(dim0 + 2 * n_lights, 2), (dim0 + 2 * n_lights + 2, 1)])
+
+
+def bounce_draws(sampler, ctx, dim0: int, n_lights: int) -> torch.Tensor:
     """One bounce's 2L+3 stratified values from dimension ``dim0``
-    (yuki_tpu shade_fused.py:1157-1170): [N] tensors in plane order."""
-    vals = []
-    for li in range(n_lights):
-        vals += list(sampler.get_2d(ctx, dim0 + 2 * li).unbind(-1))
-    vals += list(sampler.get_2d(ctx, dim0 + 2 * n_lights).unbind(-1))
-    vals.append(sampler.get_1d(ctx, dim0 + 2 * n_lights + 2))
-    return vals
+    (yuki_tpu shade_fused.py:1157-1170): [2L+3, N] f32 planes, one launch
+    of the draws kernel on the card."""
+    return strat_draws(sampler, ctx, _bounce_draw_list(dim0, n_lights))
 
 
 def _bounce_planes(spl, tb: WaveTables, bounce: int):

@@ -13,9 +13,16 @@ products would not, so ``_mul32`` splits them into 16-bit halves.
 
 Samplers: ``UniformSampler`` and ``StratifiedSampler`` (Kensler's
 ``permutation_element`` picks each (pixel, dimension)'s stratum, the
-pbrt-v4 design of yuki/src/sampling/stratified.rs).  The dense wave and
-the fused shade take a stratified sampler's values as planes computed
-here (``ops/path_fused.strat_planes``, ``ops/shade_fused``).
+pbrt-v4 design of yuki/src/sampling/stratified.rs).  A stratified draw on
+CUDA lanes is one launch of the draws kernel (``ops/strat_draws``,
+``ops/csrc/sampling.cu``: the same u32 maths with native wrapping, the
+rejection per lane, no host read), whose sample index and seed are one
+integer for all lanes; the dense wave and the fused shade take a list of
+draws as planes from one launch (``ops/path_fused.strat_planes``,
+``bounce_draws``).  CPU lanes, with integer or per-lane tensor keys, take
+``plain_1d`` / ``plain_2d`` below, the kernel's plain twin;
+``profiling``'s ``sampling.draws_kernel`` and ``sampling.draws_plain``
+count the draws each route serves.
 """
 
 from __future__ import annotations
@@ -26,7 +33,9 @@ from typing import NamedTuple, Union
 
 import torch
 
-from .profiling import host_read, pass_scope
+from .ops._build import bump
+from .ops.strat_draws import strat_draws
+from .profiling import COUNTS, host_read
 from .vecmath import sqrt as _sqrt
 
 MASK32 = 0xFFFFFFFF
@@ -152,23 +161,30 @@ class StratifiedSampler:
         return _f32(0.5, like)
 
     def get_1d(self, ctx: SampleCtx, dim: int) -> torch.Tensor:
-        with pass_scope("sampling.stratified"):
-            stratum = self._stratum(ctx, dim)
-            x = stratum.to(torch.float32) + self._delta(ctx, dim, stratum)
-            return x / _f32(self.samples_per_pixel, x)
+        return strat_draws(self, ctx, ((dim, 1),))[0]
 
     def get_2d(self, ctx: SampleCtx, dim: int) -> torch.Tensor:
-        with pass_scope("sampling.stratified"):
-            stratum = self._stratum(ctx, dim)
-            # The reference divides the stratum by pixel_samples_y for its
-            # y index (stratified.rs:131-133); yuki_tpu keeps that, so does
-            # this.
-            x = (stratum % self.pixel_samples_x).to(torch.float32)
-            y = (stratum // self.pixel_samples_y).to(torch.float32)
-            x = x + self._delta(ctx, dim, x)
-            y = y + self._delta(ctx, dim + 1, y)
-            return torch.stack([x / _f32(self.pixel_samples_x, x),
-                                y / _f32(self.pixel_samples_y, y)], dim=-1)
+        return strat_draws(self, ctx, ((dim, 2),)).movedim(0, -1)
+
+    def plain_1d(self, ctx: SampleCtx, dim: int) -> torch.Tensor:
+        """``get_1d`` in torch ops (the draws kernel's plain twin)."""
+        bump(COUNTS, "sampling.draws_plain")
+        stratum = self._stratum(ctx, dim)
+        x = stratum.to(torch.float32) + self._delta(ctx, dim, stratum)
+        return x / _f32(self.samples_per_pixel, x)
+
+    def plain_2d(self, ctx: SampleCtx, dim: int) -> torch.Tensor:
+        """``get_2d`` in torch ops (the draws kernel's plain twin)."""
+        bump(COUNTS, "sampling.draws_plain")
+        stratum = self._stratum(ctx, dim)
+        # The reference divides the stratum by pixel_samples_y for its y
+        # index (stratified.rs:131-133); yuki_tpu keeps that, so does this.
+        x = (stratum % self.pixel_samples_x).to(torch.float32)
+        y = (stratum // self.pixel_samples_y).to(torch.float32)
+        x = x + self._delta(ctx, dim, x)
+        y = y + self._delta(ctx, dim + 1, y)
+        return torch.stack([x / _f32(self.pixel_samples_x, x),
+                            y / _f32(self.pixel_samples_y, y)], dim=-1)
 
 
 Sampler = Union[UniformSampler, StratifiedSampler]
