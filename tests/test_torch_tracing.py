@@ -220,3 +220,179 @@ def test_renderer_thread_spans_under_device_trace(scene_and_cam, tmp_path):
     parents = _parents([r for r in ranges if r[3] in tids])
     assert tids != {threading.get_native_id()}
     assert {n for n, _ in parents} >= RENDERER_SPANS | inner
+
+
+# --- the treelet dispatch's stages and counters ---------------------------
+
+TRAVERSE_SPANS = {"traverse.sort", "traverse.probe", "traverse.cull",
+                  "traverse.layout", "traverse.walk", "traverse.merge",
+                  "traverse.wide", "traverse.fallback", "traverse.bary"}
+TETRA_FS = FilmSettings(res=(16, 16), tile_dim=16)
+
+
+@pytest.fixture(scope="module")
+def tetra(tmp_path_factory):
+    """The SPD tetra at depth 6 (16,386 triangles, a treelet scene) as the
+    benchmark's configuration writes and loads it."""
+    from portbench import harness
+
+    cell = harness.load_cell("spd_tetra.path-strat4")
+    cfg = dict(cell.cfg, depth=6, res=list(TETRA_FS.res))
+    scene, cam, _ = cell.module.program_scene(
+        cfg, torch.device("cpu"), str(tmp_path_factory.mktemp("tetra")))
+    assert scene.meta.traversal == "treelet"
+    return scene, cam
+
+
+def _tetra_frame(tetra):
+    scene, cam = tetra
+    return render_frame(scene, cam, TETRA_FS, StratifiedSampler(1, 1),
+                        PathParams(2), wave_tiles=1, seed=5)
+
+
+def _rays(scene, n, seed):
+    """n rays from around the tetrahedron toward it, and their t_max."""
+    g = torch.Generator().manual_seed(seed)
+    o = torch.rand((n, 3), generator=g) * 4.0 - 2.0
+    o[:, 1] = o[:, 1].abs() + 0.2
+    target = torch.rand((n, 3), generator=g) * torch.tensor([1.0, 1.4, 1.0])
+    d = target - o
+    d = d / d.norm(dim=1, keepdim=True)
+    return o, d, torch.full((n,), 1e30)
+
+
+def test_traverse_spans_in_a_frame(tetra, tmp_path):
+    """A depth-6 frame under torch.profiler: the dispatch's stages are
+    registered spans, nested inside the integrator's queries."""
+    assert TRAVERSE_SPANS <= set(profiling.SCOPES)
+    plain = _tetra_frame(tetra)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        traced = _tetra_frame(tetra)
+    assert torch.equal(traced.film.tiles_buf, plain.film.tiles_buf)
+    events = _trace_of(prof, tmp_path)
+    tid = next(e["tid"] for e in events if e.get("name") == "renderer.launch")
+    parents = _parents(_ranges(events, tid))
+    names = {n for n, _ in parents}
+    assert names <= set(profiling.SCOPES)
+    assert {"traverse.probe", "traverse.cull", "traverse.layout",
+            "traverse.walk", "traverse.merge", "traverse.bary"} <= names
+    for name, parent in parents:
+        if name.startswith("traverse."):
+            assert parent in ("trace.closest", "trace.occlusion"), (name,
+                                                                    parent)
+
+
+def test_traverse_spans_off_without_profiler(tetra, monkeypatch):
+    """Without a profiler no stage of the dispatch enters a range."""
+    assert not profiling.profiler_on()
+
+    def refuse(*args, **kw):
+        raise AssertionError("record_function entered with no profiler")
+
+    monkeypatch.setattr(torch.profiler, "record_function", refuse)
+    assert _tetra_frame(tetra).ray_count > 0
+
+
+def test_dispatch_lanes_and_sort_spans(tetra, tmp_path):
+    """dispatch_lanes counts the real lanes of each call, before padding
+    to 128; a sorted query (no skip_sort) sorts and unsorts in spans."""
+    scene, _ = tetra
+    o, d, t_max = _rays(scene, 300, 1)
+    traverse.reset_counts()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        hit = traverse.intersect(scene.data, scene.meta, o, d, t_max)
+    occ = traverse.any_intersect(scene.data, scene.meta, o[:200], d[:200],
+                                 t_max[:200],
+                                 torch.full((200,), -2, dtype=torch.int32))
+    c = traverse.counts()
+    assert c["dispatch_lanes"] == 500 and c["fallback_lanes"] == 0
+    assert hit.hit.any() and torch.equal(occ, hit.hit[:200])
+    names = [n for _, _, n, _ in _ranges(_trace_of(prof, tmp_path))]
+    assert names.count("traverse.sort") == 2
+    traverse.reset_counts()
+    assert traverse.counts()["dispatch_lanes"] == 0
+
+
+@pytest.mark.parametrize("query", ["closest", "any"])
+def test_forced_fallback_and_wide_rerun(tetra, query, monkeypatch, tmp_path):
+    """fallback_lanes counts the real lanes of a wave sent to the treelet
+    walk, in a traverse.fallback span; a candidate width of 1 makes lanes
+    overflow into the wide re-run's span; the verdicts hold."""
+    from yuki_tpu_torch.ops import trace_stream as ts
+
+    scene, _ = tetra
+    o, d, t_max = _rays(scene, 300, 2)
+    skip = torch.full((300,), -2, dtype=torch.int32)
+
+    def run():
+        if query == "closest":
+            return traverse.intersect(scene.data, scene.meta, o, d, t_max,
+                                      skip_sort=True).prim
+        return traverse.any_intersect(scene.data, scene.meta, o, d, t_max,
+                                      skip, skip_sort=True)
+
+    want = run()
+    monkeypatch.setattr(ts, "C_MAIN", 1)
+    traverse.reset_counts()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        assert torch.equal(run(), want)
+    c = traverse.counts()
+    assert c["overflow_rays"] > 0 and c["wide_reruns"] == 1
+    assert c["fallback_lanes"] == 0
+    wide = {n for _, _, n, _ in _ranges(_trace_of(prof, tmp_path))}
+    assert {"traverse.wide", "traverse.cull"} <= wide
+    monkeypatch.setattr(ts, "OV_CAP", -1)
+    traverse.reset_counts()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        assert torch.equal(run(), want)
+    c = traverse.counts()
+    assert c["fallbacks"] == 1 and c["fallback_lanes"] == 300
+    assert c["dispatch_lanes"] == 300
+    parents = _parents(_ranges(_trace_of(prof, tmp_path)))
+    assert ("traverse.fallback", None) in parents
+
+
+def _readings(counts, kernels=(), frames=1, trace=True):
+    from types import SimpleNamespace
+
+    from portbench.trace import TraceSummary
+
+    t = (TraceSummary(window_s=1.0, busy_s=0.5, frames=frames,
+                      launches=len(kernels), kernels=list(kernels))
+         if trace else None)
+    return {"win": SimpleNamespace(counts=counts, traced_frames=frames),
+            "trace": t}
+
+
+def test_traversal_metric_readers(scene_and_cam):
+    """The three readers on hand-made readings, and None where a run has
+    no dispatch: a Cornell frame's counters, or a program without the
+    counters."""
+    from portbench.metrics import (fallback_lane_pct, overflow_lane_pct,
+                                   traversal_ms_per_frame)
+
+    names = traversal_ms_per_frame.kernel_names()
+    assert {"slot_closest_kernel", "slot_any_kernel", "cull_kernel",
+            "rows_closest_kernel", "rows_any_kernel"} <= names
+    assert not names & {"dense_closest_kernel", "dense_any_kernel",
+                        "shade_kernel", "bounce_kernel"}
+    kernels = [("void slot_closest_kernel<false>(float const*)", 0.003),
+               ("cull_kernel", 0.001), ("dense_closest_kernel", 0.5),
+               ("void at::native::elementwise_kernel<128, 2>", 0.25)]
+    r = _readings({"dispatch_lanes": 2000, "fallback_lanes": 500,
+                   "overflow_rays": 30}, kernels, frames=2)
+    assert traversal_ms_per_frame.read(r) == pytest.approx(2.0)
+    assert fallback_lane_pct.read(r) == 25.0
+    assert overflow_lane_pct.read(r) == 1.5
+    assert traversal_ms_per_frame.read(_readings({}, kernels[2:])) is None
+    assert traversal_ms_per_frame.read(_readings({}, trace=False)) is None
+    # The parent program: no dispatch_lanes counter.
+    parent = _readings({"overflow_rays": 3, "fallbacks": 0}, kernels)
+    assert fallback_lane_pct.read(parent) is None
+    assert overflow_lane_pct.read(parent) is None
+    traverse.reset_counts()
+    _frame(scene_and_cam, "path")
+    cornell = _readings(traverse.counts())
+    assert cornell["win"].counts["dispatch_lanes"] == 0
+    assert fallback_lane_pct.read(cornell) is None
+    assert overflow_lane_pct.read(cornell) is None

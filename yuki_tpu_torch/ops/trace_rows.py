@@ -37,6 +37,7 @@ from __future__ import annotations
 
 import torch
 
+from ..profiling import pass_scope
 from . import _build
 from .trace import ray_shear, scaled_min8, watertight_scaled
 from .trace_stream import LANES, cross_words, extract_lists, n_words, pack_bits
@@ -382,9 +383,11 @@ def rows_closest_w(ch, row_words, o, d, t_max, *, C: int, mult: int,
     ignore.  Returns (t, prim i32, overflow [N]): t = t_max and prim -1 on
     a miss, t = ts / det by one divide per ray; overflow rays may miss
     hits and are re-run by the caller."""
-    lists, overflow = kept_lists(row_words, C, mult)
-    out = rows_closest_walk(ch, lists, o, d, t_max, None if skip is None
-                            else skip.to(torch.float32).contiguous())
+    with pass_scope("traverse.layout"):
+        lists, overflow = kept_lists(row_words, C, mult)
+    with pass_scope("traverse.walk"):
+        out = rows_closest_walk(ch, lists, o, d, t_max, None if skip is None
+                                else skip.to(torch.float32).contiguous())
     prim = out[1]
     t = torch.where(prim >= 0.0, out[0] / out[2], t_max)
     return t, prim.to(torch.int32), overflow.repeat_interleave(LANES)
@@ -395,9 +398,11 @@ def rows_any_w(ch, row_words, o, d, t_max, skip_light, *, C: int,
     """Occlusion by the row-union walk (``rows_any_w``).  Returns
     (occluded [N] bool, overflow [N]); an overflow ray may be falsely
     unoccluded."""
-    lists, overflow = kept_lists(row_words, C, mult)
-    occ = rows_any_walk(ch, lists, o, d, t_max,
-                        skip_light.to(torch.float32).contiguous())
+    with pass_scope("traverse.layout"):
+        lists, overflow = kept_lists(row_words, C, mult)
+    with pass_scope("traverse.walk"):
+        occ = rows_any_walk(ch, lists, o, d, t_max,
+                            skip_light.to(torch.float32).contiguous())
     return occ > 0, overflow.repeat_interleave(LANES)
 
 

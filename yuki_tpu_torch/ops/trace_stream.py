@@ -36,7 +36,7 @@ from __future__ import annotations
 
 import torch
 
-from ..profiling import host_read
+from ..profiling import host_read, pass_scope
 from . import _build
 from .trace import F32_MAX, ray_shear, scaled_min8, watertight, watertight_scaled
 
@@ -546,38 +546,43 @@ def stream_closest_l(ch, lists, overflow, o, d, t_max, C: int = C_MAIN,
     caller falls back."""
     n = o.shape[0]
     t_out, prim = t_max.clone(), torch.full_like(t_max, -1, dtype=torch.int32)
-    slots = _slots(ch, lists, C, mult, mult_wide, n if budget_n is None
-                   else budget_n)
-    if slots is None:
-        return t_out, prim, overflow, False
-    slot_pos, slot_ray, row_chunk, valid = slots
-    if row_chunk.numel() == 0:
-        return t_out, prim, overflow, True
-    out = slot_closest(ch.rows, ch.leaf_size, row_chunk,
-                       _pack_stream(o, d, t_max, slot_ray, valid, extra=skip),
-                       with_skip=skip is not None)
-    # One IEEE divide per slot resolves the scaled carry.
-    slot_t = out[0] / out[2]
-    slot_prim = out[1]
-    hitv = valid.reshape(-1) & (slot_prim >= 0.0)
-    pos = torch.where(hitv, slot_pos.reshape(-1), n * C)
-    tmat = torch.full((n * C + 1,), F32_MAX, device=o.device)
-    tmat.scatter_(0, pos, torch.where(hitv, slot_t, F32_MAX))
-    pmat = torch.full((n * C + 1,), BIG, device=o.device)
-    pmat.scatter_(0, pos, torch.where(hitv, slot_prim, BIG))
-    tmat, pmat = tmat[:-1].reshape(n, C), pmat[:-1].reshape(n, C)
-    t_win = tmat.amin(dim=1)
-    # The lowest prim id among exact-t ties.
-    prim_w = torch.where(tmat == t_win[:, None], pmat, BIG).amin(dim=1)
-    hit = t_win < F32_MAX
-    return (torch.where(hit, t_win, t_max),
-            torch.where(hit, prim_w, -1.0).to(torch.int32), overflow, True)
+    with pass_scope("traverse.layout"):
+        slots = _slots(ch, lists, C, mult, mult_wide, n if budget_n is None
+                       else budget_n)
+        if slots is None:
+            return t_out, prim, overflow, False
+        slot_pos, slot_ray, row_chunk, valid = slots
+        if row_chunk.numel() == 0:
+            return t_out, prim, overflow, True
+        stream = _pack_stream(o, d, t_max, slot_ray, valid, extra=skip)
+    with pass_scope("traverse.walk"):
+        out = slot_closest(ch.rows, ch.leaf_size, row_chunk, stream,
+                           with_skip=skip is not None)
+    with pass_scope("traverse.merge"):
+        # One IEEE divide per slot resolves the scaled carry.
+        slot_t = out[0] / out[2]
+        slot_prim = out[1]
+        hitv = valid.reshape(-1) & (slot_prim >= 0.0)
+        pos = torch.where(hitv, slot_pos.reshape(-1), n * C)
+        tmat = torch.full((n * C + 1,), F32_MAX, device=o.device)
+        tmat.scatter_(0, pos, torch.where(hitv, slot_t, F32_MAX))
+        pmat = torch.full((n * C + 1,), BIG, device=o.device)
+        pmat.scatter_(0, pos, torch.where(hitv, slot_prim, BIG))
+        tmat, pmat = tmat[:-1].reshape(n, C), pmat[:-1].reshape(n, C)
+        t_win = tmat.amin(dim=1)
+        # The lowest prim id among exact-t ties.
+        prim_w = torch.where(tmat == t_win[:, None], pmat, BIG).amin(dim=1)
+        hit = t_win < F32_MAX
+        return (torch.where(hit, t_win, t_max),
+                torch.where(hit, prim_w, -1.0).to(torch.int32), overflow,
+                True)
 
 
 def stream_closest_w(ch, words, o, d, t_max, C: int = C_MAIN, mult=6,
                      mult_wide=None, budget_n=None, skip=None):
     """``stream_closest_l`` from dense crossing words."""
-    lists, overflow = extract_lists(words, C)
+    with pass_scope("traverse.cull"):
+        lists, overflow = extract_lists(words, C)
     return stream_closest_l(ch, lists, overflow, o, d, t_max, C=C, mult=mult,
                             mult_wide=mult_wide, budget_n=budget_n, skip=skip)
 
@@ -586,10 +591,13 @@ def stream_closest(ch, shading_packed, o, d, t_max, C: int = C_MAIN,
                    mult=6, mult_wide=None, budget_n=None, skip=None):
     """The wide pass's closest hit: crossing words, lists, slot walk and
     barycentrics.  Returns (t, prim, b0, b1, overflow, ok)."""
+    with pass_scope("traverse.cull"):
+        words = cross_words(ch, o, d, t_max)
     t, prim, overflow, ok = stream_closest_w(
-        ch, cross_words(ch, o, d, t_max), o, d, t_max, C=C, mult=mult,
-        mult_wide=mult_wide, budget_n=budget_n, skip=skip)
-    b0, b1 = _recompute_bary(shading_packed, o, d, t, prim)
+        ch, words, o, d, t_max, C=C, mult=mult, mult_wide=mult_wide,
+        budget_n=budget_n, skip=skip)
+    with pass_scope("traverse.bary"):
+        b0, b1 = _recompute_bary(shading_packed, o, d, t, prim)
     return t, prim, b0, b1, overflow, ok
 
 
@@ -599,27 +607,31 @@ def stream_any_l(ch, lists, overflow, o, d, t_max, skip_light,
     (occluded [N] bool, overflow, ok); as stream_closest_l."""
     n = o.shape[0]
     occ = torch.zeros(n, dtype=torch.bool, device=o.device)
-    slots = _slots(ch, lists, C, mult, mult_wide, n if budget_n is None
-                   else budget_n)
-    if slots is None:
-        return occ, overflow, False
-    _, slot_ray, row_chunk, valid = slots
-    if row_chunk.numel() == 0:
-        return occ, overflow, True
-    stream = _pack_stream(o, d, t_max, slot_ray, valid,
-                          extra=skip_light.to(torch.float32))
-    occ_slot = (slot_any(ch.rows, ch.leaf_size, row_chunk, stream) > 0) & (
-        valid.reshape(-1))
-    bucket = torch.where(occ_slot, slot_ray.reshape(-1), n)
-    hit = torch.zeros(n + 1, dtype=torch.uint8, device=o.device)
-    hit.index_fill_(0, bucket, 1)
-    return hit[:n] > 0, overflow, True
+    with pass_scope("traverse.layout"):
+        slots = _slots(ch, lists, C, mult, mult_wide, n if budget_n is None
+                       else budget_n)
+        if slots is None:
+            return occ, overflow, False
+        _, slot_ray, row_chunk, valid = slots
+        if row_chunk.numel() == 0:
+            return occ, overflow, True
+        stream = _pack_stream(o, d, t_max, slot_ray, valid,
+                              extra=skip_light.to(torch.float32))
+    with pass_scope("traverse.walk"):
+        occ_slot = slot_any(ch.rows, ch.leaf_size, row_chunk, stream) > 0
+    with pass_scope("traverse.merge"):
+        occ_slot = occ_slot & valid.reshape(-1)
+        bucket = torch.where(occ_slot, slot_ray.reshape(-1), n)
+        hit = torch.zeros(n + 1, dtype=torch.uint8, device=o.device)
+        hit.index_fill_(0, bucket, 1)
+        return hit[:n] > 0, overflow, True
 
 
 def stream_any_w(ch, words, o, d, t_max, skip_light, C: int = C_MAIN,
                  mult=5, mult_wide=None, budget_n=None):
     """``stream_any_l`` from dense crossing words."""
-    lists, overflow = extract_lists(words, C)
+    with pass_scope("traverse.cull"):
+        lists, overflow = extract_lists(words, C)
     return stream_any_l(ch, lists, overflow, o, d, t_max, skip_light, C=C,
                         mult=mult, mult_wide=mult_wide, budget_n=budget_n)
 
@@ -628,9 +640,10 @@ def stream_any(ch, o, d, t_max, skip_light, C: int = C_MAIN, mult=5,
                mult_wide=None, budget_n=None):
     """The wide pass's occlusion: crossing words, lists and slot walk.
     Returns (occluded, overflow, ok)."""
-    return stream_any_w(ch, cross_words(ch, o, d, t_max), o, d, t_max,
-                        skip_light, C=C, mult=mult, mult_wide=mult_wide,
-                        budget_n=budget_n)
+    with pass_scope("traverse.cull"):
+        words = cross_words(ch, o, d, t_max)
+    return stream_any_w(ch, words, o, d, t_max, skip_light, C=C, mult=mult,
+                        mult_wide=mult_wide, budget_n=budget_n)
 
 
 def _recompute_bary(shading_packed, o, d, t, prim):

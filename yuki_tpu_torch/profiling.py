@@ -51,15 +51,18 @@ TRACE_FILE = "trace.json"
 
 
 # Every pass_scope range: the shading and wave passes, then the renderer's
-# wave loop, the stratified sampler, Whitted's tree steps and the
-# collector's passes.
+# wave loop, the stratified sampler, Whitted's tree steps, the collector's
+# passes and the treelet dispatch's stages.
 SCOPES = ("trace.closest", "shade.fused", "trace.occlusion",
           "shade.resolve", "path_fused.wave1k", "path_fused.raygen_trace",
           "path_fused.bounces", "shade.surface", "shade.nee",
           "shade.bsdf_sample",
           "renderer.frame_setup", "renderer.wave_prep", "renderer.launch",
           "renderer.read_rays", "renderer.film_add", "renderer.report",
-          "sampling.stratified", "whitted.step", "python.gc")
+          "sampling.stratified", "whitted.step", "python.gc",
+          "traverse.sort", "traverse.probe", "traverse.cull",
+          "traverse.layout", "traverse.walk", "traverse.merge",
+          "traverse.wide", "traverse.fallback", "traverse.bary")
 
 _OFF = contextlib.nullcontext()
 

@@ -41,6 +41,16 @@ origin, direction bits) and the results unsorted (``_sorted_call``):
 6. Closest hits get their barycentrics from the winning triangle
    (``_recompute_bary``), for the first ``bary_count`` lanes when given.
 
+Under a profiler the dispatch's stages are spans (``profiling.SCOPES``):
+``traverse.sort`` (the sort key, sort and unsort), ``traverse.probe``
+(the interval probe and the rows engine's demand), ``traverse.cull``
+(the two-level cull, crossing words and the lists drawn from them),
+``traverse.layout`` (the overflow compaction, the rows engine's pair
+budget, the slot layout and pack), ``traverse.walk`` (the row, slot,
+walker and bundle kernels), ``traverse.merge`` (the per-ray merge of slot
+results), ``traverse.wide`` (the wide re-run), ``traverse.fallback`` (the
+treelet walk) and ``traverse.bary``.
+
 ``intersect(skip_light=...)`` serves combined closest + shadow waves: each
 lane ignores the triangles of its skip light (the reference's sampled-light
 exclusion, bvh.rs:287-293), closest lanes passing -2, which matches no
@@ -55,7 +65,9 @@ Every engine is exact, so the branches agree on prim and occlusion; the
 row and slot engines' t is one IEEE divide of a scaled hit, the walk's a
 multiply by a reciprocal, so t may differ by an ulp between them.
 ``COUNTS`` records calls per branch, overflow rays, wide re-runs,
-fallbacks and host reads (``counts()``).
+fallbacks and host reads (``counts()``), and the real lanes that enter
+the dispatch (``dispatch_lanes``, before padding) and of those the lanes
+of waves sent to the treelet walk (``fallback_lanes``).
 
 ``intersect(with_stats=True)`` takes the threaded BVH walk
 (``intersect_bvh``, traverse.py:171-228) on every scene, dense or treelet,
@@ -83,6 +95,7 @@ from typing import NamedTuple
 import torch
 
 from . import profiling
+from .profiling import pass_scope
 from .intersect import ray_spheres, ray_triangle, slab_test
 from .ops import trace_stream as ts
 from .ops._build import bump
@@ -117,6 +130,7 @@ COUNTS = {
     "closest_bundle": 0,
     "any_slot": 0, "any_rows": 0, "any_walker": 0, "any_bundle": 0,
     "overflow_rays": 0, "wide_reruns": 0, "fallbacks": 0,
+    "dispatch_lanes": 0, "fallback_lanes": 0,
     "bvh_walks": 0, "bvh_steps": 0,
 }
 
@@ -361,12 +375,15 @@ def _sorted_call(scene, o, d, t_max, extra, fn, skip_sort: bool = False):
     if skip_sort:
         return tuple(fn(o, d, t_max, extra))
     n = o.shape[0]
-    order = torch.argsort(ray_sort_key(scene, o, d), stable=True)
-    outs = fn(o[order], d[order], t_max[order],
-              None if extra is None else extra[order])
-    inv = torch.empty_like(order)
-    inv[order] = torch.arange(n, device=order.device)
-    return tuple(x[inv] if x.ndim else x for x in outs)
+    with pass_scope("traverse.sort"):
+        order = torch.argsort(ray_sort_key(scene, o, d), stable=True)
+        args = (o[order], d[order], t_max[order],
+                None if extra is None else extra[order])
+    outs = fn(*args)
+    with pass_scope("traverse.sort"):
+        inv = torch.empty_like(order)
+        inv[order] = torch.arange(n, device=order.device)
+        return tuple(x[inv] if x.ndim else x for x in outs)
 
 
 def _rows_demand(row_words):
@@ -420,128 +437,171 @@ def _wide_cap(n_ov: int) -> int:
     return ts.OV_CAP
 
 
-def _closest_dispatch(scene, meta, o, d, t_max, skip=None, n_bary=None):
+def _probe(ch, o, d, t_max):
+    """(the interval probe's row words, whether the wave is coherent)."""
+    with pass_scope("traverse.probe"):
+        row_words = row_words_interval(ch, o, d, t_max)
+        return row_words, _coherent(row_words)
+
+
+def _overflow_indices(mask):
+    """The overflow lanes to re-run (``_compact_indices``), counted."""
+    with pass_scope("traverse.layout"):
+        idx, n_ov = _compact_indices(mask)
+    bump(COUNTS, "overflow_rays", n_ov)
+    return idx, n_ov
+
+
+def _closest_dispatch(scene, meta, o, d, t_max, skip=None, n_bary=None,
+                      n_real=None):
     """Triangle closest hit by the adaptive dispatch over padded rays;
     ``skip`` [N] i32 or None (traverse.py:430-638); barycentrics for the
-    first ``n_bary`` lanes (None: all), zeros past them."""
+    first ``n_bary`` lanes (None: all), zeros past them.  ``n_real``: the
+    lanes before padding (None: all), counted in ``dispatch_lanes``."""
     ch, tl = scene.chunks, scene.treelets
-    row_words = row_words_interval(ch, o, d, t_max)
-    if _coherent(row_words):
+    n_real = o.shape[0] if n_real is None else n_real
+    bump(COUNTS, "dispatch_lanes", n_real)
+    row_words, coherent = _probe(ch, o, d, t_max)
+    if coherent:
         bump(COUNTS, "closest_rows")
         t, prim, ov = rows_closest_w(ch, row_words, o, d, t_max, C=_ROWS_C,
                                      mult=_ROWS_MULT, skip=skip)
         ok = True
     elif WALKER_CLOSEST:
         bump(COUNTS, "closest_walker")
-        t, prim, ov, ok = walker_closest_w(
-            ch, ts.cross_words(ch, o, d, t_max), o, d, t_max,
-            mult=WALKER_MULT[0], mult_wide=WALKER_MULT[1], skip=skip)
+        with pass_scope("traverse.cull"):
+            words = ts.cross_words(ch, o, d, t_max)
+        with pass_scope("traverse.walk"):
+            t, prim, ov, ok = walker_closest_w(
+                ch, words, o, d, t_max, mult=WALKER_MULT[0],
+                mult_wide=WALKER_MULT[1], skip=skip)
     elif meta.bun_closest > 1 and skip is None:
         bump(COUNTS, "closest_bundle")
         bun = meta.bun_closest
-        t, prim, ov, ok = bundles_closest_w(
-            ch, bundle_words(ts.cross_words(ch, o, d, t_max), bun), o, d,
-            t_max, C=meta.c_closest, mult=4 * meta.slot_mult_tight,
-            mult_wide=4 * meta.slot_mult + 4, bun=bun)
+        with pass_scope("traverse.cull"):
+            bwords = bundle_words(ts.cross_words(ch, o, d, t_max), bun)
+        with pass_scope("traverse.walk"):
+            t, prim, ov, ok = bundles_closest_w(
+                ch, bwords, o, d, t_max, C=meta.c_closest,
+                mult=4 * meta.slot_mult_tight,
+                mult_wide=4 * meta.slot_mult + 4, bun=bun)
     else:
         bump(COUNTS, "closest_slot")
         budget = dict(mult=meta.slot_mult_tight, mult_wide=meta.slot_mult,
                       skip=skip)
         if ch.n_treelets >= ts.CROSS_2L_MIN_CHUNKS:
-            lists, ov = candidate_lists_fused(ch, o, d, t_max, ts.C_MAIN)
+            with pass_scope("traverse.cull"):
+                lists, ov = candidate_lists_fused(ch, o, d, t_max, ts.C_MAIN)
             t, prim, ov, ok = ts.stream_closest_l(
                 ch, lists, ov, o, d, t_max, C=ts.C_MAIN, **budget)
         else:
+            with pass_scope("traverse.cull"):
+                words = ts.cross_words(ch, o, d, t_max)
             t, prim, ov, ok = ts.stream_closest_w(
-                ch, ts.cross_words(ch, o, d, t_max), o, d, t_max,
-                C=ts.C_MAIN, **budget)
+                ch, words, o, d, t_max, C=ts.C_MAIN, **budget)
     if ok:
-        idx, n_ov = _compact_indices(ov)
-        bump(COUNTS, "overflow_rays", n_ov)
+        idx, n_ov = _overflow_indices(ov)
         if n_ov > ts.OV_CAP:
             ok = False
         elif n_ov:
             # The compacted lanes are all live: yuki_tpu's dead tail of
             # the static cap (skip -2, t_max 0) is not built.
             bump(COUNTS, "wide_reruns")
-            t_w, p_w, _, _, ov2, ok2 = ts.stream_closest(
-                ch, scene.tris.shading_packed, o[idx], d[idx], t_max[idx],
-                C=ts.C_WIDE, mult=(ts.WIDE_LOW_MULT, ts.WIDE_TIGHT_MULT),
-                mult_wide=ts.C_WIDE, budget_n=_wide_cap(n_ov),
-                skip=None if skip is None else skip[idx])
-            t[idx] = t_w
-            prim[idx] = p_w
-            ok = ok2 and not ts.host_int(ov2.any())
+            with pass_scope("traverse.wide"):
+                t_w, p_w, _, _, ov2, ok2 = ts.stream_closest(
+                    ch, scene.tris.shading_packed, o[idx], d[idx],
+                    t_max[idx], C=ts.C_WIDE,
+                    mult=(ts.WIDE_LOW_MULT, ts.WIDE_TIGHT_MULT),
+                    mult_wide=ts.C_WIDE, budget_n=_wide_cap(n_ov),
+                    skip=None if skip is None else skip[idx])
+                t[idx] = t_w
+                prim[idx] = p_w
+                ok = ok2 and not ts.host_int(ov2.any())
     if not ok:
         bump(COUNTS, "fallbacks")
-        t, prim, b0, b1 = treelet_closest(tl, o, d, t_max)
-        if skip is not None:
-            # The walk has no skip: shadow lanes read only .hit, from the
-            # occlusion walk that has one.
-            occ = treelet_any(tl, o, d, t_max, skip)
-            prim = torch.where(skip != -2, occ.to(torch.int32) - 1, prim)
+        bump(COUNTS, "fallback_lanes", n_real)
+        with pass_scope("traverse.fallback"):
+            t, prim, b0, b1 = treelet_closest(tl, o, d, t_max)
+            if skip is not None:
+                # The walk has no skip: shadow lanes read only .hit, from
+                # the occlusion walk that has one.
+                occ = treelet_any(tl, o, d, t_max, skip)
+                prim = torch.where(skip != -2, occ.to(torch.int32) - 1, prim)
         return t, prim, b0, b1
     nb = o.shape[0] if n_bary is None else n_bary
-    b0, b1 = ts._recompute_bary(scene.tris.shading_packed, o[:nb], d[:nb],
-                                t[:nb], prim[:nb])
-    if nb < o.shape[0]:
-        pad = t.new_zeros(o.shape[0] - nb)
-        b0, b1 = torch.cat([b0, pad]), torch.cat([b1, pad])
+    with pass_scope("traverse.bary"):
+        b0, b1 = ts._recompute_bary(scene.tris.shading_packed, o[:nb],
+                                    d[:nb], t[:nb], prim[:nb])
+        if nb < o.shape[0]:
+            pad = t.new_zeros(o.shape[0] - nb)
+            b0, b1 = torch.cat([b0, pad]), torch.cat([b1, pad])
     return t, prim, b0, b1
 
 
-def _any_dispatch(scene, meta, o, d, t_max, skip):
-    """Triangle occlusion by the adaptive dispatch over padded rays."""
+def _any_dispatch(scene, meta, o, d, t_max, skip, n_real=None):
+    """Triangle occlusion by the adaptive dispatch over padded rays;
+    ``n_real`` as for ``_closest_dispatch``."""
     ch, tl = scene.chunks, scene.treelets
-    row_words = row_words_interval(ch, o, d, t_max)
-    if _coherent(row_words):
+    n_real = o.shape[0] if n_real is None else n_real
+    bump(COUNTS, "dispatch_lanes", n_real)
+    row_words, coherent = _probe(ch, o, d, t_max)
+    if coherent:
         bump(COUNTS, "any_rows")
         occ, ov = rows_any_w(ch, row_words, o, d, t_max, skip, C=_ROWS_C,
                              mult=_ROWS_MULT)
         ok = True
     elif WALKER_ANY:
         bump(COUNTS, "any_walker")
-        occ, ov, ok = walker_any_w(
-            ch, ts.cross_words(ch, o, d, t_max), o, d, t_max, skip,
-            mult=WALKER_MULT_ANY[0], mult_wide=WALKER_MULT_ANY[1])
+        with pass_scope("traverse.cull"):
+            words = ts.cross_words(ch, o, d, t_max)
+        with pass_scope("traverse.walk"):
+            occ, ov, ok = walker_any_w(
+                ch, words, o, d, t_max, skip, mult=WALKER_MULT_ANY[0],
+                mult_wide=WALKER_MULT_ANY[1])
     elif meta.bun_any > 1:
         bump(COUNTS, "any_bundle")
         bun = meta.bun_any
-        occ, ov, ok = bundles_any_w(
-            ch, bundle_words(ts.cross_words(ch, o, d, t_max), bun), o, d,
-            t_max, skip, C=meta.c_any,
-            mult=4 * max(3, meta.slot_mult_tight - 1),
-            mult_wide=4 * max(4, meta.slot_mult - 2) + 4, bun=bun)
+        with pass_scope("traverse.cull"):
+            bwords = bundle_words(ts.cross_words(ch, o, d, t_max), bun)
+        with pass_scope("traverse.walk"):
+            occ, ov, ok = bundles_any_w(
+                ch, bwords, o, d, t_max, skip, C=meta.c_any,
+                mult=4 * max(3, meta.slot_mult_tight - 1),
+                mult_wide=4 * max(4, meta.slot_mult - 2) + 4, bun=bun)
     else:
         bump(COUNTS, "any_slot")
         budget = dict(mult=max(3, meta.slot_mult_tight - 1),
                       mult_wide=max(4, meta.slot_mult - 2))
         if ch.n_treelets >= ts.CROSS_2L_MIN_CHUNKS:
-            lists, ov = candidate_lists_fused(ch, o, d, t_max, ts.C_MAIN)
+            with pass_scope("traverse.cull"):
+                lists, ov = candidate_lists_fused(ch, o, d, t_max, ts.C_MAIN)
             occ, ov, ok = ts.stream_any_l(ch, lists, ov, o, d, t_max, skip,
                                           C=ts.C_MAIN, **budget)
         else:
-            occ, ov, ok = ts.stream_any_w(
-                ch, ts.cross_words(ch, o, d, t_max), o, d, t_max, skip,
-                C=ts.C_MAIN, **budget)
+            with pass_scope("traverse.cull"):
+                words = ts.cross_words(ch, o, d, t_max)
+            occ, ov, ok = ts.stream_any_w(ch, words, o, d, t_max, skip,
+                                          C=ts.C_MAIN, **budget)
     if ok:
         # An occluded verdict is final even from a cut list: only the
         # unoccluded overflow rays re-run (traverse.py:771-777).
-        idx, n_ov = _compact_indices(ov & ~occ)
-        bump(COUNTS, "overflow_rays", n_ov)
+        idx, n_ov = _overflow_indices(ov & ~occ)
         if n_ov > ts.OV_CAP:
             ok = False
         elif n_ov:
             bump(COUNTS, "wide_reruns")
-            occ_w, ov2, ok2 = ts.stream_any(
-                ch, o[idx], d[idx], t_max[idx], skip[idx], C=ts.C_WIDE,
-                mult=(ts.WIDE_LOW_MULT, ts.WIDE_TIGHT_MULT),
-                mult_wide=ts.C_WIDE, budget_n=_wide_cap(n_ov))
-            occ[idx] = occ_w
-            ok = ok2 and not ts.host_int((ov2 & ~occ_w).any())
+            with pass_scope("traverse.wide"):
+                occ_w, ov2, ok2 = ts.stream_any(
+                    ch, o[idx], d[idx], t_max[idx], skip[idx], C=ts.C_WIDE,
+                    mult=(ts.WIDE_LOW_MULT, ts.WIDE_TIGHT_MULT),
+                    mult_wide=ts.C_WIDE, budget_n=_wide_cap(n_ov))
+                occ[idx] = occ_w
+                ok = ok2 and not ts.host_int((ov2 & ~occ_w).any())
     if not ok:
         bump(COUNTS, "fallbacks")
-        return treelet_any(tl, o, d, t_max, skip)
+        bump(COUNTS, "fallback_lanes", n_real)
+        with pass_scope("traverse.fallback"):
+            return treelet_any(tl, o, d, t_max, skip)
     return occ
 
 
@@ -574,7 +634,8 @@ def intersect(scene, meta, o, d, t_max, skip_light=None, skip_sort=False,
                 -(-bary_count // ts.LANES) * ts.LANES, n)
             return tuple(x[:n0] for x in _closest_dispatch(
                 scene, meta, *padded[:3],
-                skip=None if sk is None else padded[3], n_bary=nb))
+                skip=None if sk is None else padded[3], n_bary=nb,
+                n_real=n0))
 
         t, prim, b0, b1 = _sorted_call(scene, o, d, t_max, skip_light, run,
                                        skip_sort)
@@ -603,7 +664,7 @@ def any_intersect(scene, meta, o, d, t_max, skip_light,
         def run(o, d, t_max, sk):
             n0 = o.shape[0]
             return (_any_dispatch(scene, meta, *_pad128(
-                scene, o, d, t_max, sk))[:n0],)
+                scene, o, d, t_max, sk), n_real=n0)[:n0],)
 
         (occ,) = _sorted_call(scene, o, d, t_max, skip_light, run, skip_sort)
     return occ | ray_spheres(o, d, t_max, scene.spheres).hit
