@@ -173,6 +173,12 @@ beside this file.  It imports no JAX.  Phases:
      waves) and the colonnade (2048-tile waves; its queries take the
      coherence sort), each the median wall time of three, with
      closest-hit rays, launches per kernel, tree steps and host reads;
+     Whitted's shade and resolve kernels (whitted_fused.cu) on Cornell's
+     1,048,576-lane wave (StratifiedSampler(1, 1)): step 0 against their
+     plain twins bit for bit, each timed with CUDA events against its
+     bytes bound, with its registers and spills, and the 1080p frame by
+     the kernels against the chain (integrators._card_lanes forced off)
+     bit for bit, both timed;
      the 1080p Cornell Path d5 1 spp frame through path_li with the fused
      wave off, by the shading chain (FUSED_SHADE_MODE "off") against the
      shade kernels (the deep bounds, rays within 1%), each timed; the four
@@ -272,6 +278,11 @@ KERNELS = {  # name: (source, the TPU kernel it replaces)
     "pairs_any": ("trace_pairs.cu", "yuki_tpu/ops/trace_pairs.py:219"),
     # No TPU kernel: yuki_tpu draws a StratifiedSampler's values as XLA ops.
     "strat_draws": ("sampling.cu", "yuki_tpu/sampling.py:180"),
+    # No TPU kernel: yuki_tpu runs Whitted's tree step as XLA ops.
+    "whitted_shade": ("whitted_fused.cu",
+                      "yuki_tpu/integrators/__init__.py:395"),
+    "whitted_resolve": ("whitted_fused.cu",
+                        "yuki_tpu/integrators/__init__.py:395"),
 }
 # The with_skip variants: no main-path frame launches them (no integrator
 # of yuki_tpu makes combined closest + shadow waves); phase 12 drives them.
@@ -531,10 +542,11 @@ def bounce_bound(tb, state_bytes, stats):
 def _kernel_modules():
     from yuki_tpu_torch.ops import (path_fused, shade_fused, trace, trace_cull,
                                     trace_pairs, trace_rows, trace_stream,
-                                    trace_treelets, trace_walker)
+                                    trace_treelets, trace_walker,
+                                    whitted_fused)
 
     return (path_fused, shade_fused, trace_treelets, trace_cull, trace_stream,
-            trace_rows, trace, trace_walker, trace_pairs)
+            trace_rows, trace, trace_walker, trace_pairs, whitted_fused)
 
 
 def reset_all_launches():
@@ -3344,6 +3356,143 @@ def phase_whitted(torch, np, dev, card, col_scene, col_cam):
               f"dispatch {counts}, image mean {float(img.mean()):.5f} [{card}]")
 
 
+def whitted_bytes(n, n_lights):
+    """(shade, resolve) bytes of a Whitted step over n lanes, each lane
+    counted as if it read and wrote all it may (tables left out: they stay
+    in cache).  Shade reads the ray (24), carry (scale 12, depth 4, spec,
+    active), t_max, the triangles' hit (16), the ray count and 8 B of
+    draws a light; writes the count, 40 B a light (shadow ray, t_max,
+    contribution), the emission (12), two children (72) and the flags.
+    Resolve reads the flags, 41 B a light (t_max, verdict, ray for the
+    sphere test, contribution), the emission, carry and radiance, both
+    children and a stack entry (37); writes the radiance, a stack entry,
+    the next ray and carry (47), t_max, sp and the pending flag."""
+    shade = n * ((24 + 12 + 4 + 1 + 1 + 4 + 16 + 4 + 8 * n_lights)
+                 + (4 + 40 * n_lights + 12 + 72 + 1))
+    resolve = n * ((1 + 41 * n_lights + 12 + 12 + 4 + 4 + 12 + 72 + 37)
+                   + (12 + 37 + 47 + 4 + 4 + 1))
+    return shade, resolve
+
+
+def phase_whitted_kernels(torch, np, dev, card):
+    """Whitted's shade and resolve kernels on a wave of Cornell's 1080p
+    film (WAVE_TILES tiles, StratifiedSampler(1, 1), Whitted(3)): step 0
+    against the plain twins bit for bit, each kernel timed with CUDA events
+    against its bytes bound, its registers and spills; then the 1080p
+    frame by the kernels against the chain (its route on CPU lanes, forced
+    by integrators._card_lanes), bit for bit, with both walls and the
+    kernels' launches."""
+    import dataclasses
+
+    from yuki_tpu_torch import integrators as tintg
+    from yuki_tpu_torch import traverse
+    from yuki_tpu_torch.camera import Camera
+    from yuki_tpu_torch.film import FilmSettings
+    from yuki_tpu_torch.integrators import WhittedParams
+    from yuki_tpu_torch.ops import whitted_fused as wf
+    from yuki_tpu_torch.renderer import render_frame
+    from yuki_tpu_torch.sampling import SampleCtx, StratifiedSampler
+    from yuki_tpu_torch.scene.cornell import cornell
+
+    _, px, py = _cornell_wave(torch, dev)
+    scene, cam, _ = cornell(device=dev)
+    data, meta = scene.data, scene.meta
+    sam = StratifiedSampler(1, 1)
+    ctx = SampleCtx(px=px, py=py, sample_index=0, seed=2 ** 31 + 5)
+    u = sam.get_2d(ctx, 0)
+    o, d = Camera.create(cam, *RES).ray(
+        torch.stack([px.float(), py.float()], -1) + u)
+    n, n_lights = px.shape[0], len(meta.light_types)
+    tb = wf.make_whitted_tables(scene, WhittedParams(3), n)
+
+    def fresh():
+        return wf.init_state(tb, o.contiguous(), d.contiguous())
+
+    def copy(st):
+        return dataclasses.replace(st, **{
+            f.name: ({k: v.clone() for k, v in st.stack.items()}
+                     if f.name == "stack" else getattr(st, f.name).clone())
+            for f in dataclasses.fields(st)})
+
+    def same(a, b):
+        if a.dtype == torch.float32:
+            return torch.equal(a.view(torch.int32), b.view(torch.int32))
+        return torch.equal(a, b)
+
+    st = fresh()
+    draws = wf.step_draws(sam, ctx, 2, n_lights)
+    tri = traverse.closest_triangles(data, meta, st.o, st.d, st.t_max)
+    st_p = copy(st)
+    so = wf.whitted_shade(tb, st, tri, 2, draws)
+    so_p = wf.whitted_shade_plain(tb, st_p, tri, 2, draws)
+    for f in wf.ShadeOut._fields:
+        check(same(getattr(so, f), getattr(so_p, f)),
+              f"whitted_shade: {f} differs from the plain twin's")
+    occ = traverse.any_triangles(data, meta, so.no, so.nd, so.nt, tb.skip)
+    st_r, st_rp = copy(st), copy(st)
+    wf.whitted_resolve(tb, st_r, so, occ)
+    wf.whitted_resolve_plain(tb, st_rp, so, occ)
+    for f in dataclasses.fields(st_r):
+        if f.name == "stack":
+            ok = all(same(st_r.stack[k], st_rp.stack[k]) for k in st_r.stack)
+        else:
+            ok = same(getattr(st_r, f.name), getattr(st_rp, f.name))
+        check(ok, f"whitted_resolve: {f.name} differs from the plain twin's")
+
+    b_shade, b_resolve = whitted_bytes(n, n_lights)
+    ms_s = cuda_ms(torch, lambda: wf.whitted_shade(tb, st, tri, 2, draws), 20)
+    ms_sp = cuda_ms(torch, lambda: wf.whitted_shade_plain(
+        tb, copy(st), tri, 2, draws), 3)
+    ms_r = cuda_ms(torch, lambda: wf.whitted_resolve(tb, copy(st), so, occ),
+                   20)
+    ms_copy = cuda_ms(torch, lambda: copy(st), 20)
+    ms_rp = cuda_ms(torch, lambda: wf.whitted_resolve_plain(
+        tb, copy(st), so, occ), 3)
+    ms_r, ms_rp = ms_r - ms_copy, ms_rp - ms_copy
+    result = {}
+    for name, ms, ms_p, nb in (("whitted_shade", ms_s, ms_sp, b_shade),
+                               ("whitted_resolve", ms_r, ms_rp, b_resolve)):
+        b_ms = nb / PEAK_BYTES * 1e3
+        result[name] = dict(max_abs_err=0.0, ms=ms, plain_ms=ms_p,
+                            bound_ms=b_ms, bound_by="bytes")
+        print(f"{name} [{n} lanes, Cornell step 0, {sampler_name(sam)}]: "
+              f"kernel {ms:.4f} ms, plain {ms_p:.4f} ms, bound {b_ms:.4f} ms "
+              f"(bytes; {nb / n:.0f} B a lane); every output equal to the "
+              f"twin's; {ptxas_usage(name + '_kernel')} [{card}]")
+    print(f"  (resolve timed on a copy of the state each call: "
+          f"{ms_copy:.4f} ms of copying taken off)")
+
+    fs = FilmSettings(res=RES, tile_dim=16)
+    out = {}
+    card_lanes = tintg._card_lanes
+    try:
+        for kernels in (False, True):
+            tintg._card_lanes = lambda o: kernels
+            out[kernels] = _frames(torch, lambda: render_frame(
+                scene, cam, fs, sam, WhittedParams(3),
+                wave_tiles=WAVE_TILES, seed=7))
+    finally:
+        tintg._card_lanes = card_lanes
+    chain, fused = out[False], out[True]
+    img_c, img_f = chain[0][0].film.image(), fused[0][0].film.image()
+    check(img_c.tobytes() == img_f.tobytes()
+          and chain[0][0].ray_count == fused[0][0].ray_count,
+          "whitted frame: the kernels' image or rays differ from the chain's")
+    check(fused[3]["whitted_fused_steps"] == fused[3]["whitted_steps"] > 2
+          and chain[3]["whitted_fused_steps"] == 0,
+          f"whitted frame: steps {fused[3]} / {chain[3]}")
+    launches = {k: fused[2].get(k, 0) for k in ("whitted_shade",
+                                                "whitted_resolve")}
+    (med_c, all_c), (med_f, all_f) = _walls(chain[1]), _walls(fused[1])
+    rays = fused[0][0].ray_count
+    print(f"whitted frame cornell {RES[0]}x{RES[1]} Whitted(3) "
+          f"{sampler_name(sam)} {WAVE_TILES}-tile waves: chain {med_c:.3f} s "
+          f"(median of {all_c}), kernels {med_f:.3f} s (median of {all_f}) "
+          f"= {rays / med_f / 1e6:.2f} Mrays/s; image and {rays} rays equal; "
+          f"{fused[3]['whitted_steps']} steps; launches {fused[2]} [{card}]")
+    return result, launches
+
+
 def phase_path_chain(torch, np, dev, card):
     """Phase 16's path chain: the 1080p Cornell frame at depth 5, 1 spp,
     through path_li with the fused wave off, by the shading chain against
@@ -3989,6 +4138,10 @@ def main():
         print(f"phases 14-15: {time.monotonic() - t_new:.1f} s")
         t_new = time.monotonic()
         phase_whitted(torch, np, dev, card, scene, cam)
+        whitted_kernels, whitted_launches = phase_whitted_kernels(
+            torch, np, dev, card)
+        kernels.update(whitted_kernels)
+        launches.update(whitted_launches)
         phase_path_chain(torch, np, dev, card)
         phase_debug_views(torch, np, dev, card, scene, cam)
         print(f"phase 16: {time.monotonic() - t_new:.1f} s")

@@ -82,6 +82,11 @@ BARRIERS = {
     # a visited treelet's block_max gives r*.
     "pairs_closest_kernel": (3, 1),
     "pairs_any_kernel": (3, 2),
+    # sampling.cu: none.
+    "strat_draws_kernel": (0, 0),
+    # whitted_fused.cu: none.
+    "whitted_shade_kernel": (0, 0),
+    "whitted_resolve_kernel": (0, 0),
     # trace_walker.cu: none; a warp walks a bundle.
     "walker_closest_kernel<false>": (0, 0),
     "walker_closest_kernel<true>": (0, 0),

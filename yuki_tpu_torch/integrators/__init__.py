@@ -19,7 +19,11 @@ integrators/mod.rs:32-53):
                   ``lights.area_light_radiance``, ``bsdf.bsdf_sample``.
   ``whitted_li``  Whitted: direct lighting plus perfect specular
                   reflection and transmission (:395-568), the recursion
-                  walked as a per-lane depth-first stack.
+                  walked as a per-lane depth-first stack.  On CUDA lanes
+                  each tree step is the triangles' closest query, the
+                  shade kernel, their occlusion query and the resolve
+                  kernel (``ops/whitted_fused``); on CPU lanes the
+                  shading chain.
   ``geometry_normals_li``, ``shading_normals_li``, ``shading_uvs_li``,
   ``bvh_intersections_li``  the debug views (:571-611); the last reads the
                   threaded BVH walk's node steps.
@@ -30,7 +34,8 @@ bounce), Whitted 2L a tree step.  Whitted and the debug views call the
 scene queries without ``skip_sort``, so treelet scenes take the coherence
 sort there, as in yuki_tpu.  Loops that end on the data (Whitted's tree,
 the BVH walk) read one flag on the host a step, as yuki_tpu's
-``while_loop`` conds read ``jnp.any``; ``COUNTS`` counts Whitted's steps.
+``while_loop`` conds read ``jnp.any``; ``COUNTS`` counts Whitted's steps
+and, of those, the steps the kernels served.
 """
 
 from __future__ import annotations
@@ -77,12 +82,14 @@ FUSED_SHADE_MODE = "auto"
 # full tree to depth 8 and every practical reflect / transmit chain above.
 _MAX_SPECULAR_STEPS = 255
 
-# Whitted's tree steps since reset_counts().
-COUNTS = {"whitted_steps": 0}
+# Whitted's tree steps since reset_counts(), and of those the steps the
+# shade and resolve kernels served.
+COUNTS = {"whitted_steps": 0, "whitted_fused_steps": 0}
 
 
 def reset_counts() -> None:
-    COUNTS["whitted_steps"] = 0
+    for k in COUNTS:
+        COUNTS[k] = 0
 
 
 def _benign_d(like: torch.Tensor) -> torch.Tensor:
@@ -350,6 +357,55 @@ def _pop(stack, sp, mask):
     return item, sp - mask.to(torch.int32)
 
 
+def _card_lanes(o) -> bool:
+    """Whether the lanes live on the card, where whitted_li takes the
+    kernels."""
+    return o.device.type == "cuda"
+
+
+def _whitted_fused(scene, meta, params, sampler, ctx, o, d, dim):
+    """whitted_li's kernel route: per step the draws, the triangles'
+    closest query, the shade kernel, their occlusion query and the
+    resolve kernel (plain twins on CPU lanes)."""
+    from ..ops import whitted_fused as wf
+    from ..sampling import StratifiedSampler
+
+    data = scene.data
+    n = o.shape[0]
+    n_steps = whitted_step_budget(params.max_depth,
+                                  MAT_GLASS in meta.material_types)
+    n_lights = len(meta.light_types)
+    tb = wf.make_whitted_tables(scene, params, n)
+    st = wf.init_state(tb, o, d)
+    # The uniform sampler's values are hashed in the kernel from ph.
+    strat = isinstance(sampler, StratifiedSampler)
+    ph = _ph_i32(ctx) if n_lights and not strat else None
+    no_occ = torch.zeros(0, dtype=torch.bool, device=o.device)
+    step = 0
+    while step < n_steps:
+        with pass_scope("whitted.step"):
+            if not _host_any(st.pending):
+                break
+            bump(COUNTS, "whitted_steps")
+            bump(COUNTS, "whitted_fused_steps")
+            dim0 = dim + step * 2 * n_lights
+            draws = wf.step_draws(sampler, ctx, dim0, n_lights)
+            with pass_scope("trace.closest"):
+                tri_hit = traverse.closest_triangles(data, meta, st.o, st.d,
+                                                     st.t_max)
+            with pass_scope("shade.fused"):
+                so = wf.whitted_shade(tb, st, tri_hit, dim0, draws, ph)
+            occ = no_occ
+            if n_lights:
+                with pass_scope("trace.occlusion"):
+                    occ = traverse.any_triangles(data, meta, so.no, so.nd,
+                                                 so.nt, tb.skip)
+            with pass_scope("shade.resolve"):
+                wf.whitted_resolve(tb, st, so, occ)
+            step += 1
+    return LiResult(li=st.radiance, ray_count=st.ray_count)
+
+
 def whitted_li(scene, meta, params: WhittedParams, sampler, ctx, o, d,
                dim: int = 2) -> LiResult:
     """Whitted: direct lighting plus recursive perfect specular
@@ -362,7 +418,11 @@ def whitted_li(scene, meta, params: WhittedParams, sampler, ctx, o, d,
     on at once; a lane without one pops its stack, and a lane with
     neither is parked.  The loop ends when no lane is active and every
     stack is empty, or after ``whitted_step_budget`` steps.  NEE takes 2L
-    sampler dimensions a step from ``dim``.  ``scene``: the Scene."""
+    sampler dimensions a step from ``dim``.  ``scene``: the Scene.  CUDA
+    lanes take the shade and resolve kernels, with the chain's results bit
+    for bit."""
+    if _card_lanes(o):
+        return _whitted_fused(scene, meta, params, sampler, ctx, o, d, dim)
     data = scene.data
     n, dev = o.shape[0], o.device
     depth_cap = params.max_depth

@@ -15,6 +15,8 @@ headers, so the build takes seconds):
   trace_walker.cu    the bundle walks of divergent waves (closest, any)
   trace_pairs.cu     the block-pair treelet walks (closest, any)
   sampling.cu        the stratified sampler's draws, a list of them a launch
+  whitted_fused.cu   Whitted's tree step around the trace queries: shade,
+                     resolve
 
 ``path_fused.cuh`` holds the device maths they share, ``trace_stream.cuh``
 the slab and scaled watertight tests of the stream, cull, row and walker
@@ -46,7 +48,8 @@ from ..native import BUILD_DIR, locked_build
 CSRC = Path(__file__).resolve().parent / "csrc"
 UNITS = ("path_fused.cu", "shade_fused.cu", "trace_treelets.cu",
          "trace_stream.cu", "trace_cull.cu", "trace_rows.cu", "trace_dense.cu",
-         "trace_walker.cu", "trace_pairs.cu", "sampling.cu")
+         "trace_walker.cu", "trace_pairs.cu", "sampling.cu",
+         "whitted_fused.cu")
 SOURCES = UNITS + ("path_fused.cuh", "trace_stream.cuh", "trace_treelets.cuh")
 
 # -fmad=false: contracting a*b - c*d into an FMA changes the watertight
@@ -165,6 +168,9 @@ def _declare(lib: ctypes.CDLL) -> None:
         i, i, i, p, i,  # pixel_samples_x, _y, jitter, draw codes, n_draws
         p, p,  # out, stream
     ]
+    # device, a WhittedArgs (ops/whitted_fused._Args) by pointer, stream
+    lib.yk_whitted_shade.argtypes = [i, p, p]
+    lib.yk_whitted_resolve.argtypes = [i, p, p]
     for name in ("yk_raygen_trace", "yk_bounce", "yk_shade", "yk_resolve",
                  "yk_treelet_votes", "yk_treelet_closest", "yk_treelet_any",
                  "yk_cross_words",
@@ -172,7 +178,7 @@ def _declare(lib: ctypes.CDLL) -> None:
                  "yk_rows_closest", "yk_rows_any", "yk_dense_closest",
                  "yk_dense_any", "yk_walker_closest", "yk_walker_any",
                  "yk_wave", "yk_pairs_closest", "yk_pairs_any",
-                 "yk_strat_draws"):
+                 "yk_strat_draws", "yk_whitted_shade", "yk_whitted_resolve"):
         getattr(lib, name).restype = i
     lib.yk_error_string.argtypes = [i]
     lib.yk_error_string.restype = ctypes.c_char_p

@@ -605,6 +605,26 @@ def _any_dispatch(scene, meta, o, d, t_max, skip, n_real=None):
     return occ
 
 
+def closest_triangles(scene, meta, o, d, t_max, skip_light=None,
+                      skip_sort=False, bary_count=None):
+    """The triangles' part of ``intersect``: the dense sweep or the
+    treelet dispatch, no spheres.  Returns (t, prim i32, b0, b1) [N]."""
+    if meta.traversal == "dense":
+        return intersect_dense(scene, o, d, t_max, skip_light)
+
+    def run(o, d, t_max, sk):
+        n0 = o.shape[0]
+        padded = _pad128(scene, o, d, t_max, *(() if sk is None else (sk,)))
+        n = padded[0].shape[0]
+        nb = None if bary_count is None or not skip_sort else min(
+            -(-bary_count // ts.LANES) * ts.LANES, n)
+        return tuple(x[:n0] for x in _closest_dispatch(
+            scene, meta, *padded[:3], skip=None if sk is None else padded[3],
+            n_bary=nb, n_real=n0))
+
+    return _sorted_call(scene, o, d, t_max, skip_light, run, skip_sort)
+
+
 def intersect(scene, meta, o, d, t_max, skip_light=None, skip_sort=False,
               bary_count=None, with_stats=False):
     """Full scene closest hit: the dense sweep or the treelet dispatch
@@ -622,23 +642,9 @@ def intersect(scene, meta, o, d, t_max, skip_light=None, skip_sort=False,
     if with_stats:
         t, prim, b0, b1, steps = intersect_bvh(
             scene, o, d, t_max, meta.bvh_max_leaf, True, skip_light)
-    elif meta.traversal == "dense":
-        t, prim, b0, b1 = intersect_dense(scene, o, d, t_max, skip_light)
     else:
-        def run(o, d, t_max, sk):
-            n0 = o.shape[0]
-            padded = _pad128(scene, o, d, t_max,
-                             *(() if sk is None else (sk,)))
-            n = padded[0].shape[0]
-            nb = None if bary_count is None or not skip_sort else min(
-                -(-bary_count // ts.LANES) * ts.LANES, n)
-            return tuple(x[:n0] for x in _closest_dispatch(
-                scene, meta, *padded[:3],
-                skip=None if sk is None else padded[3], n_bary=nb,
-                n_real=n0))
-
-        t, prim, b0, b1 = _sorted_call(scene, o, d, t_max, skip_light, run,
-                                       skip_sort)
+        t, prim, b0, b1 = closest_triangles(scene, meta, o, d, t_max,
+                                            skip_light, skip_sort, bary_count)
     sh = ray_spheres(o, d, t_max, scene.spheres)
     sphere_wins = sh.hit & (sh.t < t)
     hit = SceneHit(
@@ -652,19 +658,26 @@ def intersect(scene, meta, o, d, t_max, skip_light=None, skip_sort=False,
     return (hit, steps) if with_stats else hit
 
 
+def any_triangles(scene, meta, o, d, t_max, skip_light,
+                  skip_sort=False) -> torch.Tensor:
+    """The triangles' part of ``any_intersect``: [N] bool, no spheres."""
+    if meta.traversal == "dense":
+        return any_intersect_dense(scene, o, d, t_max, skip_light)
+
+    def run(o, d, t_max, sk):
+        n0 = o.shape[0]
+        return (_any_dispatch(scene, meta, *_pad128(
+            scene, o, d, t_max, sk), n_real=n0)[:n0],)
+
+    (occ,) = _sorted_call(scene, o, d, t_max, skip_light, run, skip_sort)
+    return occ
+
+
 def any_intersect(scene, meta, o, d, t_max, skip_light,
                   skip_sort=False) -> torch.Tensor:
     """Occlusion: triangles whose area-light id equals the lane's
     ``skip_light`` [N] i32 are ignored (the reference skips the sampled
     light, bvh.rs:287-293); any sphere hit occludes.  ``skip_sort``: as
     for ``intersect``.  Returns [N] bool."""
-    if meta.traversal == "dense":
-        occ = any_intersect_dense(scene, o, d, t_max, skip_light)
-    else:
-        def run(o, d, t_max, sk):
-            n0 = o.shape[0]
-            return (_any_dispatch(scene, meta, *_pad128(
-                scene, o, d, t_max, sk), n_real=n0)[:n0],)
-
-        (occ,) = _sorted_call(scene, o, d, t_max, skip_light, run, skip_sort)
+    occ = any_triangles(scene, meta, o, d, t_max, skip_light, skip_sort)
     return occ | ray_spheres(o, d, t_max, scene.spheres).hit
